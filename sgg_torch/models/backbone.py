@@ -1,0 +1,114 @@
+"""Backbone feature extractors (NHWC at the interfaces).
+
+Counterpart of ``sgg_tpu/models/backbone.py`` (reference torchvision
+backbone assembly, ``sgg_models/rel_model_base.py:83-117``): a VGG16
+convolutional trunk with the final maxpool removed (stride-16 feature maps,
+512 channels), and the 4096-d fully-connected RoI heads cloned from the VGG
+classifier (``rel_model_base.py:110-111``, ``load_vgg`` ``:310-321``).
+
+The trunk's first conv is the CUDA kernel K2 (``ops/vgg_stem.py``); it
+returns channels-last activations, which the other twelve convs (cuDNN)
+keep, so the trunk's NHWC output needs no copy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from sgg_torch.ops.vgg_stem import vgg_conv1
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def normalize_images(x: torch.Tensor) -> torch.Tensor:
+    """ImageNet normalization for raw uint8 batches; float inputs are
+    taken as already normalized by the host pipeline."""
+    if x.dtype != torch.uint8:
+        return x
+    mean = torch.tensor(IMAGENET_MEAN, device=x.device) * 255.0
+    std = torch.tensor(IMAGENET_STD, device=x.device) * 255.0
+    return (x.float() - mean) / std
+
+
+# torchvision vgg16.features channel plan; 'M' = 2x2 maxpool
+# (the final 'M' of VGG16 is removed, rel_model_base.py:312).
+VGG16_CFG: Sequence[Any] = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+                            512, 512, 512, "M", 512, 512, 512)
+
+
+class VGG16Trunk(nn.Module):
+    """VGG16 conv trunk: (B, H, W, 3) -> (B, H/16, W/16, 512), NHWC."""
+
+    def __init__(self):
+        super().__init__()
+        convs, c_in = [], 3
+        for v in VGG16_CFG:
+            if v != "M":
+                convs.append(nn.Conv2d(c_in, v, 3, padding=1))
+                c_in = v
+        self.conv = nn.ModuleList(convs)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        dtype = self.conv[0].weight.dtype
+        x = normalize_images(images).to(dtype).contiguous()
+        stem = self.conv[0]
+        # K2: NHWC in, NHWC out; viewed as NCHW it is channels-last memory
+        x = vgg_conv1(x, stem.weight.permute(2, 3, 1, 0), stem.bias)
+        x = x.permute(0, 3, 1, 2)
+        i = 1
+        for v in VGG16_CFG[1:]:
+            if v == "M":
+                x = F.max_pool2d(x, 2, 2)
+            else:
+                x = F.relu(self.conv[i](x))
+                i += 1
+        return x.permute(0, 2, 3, 1).contiguous()
+
+
+class RoiHead(nn.Module):
+    """VGG classifier head over flattened P x P x C RoI features.
+
+    ``with_final_relu=True`` is ``roi_fmap_obj`` (fc6-relu-drop-fc7-relu-
+    drop); ``False`` is ``roi_fmap`` for edges (fc6-relu-drop-fc7,
+    rel_model_base.py:310-321). The flatten order is HWC, as in the JAX
+    package, so ``fc6.weight`` is the transposed flax kernel.
+
+    ``gather_idx`` expands a deduplicated fc6 output back to every ordered
+    edge slot; ``broadcast_add`` adds a per-edge vector that is constant
+    over the pool window through ``v @ sum_spatial(fc6.weight)`` — fc6 is
+    linear before its ReLU, so ``fc6(pool + bcast(v)) == fc6(pool) + v @
+    K_sum`` (``sgg_tpu/models/backbone.py:RoiHead``).
+    """
+
+    def __init__(self, in_dim: int, out_dim: int = 4096,
+                 with_final_relu: bool = False):
+        super().__init__()
+        self.fc6 = nn.Linear(in_dim, out_dim)
+        self.fc7 = nn.Linear(out_dim, out_dim)
+        self.drop = nn.Dropout(0.5)
+        self.with_final_relu = with_final_relu
+
+    def forward(self, x: torch.Tensor, *,
+                gather_idx: Optional[torch.Tensor] = None,
+                broadcast_add: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.fc6.weight.dtype
+        x = self.fc6(x.reshape(*x.shape[:-3], -1).to(dtype))
+        if gather_idx is not None:  # (B, U, out) -> (B, E, out)
+            x = torch.gather(
+                x, 1, gather_idx[..., None].expand(*gather_idx.shape,
+                                                   x.shape[-1]))
+        if broadcast_add is not None:
+            c = broadcast_add.shape[-1]
+            out_dim = self.fc6.out_features
+            k_sum = self.fc6.weight.reshape(out_dim, -1, c).sum(1)  # (out, C)
+            x = x + broadcast_add.to(dtype) @ k_sum.t()
+        x = self.drop(F.relu(x))
+        x = self.fc7(x)
+        if self.with_final_relu:
+            x = self.drop(F.relu(x))
+        return x
