@@ -14,6 +14,11 @@ non-zero exit and without the result line:
    in f32 (TF32 off, tolerance 1e-5 abs) and in bf16 (within 2e-2 of the
    f32 plain result, relative to its largest magnitude), with timings
    (CUDA events, mean over 20 launches after warm-up) and the card's bound;
+   then every other route of the kernels at small shapes, same tolerances
+   (K1 at channel counts and alignments that take its narrower vector
+   widths and with a whole-map ROI; K2 in both types at a ragged size),
+   and K1's plain version on the card against the same call on the CPU
+   (f32, 1e-6 abs);
 4. the slice at full width: ``val_epoch`` in mode sgcls (predcls + sgcls
    regimes) over a 64-image synthetic split with the VG-Stanford
    vocabulary, VGG16 on 592x592 canvases in bf16, seeded random weights;
@@ -39,7 +44,6 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOTAL_DEADLINE_S = 1100
 PARITY_DEADLINE_S = 420
-ITERS = 20
 
 
 def fail(msg: str) -> None:
@@ -98,7 +102,13 @@ def bound_ms(n_bytes: float, flops: float, peaks, bf16: bool):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, iters=ITERS, warmup=3) -> float:
+def rel_err(torch, got, want) -> float:
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` calls, by CUDA events."""
+    import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -112,8 +122,20 @@ def time_ms(torch, fn, iters=ITERS, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rel_err(torch, got, want) -> float:
-    return float((got.float() - want).abs().max() / want.abs().max())
+def eval_boxes(g, B: int, R: int, canvas: int):
+    """Image-pixel boxes sized like the synthetic split's, with zero-size,
+    inverted, partly and wholly outside boxes mixed in."""
+    import torch
+    xy = torch.rand(B, R, 2, generator=g) * canvas * 0.8
+    wh = torch.rand(B, R, 2, generator=g) * canvas * 0.4 + 8
+    b = torch.cat([xy, torch.clamp(xy + wh, max=canvas)], -1)
+    b[:, 0] = 0.0
+    b[:, 1] = torch.tensor([300.0, 200.0, 100.0, 100.0])
+    b[:, 2] = torch.tensor([-50.0, -80.0, 120.0, 90.0])
+    b[:, 3] = torch.tensor([500.0, 520.0, 700.0, 650.0])
+    b[:, 4] = torch.tensor([-400.0, -300.0, -100.0, -50.0])
+    b[:, 5] = torch.tensor([296.0, 296.0, 296.0, 296.0])
+    return b.contiguous()
 
 
 def phase_card(torch):
@@ -134,24 +156,82 @@ def phase_build():
     print(f"phase 2 build: both kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for k in (roi_align.KERNEL, vgg_stem.KERNEL):
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {k.source.name}: {line.strip()}", flush=True)
+        for line in k.resource_lines():
+            print(f"  {k.source.name}: {line}", flush=True)
 
 
-def _boxes(torch, g, B, R, canvas):
-    """Image-pixel boxes like the synthetic split's, with degenerate,
-    zero-size and partly or wholly outside boxes mixed in."""
-    xy = torch.rand(B, R, 2, generator=g) * canvas * 0.8
-    wh = torch.rand(B, R, 2, generator=g) * canvas * 0.4 + 8
-    b = torch.cat([xy, torch.clamp(xy + wh, max=canvas)], -1)
-    b[:, 0] = 0.0                                            # zero-size
-    b[:, 1] = torch.tensor([300.0, 200.0, 100.0, 100.0])      # x2<x1, y2<y1
-    b[:, 2] = torch.tensor([-50.0, -80.0, 120.0, 90.0])       # partly out
-    b[:, 3] = torch.tensor([500.0, 520.0, 700.0, 650.0])      # partly out
-    b[:, 4] = torch.tensor([-400.0, -300.0, -100.0, -50.0])   # wholly out
-    b[:, 5] = torch.tensor([296.0, 296.0, 296.0, 296.0])      # a point
-    return b.contiguous()
+def phase_routes(torch, K1, K2, g, dev):
+    """Every route of the kernels that the main path's shapes do not take,
+    each against the plain version; one line a route."""
+    def report(name, err, rel):
+        print(f"phase 3 route {name}: max|err| f32 {err:.3g}, bf16 rel "
+              f"{rel:.3g}", flush=True)
+        check(err <= 1e-5, f"{name}: f32 max |err| {err} > 1e-5")
+        check(rel <= 2e-2, f"{name}: bf16 rel err {rel} > 2e-2")
+
+    def shifted(t, k):  # contiguous copy, k elements off an aligned address
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        view = buf[k:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def k1_route(name, fmap, boxes, shift=0, **kw):
+        kw["spatial_scale"] = 1 / 16
+        want = K1.roi_align_reference(fmap, boxes, **kw)
+        got = K1.roi_align(shifted(fmap, shift), boxes, **kw)
+        got16 = K1.roi_align(shifted(fmap.bfloat16(), shift), boxes, **kw)
+        report(name, float((got - want).abs().max()),
+               rel_err(torch, got16, want))
+
+    B, H, W = 2, 9, 11
+    boxes = eval_boxes(g, B, 12, 16 * H).to(dev)
+    for C, width in ((203, 1), (6, 2)):
+        fmap = torch.randn(B, H, W, C, generator=g).to(dev)
+        k1_route(f"roi_align C={C} ({width} channel(s) a thread)", fmap,
+                 boxes)
+    fmap = torch.randn(B, H, W, 200, generator=g).to(dev)
+    k1_route("roi_align C=200 (8 channels a thread, 25 groups)", fmap, boxes)
+    k1_route("roi_align C=200, map 2 elements off 16-byte alignment "
+             "(2 channels a thread)", fmap, boxes, shift=2)
+    k1_route("roi_align ratio 3, pooled 5 (more than 4 taps a bin: the plain "
+             "double loop)", fmap, boxes, pooled=5, ratio=3)
+    k1_route("roi_align ratio 1", fmap, boxes, ratio=1)
+    # the whole 37 x 37 map and a box beyond it (every bin 4 x 4 distinct
+    # taps) beside the tiny, degenerate and outside boxes of eval_boxes
+    big = eval_boxes(g, B, 12, 592)
+    big[:, 6] = torch.tensor([0.0, 0.0, 592.0, 592.0])
+    big[:, 7] = torch.tensor([-40.0, -40.0, 640.0, 640.0])
+    fmap = torch.randn(B, 37, 37, 512, generator=g)
+    k1_route("roi_align whole-map ROI, 37x37x512", fmap.to(dev), big.to(dev))
+    # the yardstick itself: the plain version on the card against the same
+    # call on the CPU (the one the CPU tests hold against the JAX package),
+    # on the same whole-map, tiny, degenerate and outside boxes
+    frames = K1._box_frames(big, 1 / 16)
+    on_card = K1._interp_weights(frames[1].to(dev), frames[3].to(dev), 37, 7,
+                                 2).cpu()
+    w_err = float((on_card
+                   - K1._interp_weights(frames[1], frames[3], 37, 7, 2)
+                   ).abs().max())
+    p_err = float((K1.roi_align_reference(fmap.to(dev), big.to(dev),
+                                          spatial_scale=1 / 16).cpu()
+                   - K1.roi_align_reference(fmap, big, spatial_scale=1 / 16)
+                   ).abs().max())
+    print(f"phase 3 plain roi_align, card against CPU (f32, whole-map ROI, "
+          f"37x37x512): max|err| axis weights {w_err:.3g}, output "
+          f"{p_err:.3g}", flush=True)
+    check(w_err <= 1e-6, f"plain roi_align axis weights: card and CPU differ "
+                         f"by {w_err} > 1e-6")
+    check(p_err <= 1e-6, f"plain roi_align: card and CPU differ by {p_err} "
+                         f"> 1e-6")
+
+    x = torch.randn(2, 37, 29, 3, generator=g).to(dev)
+    w = (torch.randn(3, 3, 3, 64, generator=g) * math.sqrt(2 / 27)).to(dev)
+    b = (torch.randn(64, generator=g) * 0.1).to(dev)
+    want = K2.vgg_conv1_reference(x, w, b)
+    report("vgg_conv1 2x37x29 (f32: exact FMA route; bf16: tensor-core "
+           "route)", float((K2.vgg_conv1(x, w, b) - want).abs().max()),
+           rel_err(torch, K2.vgg_conv1(x.bfloat16(), w, b), want))
+    torch.cuda.synchronize()
 
 
 def phase_kernels(torch, peaks):
@@ -167,8 +247,8 @@ def phase_kernels(torch, peaks):
     # K1: fmap (16, 37, 37, 512); nodes R=64, unions R=256 (the 512 rung)
     B, H, C, canvas = 16, 37, 512, 592
     fmap = torch.rand(B, H, H, C, generator=g).to(dev)
-    nodes = _boxes(torch, g, B, 64, canvas).to(dev)
-    unions = _boxes(torch, g, B, 256, canvas).to(dev)
+    nodes = eval_boxes(g, B, 64, canvas).to(dev)
+    unions = eval_boxes(g, B, 256, canvas).to(dev)
     err, rel = 0.0, 0.0
     for bx in (nodes, unions):
         want = K1.roi_align_reference(fmap, bx, spatial_scale=1 / 16)
@@ -196,7 +276,7 @@ def phase_kernels(torch, peaks):
     rows["roi_align"] = dict(
         name="roi_align", route="cuda", source="sgg_torch/csrc/roi_align.cu",
         replaces="sgg_tpu/ops/roi_align_pallas.py:169", max_abs_err=err,
-        bf16_rel_err=rel, ms=time_ms(torch, k1), plain_ms=time_ms(torch, p1),
+        bf16_rel_err=rel, ms=time_ms(k1), plain_ms=time_ms(p1),
         bound_ms=bms, bound_by=bby, library_ms=None,
         shape="bf16 fmap 16x37x37x512; nodes R=64 + unions R=256 "
               "(one forward's two launches)",
@@ -225,13 +305,15 @@ def phase_kernels(torch, peaks):
         name="vgg_conv1", route="cuda", source="sgg_torch/csrc/vgg_stem.cu",
         replaces="sgg_tpu/ops/vgg_stem_pallas.py:68", max_abs_err=err2,
         bf16_rel_err=rel2,
-        ms=time_ms(torch, lambda: K2.vgg_conv1(x16, w16, b16)),
-        plain_ms=time_ms(torch, lambda: K2.vgg_conv1_reference(x16, w16, b16)),
+        ms=time_ms(lambda: K2.vgg_conv1(x16, w16, b16)),
+        plain_ms=time_ms(lambda: K2.vgg_conv1_reference(x16, w16, b16)),
         bound_ms=bms2, bound_by=bby2,
-        library_ms=time_ms(torch, lambda: torch.relu(
+        library_ms=time_ms(lambda: torch.relu(
             torch.nn.functional.conv2d(xc, wc, b16, padding=1))),
         shape="bf16 16x592x592x3 -> 16x592x592x64", bytes=n_bytes2,
         flops=flops2)
+    del x, x16, xc
+    phase_routes(torch, K1, K2, g, dev)
     for r in rows.values():
         print(f"phase 3 {r['name']}: max|err| f32 {r['max_abs_err']:.3g}, "
               f"bf16 rel {r['bf16_rel_err']:.3g}; {r['ms']:.4f} ms, bound "
@@ -306,7 +388,7 @@ def phase_slice(torch, splits):
                                   max_edges=config.max_edges, shuffle=False,
                                   drop_last=False))).to("cuda")
     step = make_eval_step(model, mode="sgcls", max_pairs=512, device="cuda")
-    fwd = time_ms(torch, lambda: step(batch), iters=5, warmup=1)
+    fwd = time_ms(lambda: step(batch), iters=5, warmup=1)
     loop_s = sum(thr[m]["seconds"] for m in thr)
     print(f"phase 4 one eval forward (16 images, rung 512, dedup, bf16): "
           f"{fwd:.3f} ms; {forwards} forwards = "

@@ -84,6 +84,18 @@ class CudaKernel:
                                f"(exit {proc.returncode}):\n{out}")
         os.replace(tmp, self.library)
 
+    def resource_lines(self) -> List[str]:
+        """What ``ptxas -v`` said in the last build: per kernel its mangled
+        name, then its spills and its registers and shared memory. Empty
+        if the library was already built."""
+        out = []
+        for line in self.build_log.splitlines():
+            if "Compiling entry function" in line and "'" in line:
+                out.append(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                out.append(line.strip())
+        return out
+
     def _load(self):
         with self._lock:
             if self._fn is None:

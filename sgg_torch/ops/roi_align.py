@@ -8,13 +8,17 @@ NHWC feature maps and image-pixel boxes (reference
 
 ``roi_align`` takes the plain version for a tensor on the CPU and launches
 the CUDA kernel (``csrc/roi_align.cu``) for a tensor on the card; there is
-no fall-back from one to the other.
+no fall-back from one to the other. ``folded_axis_taps`` models the
+kernel's per-bin tap tables in numpy for the CPU tests; nothing on the
+main path calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,7 +39,11 @@ def _interp_weights(start: torch.Tensor, extent: torch.Tensor, dim: int,
     axis (``sgg_tpu/ops/roi_align.py:_interp_weights``)."""
     S = pooled * ratio
     i = torch.arange(S, dtype=torch.float32, device=start.device)
-    y = start[..., None] + extent[..., None] * (i + 0.5) / S  # (..., S)
+    # divided by a tensor: by a Python number PyTorch multiplies with the
+    # rounded reciprocal on the card, one ulp off the division that the
+    # CPU and the CUDA kernel do
+    y = (start[..., None]
+         + extent[..., None] * (i + 0.5) / torch.full_like(i, S))  # (..., S)
     valid = (y >= -1.0) & (y <= dim)
     yc = y.clamp(min=0.0)
     y_low = torch.floor(yc).long()
@@ -49,6 +57,45 @@ def _interp_weights(start: torch.Tensor, extent: torch.Tensor, dim: int,
     W = (w_low[..., None] * F.one_hot(y_low, dim).float()
          + w_high[..., None] * F.one_hot(y_high, dim).float())
     return W.reshape(*W.shape[:-2], pooled, ratio, dim).mean(dim=-2)
+
+
+def folded_axis_taps(start: float, extent: float, dim: int, pooled: int,
+                     ratio: int) -> List[List[Tuple[int, float]]]:
+    """Model of the tap table that the CUDA kernel builds per ROI and axis
+    (``csrc/roi_align.cu``): for each of the ``pooled`` bins the distinct
+    (index, weight) taps of its ``ratio`` samples, the bin average folded
+    in as a factor ``1 / ratio``, equal indices merged, zero weights
+    dropped. At most ``2 * ratio`` taps a bin; scattered into a dense
+    (pooled, dim) matrix they are one ROI's ``_interp_weights``. All
+    arithmetic is float32, in the kernel's order."""
+    f32 = np.float32
+    start, extent = f32(start), f32(extent)
+    S, inv = pooled * ratio, f32(1.0) / f32(ratio)
+    table = []
+    for p in range(pooled):
+        taps: List[List] = []
+        for i in range(p * ratio, (p + 1) * ratio):
+            y = start + extent * (f32(i) + f32(0.5)) / f32(S)
+            valid = bool(y >= f32(-1.0)) and bool(y <= f32(dim))
+            yc = max(y, f32(0.0))
+            low = int(np.floor(yc))
+            cap = low >= dim - 1
+            low = dim - 1 if cap else low
+            high = dim - 1 if cap else low + 1
+            frac = f32(0.0) if cap else yc - f32(low)
+            w_low = f32(1.0) - frac if valid else f32(0.0)
+            w_high = frac if valid else f32(0.0)
+            for index, w in ((low, w_low * inv), (high, w_high * inv)):
+                if w == 0.0:
+                    continue
+                for tap in taps:
+                    if tap[0] == index:
+                        tap[1] = tap[1] + w
+                        break
+                else:
+                    taps.append([index, w])
+        table.append([(index, float(w)) for index, w in taps])
+    return table
 
 
 def _box_frames(boxes: torch.Tensor, spatial_scale: float):

@@ -8,7 +8,10 @@ Channels-last in and out, HWIO weights, as in the JAX package.
 
 ``vgg_conv1`` takes the plain version for a tensor on the CPU and launches
 the CUDA kernel (``csrc/vgg_stem.cu``) for a tensor on the card; there is
-no fall-back from one to the other.
+no fall-back from one to the other. For bfloat16 ``x`` both versions round
+the weights to bfloat16 (the kernel then multiplies on the tensor cores
+with float32 accumulation and a float32 bias); for float32 ``x`` the kernel
+is exact float32 arithmetic.
 """
 
 from __future__ import annotations

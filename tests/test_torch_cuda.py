@@ -27,9 +27,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _roi_case(kind, seed=0):
+def _roi_case(kind, C=200, seed=0):
     rng = np.random.RandomState(seed)
-    B, H, W, C = 2, 9, 11, 200  # C: two channel tiles, the last one ragged
+    B, H, W = 2, 9, 11
     fmap = rng.randn(B, H, W, C).astype(np.float32)
     R = 70 if kind == "ragged" else 9
     boxes = rng.rand(B, R, 4).astype(np.float32) * 140
@@ -43,31 +43,93 @@ def _roi_case(kind, seed=0):
         boxes[:, 1] = [150.0, 120.0, 260.0, 300.0]
         boxes[:, 2] = [-300.0, -300.0, -100.0, -90.0]
         boxes[:, 3] = [-16.0, -16.0, 0.0, 0.0]
+    if kind == "wholemap":  # every bin has its full 4 x 4 distinct taps
+        boxes[:, 0] = [0.0, 0.0, W * 16.0, H * 16.0]
+        boxes[:, 1] = [-20.0, -20.0, W * 16.0 + 30.0, H * 16.0 + 30.0]
     return fmap, boxes
 
 
+def _offset_view(t, k):
+    """A contiguous copy of ``t`` whose storage starts ``k`` elements past
+    an aligned address."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# C = 200: 8 channels a thread (25 groups); 6: pairs; 203: single channels.
+# "unaligned" shifts the map 2 elements off its 16-byte alignment, which
+# takes the pair route at C = 200 too.
+@pytest.mark.parametrize("C", [200, 203, 6])
 @pytest.mark.parametrize("kind", ["random", "ragged", "degenerate",
-                                  "outside"])
-def test_roi_align_kernel_matches_plain(kind, dev):
-    fmap, boxes = (torch.from_numpy(a).to(dev) for a in _roi_case(kind))
+                                  "outside", "wholemap", "unaligned"])
+def test_roi_align_kernel_matches_plain(kind, C, dev):
+    fmap, boxes = (torch.from_numpy(a).to(dev) for a in _roi_case(kind, C))
+    shift = 2 if kind == "unaligned" else 0
     want = troi.roi_align_reference(fmap, boxes, spatial_scale=1 / 16.0)
     before = troi.KERNEL.launches
-    got = troi.roi_align(fmap, boxes, spatial_scale=1 / 16.0)
+    got = troi.roi_align(_offset_view(fmap, shift), boxes,
+                         spatial_scale=1 / 16.0)
     torch.cuda.synchronize()
     assert troi.KERNEL.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
-    got16 = troi.roi_align(fmap.bfloat16(), boxes, spatial_scale=1 / 16.0)
+    got16 = troi.roi_align(_offset_view(fmap.bfloat16(), shift), boxes,
+                           spatial_scale=1 / 16.0)
     err = (got16.float() - want).abs().max() / want.abs().max()
     assert float(err) <= 2e-2
 
 
-@pytest.mark.parametrize("hw", [(32, 24), (37, 29), (5, 70)])
-def test_vgg_conv1_kernel_matches_plain(hw, dev):
+# The plain version is the yardstick of the kernel on the card, and on the
+# CPU it is what the CPU tests hold against the JAX package: the two must
+# agree, or the kernel is judged by a reference of its own.
+@pytest.mark.parametrize("kind", ["random", "degenerate", "outside",
+                                  "wholemap"])
+def test_roi_align_plain_on_card_matches_cpu(kind, dev):
+    fmap, boxes = (torch.from_numpy(a) for a in _roi_case(kind, 200))
+    _, y1, _, roi_h = troi._box_frames(boxes, 1 / 16.0)
+    torch.testing.assert_close(
+        troi._interp_weights(y1.to(dev), roi_h.to(dev), 9, 7, 2).cpu(),
+        troi._interp_weights(y1, roi_h, 9, 7, 2), atol=1e-6, rtol=0)
+    want = troi.roi_align_reference(fmap, boxes, spatial_scale=1 / 16.0)
+    got = troi.roi_align_reference(fmap.to(dev), boxes.to(dev),
+                                   spatial_scale=1 / 16.0)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+
+
+# ratio 2 walks a bin's taps by their count (at most 4 an axis); ratio 1
+# shares that route, ratio 3 takes the kernel's plain double loop
+@pytest.mark.parametrize("pooled,ratio", [(7, 1), (7, 3), (5, 3), (3, 4)])
+def test_roi_align_kernel_other_ratios(pooled, ratio, dev):
+    fmap, boxes = (torch.from_numpy(a).to(dev)
+                   for a in _roi_case("outside", 200))
+    kw = dict(spatial_scale=1 / 16.0, pooled=pooled, ratio=ratio)
+    want = troi.roi_align_reference(fmap, boxes, **kw)
+    got = troi.roi_align(fmap, boxes, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 9, pooled, pooled, 200)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    got16 = troi.roi_align(fmap.bfloat16(), boxes, **kw)
+    err = (got16.float() - want).abs().max() / want.abs().max()
+    assert float(err) <= 2e-2
+
+
+def _conv_case(hw, dev):
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(2, *hw, 3).astype(np.float32)).to(dev)
     w = torch.from_numpy((rng.randn(3, 3, 3, 64) * 0.2).astype(
         np.float32)).to(dev)
     b = torch.from_numpy((rng.randn(64) * 0.1).astype(np.float32)).to(dev)
+    return x, w, b
+
+
+# (200, 330): more tiles than the bf16 route's persistent grid has blocks
+HWS = [(32, 24), (37, 29), (5, 70), (200, 330)]
+
+
+@pytest.mark.parametrize("hw", HWS)
+def test_vgg_conv1_kernel_matches_plain(hw, dev):
+    x, w, b = _conv_case(hw, dev)
     want = vgg_stem.vgg_conv1_reference(x, w, b)
     before = vgg_stem.KERNEL.launches
     got = vgg_stem.vgg_conv1(x, w, b)
@@ -77,6 +139,22 @@ def test_vgg_conv1_kernel_matches_plain(hw, dev):
     got16 = vgg_stem.vgg_conv1(x.bfloat16(), w, b)
     err = (got16.float() - want).abs().max() / want.abs().max()
     assert float(err) <= 2e-2
+
+
+@pytest.mark.parametrize("hw", HWS)
+def test_vgg_conv1_bf16_rounds_weights_and_sums_in_f32(hw, dev):
+    """The bf16 route's rounding contract: x and w rounded to bf16, exact
+    products summed in f32, f32 bias, one rounding of the result. Held
+    against the plain version in f32 on the rounded inputs, within one
+    bf16 ulp of the largest magnitude."""
+    x, w, b = _conv_case(hw, dev)
+    x16 = x.bfloat16()
+    want = vgg_stem.vgg_conv1_reference(x16.float(), w.bfloat16().float(), b)
+    got = vgg_stem.vgg_conv1(x16, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert float((got.float() - want).abs().max()) <= ulp
 
 
 def test_wrappers_never_take_plain_version(dev, monkeypatch):

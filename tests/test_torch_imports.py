@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``sgg_torch`` and no line of
-``chip_smoke.py`` imports JAX, flax or ``sgg_tpu``; importing the package
+``chip_smoke.py`` or ``bench_kernels.py`` imports JAX, flax or ``sgg_tpu``; importing the package
 builds nothing."""
 
 import pathlib
@@ -14,7 +14,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|sgg_tpu)\b")
 
 
 def _port_files():
-    return sorted((ROOT / "sgg_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "sgg_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bench_kernels.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
