@@ -10,25 +10,44 @@ non-zero exit and without the result line:
 1. card facts: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build both CUDA kernels from ``sgg_torch/csrc`` (one ``nvcc`` each, in
    parallel);
-3. each kernel against its plain PyTorch version at the main path's shapes,
-   in f32 (TF32 off, tolerance 1e-5 abs) and in bf16 (within 2e-2 of the
-   f32 plain result, relative to its largest magnitude), with timings
-   (CUDA events, mean over 20 launches after warm-up) and the card's bound;
-   then every other route of the kernels at small shapes, same tolerances
-   (K1 at channel counts and alignments that take its narrower vector
-   widths and with a whole-map ROI; K2 in both types at a ragged size),
-   and K1's plain version on the card against the same call on the CPU
-   (f32, 1e-6 abs);
-4. the slice at full width: ``val_epoch`` in mode sgcls (predcls + sgcls
-   regimes) over a 64-image synthetic split with the VG-Stanford
+3. each kernel against its plain PyTorch version at the training path's
+   shapes (batch 24: nodes R=40, unions R=256) and at the eval path's
+   (batch 16: R=64 and 256), in f32 (TF32 off, tolerance 1e-5 abs) and in
+   bf16 (within 2e-2 of the f32 plain result, relative to its largest
+   magnitude), with timings (CUDA events, mean over 20 launches after
+   warm-up) and the card's bound; then every other route of the kernels
+   at small shapes, same tolerances (K1 at channel counts and alignments
+   that take its narrower vector widths and with a whole-map ROI; K2 in
+   both types at a ragged size), and K1's plain version on the card
+   against the same call on the CPU (f32, 1e-6 abs);
+4. the eval slice at full width: ``val_epoch`` in mode sgcls (predcls +
+   sgcls regimes) over a 64-image synthetic split with the VG-Stanford
    vocabulary, VGG16 on 592x592 canvases in bf16, seeded random weights;
    the kernels' launch counters are zeroed just before and read just
-   after, and must match the batches run;
-5. one full-width eval step of 2 images in f32, card (kernels) against CPU
-   (plain versions) with the same weights, under its own deadline.
+   after, and must match the batches run, all on the bf16 routes;
+5. the training slice at full width (``main.py -m sgcls -loss dnorm -b
+   24``: max_nodes 40, max_edges 256, bf16 compute over f32 master
+   weights, dropout on) on a 96-image synthetic train split: a warm-up
+   epoch, then one counted and timed ``Trainer.train_epoch`` (2 K1 + 1 K2
+   launches a step, bf16 routes, finite losses, train images/s with the
+   host), one step under ``set_sync_debug_mode("error")`` (no host sync),
+   a one-batch overfit of 10 steps (the loss falls; one step's ms),
+   the trunk bit-unchanged and every head parameter and BN statistic
+   moved, where a step's time goes (host assembly, copy, trunk, optimizer,
+   the profiler's kernels), and a checkpoint round trip (the next step's
+   losses from the saved and the restored state within 1e-6 relative,
+   grad_norm within 1e-3: the backward adds into bf16 with atomics);
+6. card (kernels) against CPU (plain versions), same weights, f32, under
+   its own deadline: one full-width eval step of 2 images (1e-3 abs) and
+   one full-width train step of 2 images on the same sampled edges with
+   dropout off (losses and grad_norm within 1e-4 relative; the update, as
+   the momentum buffers hold it, within 1e-3 relative in norm; updated
+   parameters and BN statistics within 1e-6 abs).
 
-Then a JSON line ``{"kernels": [...]}`` and, last, the result line
-``{"ok": true, "device": {...}}``.
+Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
+row's numbers at the training shapes, the eval shapes' under
+``eval_shape``; ``launches`` summed over the paths of phases 4 and 5) and,
+last, the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,6 +63,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOTAL_DEADLINE_S = 1100
 PARITY_DEADLINE_S = 420
+# the JAX bench's training shape (bench.py: sgcls, dnorm, batch 24)
+TRAIN_BATCH, TRAIN_NODES, TRAIN_EDGES = 24, 40, 256
 
 
 def fail(msg: str) -> None:
@@ -234,21 +255,15 @@ def phase_routes(torch, K1, K2, g, dev):
     torch.cuda.synchronize()
 
 
-def phase_kernels(torch, peaks):
-    """Each kernel against its plain version on the main path's shapes."""
-    from sgg_torch.ops import roi_align as K1
-    from sgg_torch.ops import vgg_stem as K2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    g = torch.Generator().manual_seed(0)
-    rows = {}
-
-    # K1: fmap (16, 37, 37, 512); nodes R=64, unions R=256 (the 512 rung)
-    B, H, C, canvas = 16, 37, 512, 592
+def measure_kernels(torch, K1, K2, peaks, g, dev, B, n_nodes, n_unions):
+    """K1 (one forward's two launches: nodes, then unions) and K2 at one
+    batch shape, each against its plain version on the same inputs (f32
+    1e-5 abs, bf16 2e-2 relative to the f32 plain result); times and the
+    card's bound for the bf16 route. Returns {kernel name: numbers}."""
+    canvas, H, C = 592, 37, 512
     fmap = torch.rand(B, H, H, C, generator=g).to(dev)
-    nodes = eval_boxes(g, B, 64, canvas).to(dev)
-    unions = eval_boxes(g, B, 256, canvas).to(dev)
+    nodes = eval_boxes(g, B, n_nodes, canvas).to(dev)
+    unions = eval_boxes(g, B, n_unions, canvas).to(dev)
     err, rel = 0.0, 0.0
     for bx in (nodes, unions):
         want = K1.roi_align_reference(fmap, bx, spatial_scale=1 / 16)
@@ -269,20 +284,18 @@ def phase_kernels(torch, peaks):
         K1.roi_align_reference(f16, nodes, spatial_scale=1 / 16)
         K1.roi_align_reference(f16, unions, spatial_scale=1 / 16)
 
-    n_out = B * (64 + 256) * 49 * C
+    n_out = B * (n_nodes + n_unions) * 49 * C
     n_bytes = 2 * fmap.numel() * 2 + (nodes.numel() + unions.numel()) * 4 \
         + n_out * 2
     bms, bby = bound_ms(n_bytes, n_out * 32, peaks, bf16=True)
-    rows["roi_align"] = dict(
-        name="roi_align", route="cuda", source="sgg_torch/csrc/roi_align.cu",
-        replaces="sgg_tpu/ops/roi_align_pallas.py:169", max_abs_err=err,
-        bf16_rel_err=rel, ms=time_ms(k1), plain_ms=time_ms(p1),
-        bound_ms=bms, bound_by=bby, library_ms=None,
-        shape="bf16 fmap 16x37x37x512; nodes R=64 + unions R=256 "
-              "(one forward's two launches)",
-        bytes=n_bytes, flops=n_out * 32)
+    rows = {"roi_align": dict(
+        max_abs_err=err, bf16_rel_err=rel, ms=time_ms(k1),
+        plain_ms=time_ms(p1), bound_ms=bms, bound_by=bby, library_ms=None,
+        shape=f"bf16 fmap {B}x37x37x512; nodes R={n_nodes} + unions "
+              f"R={n_unions} (one forward's two launches)",
+        bytes=n_bytes, flops=n_out * 32)}
+    del fmap, f16
 
-    # K2: (16, 592, 592, 3) -> (16, 592, 592, 64)
     x = (torch.randn(B, canvas, canvas, 3, generator=g)).to(dev)
     w = (torch.randn(3, 3, 3, 64, generator=g) * math.sqrt(2 / 27)).to(dev)
     b = (torch.randn(64, generator=g) * 0.1).to(dev)
@@ -302,24 +315,49 @@ def phase_kernels(torch, peaks):
     flops2 = n_px * 64 * 27 * 2
     bms2, bby2 = bound_ms(n_bytes2, flops2, peaks, bf16=True)
     rows["vgg_conv1"] = dict(
-        name="vgg_conv1", route="cuda", source="sgg_torch/csrc/vgg_stem.cu",
-        replaces="sgg_tpu/ops/vgg_stem_pallas.py:68", max_abs_err=err2,
-        bf16_rel_err=rel2,
+        max_abs_err=err2, bf16_rel_err=rel2,
         ms=time_ms(lambda: K2.vgg_conv1(x16, w16, b16)),
         plain_ms=time_ms(lambda: K2.vgg_conv1_reference(x16, w16, b16)),
         bound_ms=bms2, bound_by=bby2,
         library_ms=time_ms(lambda: torch.relu(
             torch.nn.functional.conv2d(xc, wc, b16, padding=1))),
-        shape="bf16 16x592x592x3 -> 16x592x592x64", bytes=n_bytes2,
+        shape=f"bf16 {B}x592x592x3 -> {B}x592x592x64", bytes=n_bytes2,
         flops=flops2)
     del x, x16, xc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels(torch, peaks):
+    """Each kernel against its plain version at the training path's shapes
+    (the rows of the ``kernels`` line) and at the eval path's (nested as
+    ``eval_shape``), then every other route at small shapes."""
+    from sgg_torch.ops import roi_align as K1
+    from sgg_torch.ops import vgg_stem as K2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    train = measure_kernels(torch, K1, K2, peaks, g, dev, TRAIN_BATCH,
+                            TRAIN_NODES, TRAIN_EDGES)
+    evals = measure_kernels(torch, K1, K2, peaks, g, dev, 16, 64, 256)
+    meta = {"roi_align": ("sgg_torch/csrc/roi_align.cu",
+                          "sgg_tpu/ops/roi_align_pallas.py:169"),
+            "vgg_conv1": ("sgg_torch/csrc/vgg_stem.cu",
+                          "sgg_tpu/ops/vgg_stem_pallas.py:68")}
+    rows = {}
+    for name, (source, replaces) in meta.items():
+        rows[name] = dict(name=name, route="cuda", source=source,
+                          replaces=replaces, **train[name],
+                          eval_shape=evals[name])
     phase_routes(torch, K1, K2, g, dev)
     for r in rows.values():
-        print(f"phase 3 {r['name']}: max|err| f32 {r['max_abs_err']:.3g}, "
-              f"bf16 rel {r['bf16_rel_err']:.3g}; {r['ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms "
-              f"[{r['shape']}]", flush=True)
+        for shape, m in (("train", r), ("eval", r["eval_shape"])):
+            print(f"phase 3 {r['name']} ({shape} shape): max|err| f32 "
+                  f"{m['max_abs_err']:.3g}, bf16 rel {m['bf16_rel_err']:.3g};"
+                  f" {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                  f"({m['bound_by']}), plain {m['plain_ms']:.4f} ms, library "
+                  f"{m['library_ms']} ms [{m['shape']}]", flush=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -344,19 +382,24 @@ def phase_slice(torch, splits):
               device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.KERNEL.launches = 0
-    K2.KERNEL.launches = 0
+    K1.KERNEL.reset_counts()
+    K2.KERNEL.reset_counts()
     res = val_epoch(model, test, config, "test_alls", verbose=False,
                     device="cuda")
     torch.cuda.synchronize()
     launches = {"roi_align": K1.KERNEL.launches,
                 "vgg_conv1": K2.KERNEL.launches}
+    routes = {"roi_align": dict(K1.KERNEL.routes),
+              "vgg_conv1": dict(K2.KERNEL.routes)}
     counters = res.get("_counters", {})
     n_batches = counters.get("eval_ladder_batches", 0)
     forwards = n_batches + counters.get("eval_dedup_fallback", 0)
     expect_batches = 2 * math.ceil(len(test) / 16)
     print(f"phase 4 counters {json.dumps(counters)}; launches "
-          f"{json.dumps(launches)}; forwards {forwards}", flush=True)
+          f"{json.dumps(launches)} by route {json.dumps(routes)}; forwards "
+          f"{forwards}", flush=True)
+    check(all(set(r) == {"bf16"} for r in routes.values()),
+          f"eval launched a route other than bf16: {routes}")
     check(n_batches == expect_batches,
           f"{n_batches} eval batches, expected {expect_batches}")
     check(launches["vgg_conv1"] > 0 and launches["vgg_conv1"] == forwards,
@@ -399,12 +442,224 @@ def phase_slice(torch, splits):
     return launches
 
 
-def phase_parity(torch, splits):
-    """One full-width eval step in f32: card (kernels) against CPU."""
+def _snapshot(model, keep):
+    return {n: t.detach().clone() for n, t in
+            list(model.named_parameters()) + list(model.named_buffers())
+            if keep(n)}
+
+
+def phase_train(torch, splits):
+    """Training at full width on the card (``main.py -m sgcls -loss dnorm
+    -b 24``): ``Trainer.train_epoch`` twice (a warm-up epoch, then the
+    counted and timed one), a one-batch overfit of 10 steps, where the
+    step's time goes, and a checkpoint round trip."""
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
     from sgg_torch import constants
+    from sgg_torch.config import Config
     from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.ops import roi_align as K1
+    from sgg_torch.ops import vgg_stem as K2
+    from sgg_torch.train.state import Optimizer
+    from sgg_torch.train.step import make_train_step
+    from sgg_torch.train.trainer import Trainer
+
+    config = Config(mode="sgcls", loss="dnorm", batch_size=TRAIN_BATCH,
+                    max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                    compute_dtype="bfloat16", device="cuda",
+                    print_interval=2, num_workers=4)
+    t0 = time.perf_counter()
+    trainer = Trainer(config, splits)
+    model, opt = trainer.model, trainer.optimizer
+    steps = trainer.steps_per_epoch
+    print(f"phase 5 trainer built in {time.perf_counter() - t0:.1f} s; "
+          f"{len(splits['train'])} train images, {steps} steps an epoch",
+          flush=True)
+    for name, p in model.named_parameters():
+        want = torch.bfloat16 if name.startswith("trunk.") else torch.float32
+        check(p.dtype == want, f"{name} is {p.dtype}, expected {want}")
+    check(all(b.dtype == torch.float32
+              for b in opt.state_dict().values()),
+          "momentum buffers are not float32")
+    trunk0 = _snapshot(model, lambda n: n.startswith("trunk."))
+    heads0 = _snapshot(model, lambda n: not n.startswith("trunk.")
+                       and "num_batches" not in n)
+
+    def counted(fn):
+        K1.KERNEL.reset_counts()
+        K2.KERNEL.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        n = {"roi_align": K1.KERNEL.launches, "vgg_conv1": K2.KERNEL.launches}
+        routes = {"roi_align": dict(K1.KERNEL.routes),
+                  "vgg_conv1": dict(K2.KERNEL.routes)}
+        return out, n, routes
+
+    trainer.train_epoch(0)  # warm-up: first launches, cuDNN/cuBLAS set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, n_epoch, routes = counted(lambda: trainer.train_epoch(1))
+    loop_s = time.perf_counter() - t0
+    print(f"phase 5 train_epoch: {steps} steps x {TRAIN_BATCH} images in "
+          f"{loop_s:.3f} s = {steps * TRAIN_BATCH / loop_s:.2f} train "
+          f"images/s (host included); losses {json.dumps(losses)}; launches "
+          f"{json.dumps(n_epoch)} by route {json.dumps(routes)}", flush=True)
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"non-finite epoch losses {losses}")
+    check(n_epoch == {"roi_align": 2 * steps, "vgg_conv1": steps},
+          f"{steps} train steps launched {n_epoch} (want 2 K1 + 1 K2 a step)")
+    check(routes == {"roi_align": {"bf16": 2 * steps},
+                     "vgg_conv1": {"bf16": steps}},
+          f"train steps took routes {routes}, want bf16 only")
+
+    # the host's share: batch assembly alone, then one batch's copy
+    loader = BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
+                         max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                         seed=config.seed, num_workers=config.num_workers,
+                         im_scale=constants.IM_SCALE)
+    t0 = time.perf_counter()
+    host_batches = list(loader)
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+    t0 = time.perf_counter()
+    batch = host_batches[0].to("cuda")
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    del host_batches
+
+    # one-batch overfit, each step timed on a batch already on the card: a
+    # generator of one seed each step repeats the sampled edges and the
+    # dropout masks, so every step fits the same problem, with a fresh
+    # optimizer at a tenth of the LR (the trainer's momentum from other
+    # batches at the full LR overshoots on one batch)
+    fit_cfg = config.replace(lr=config.lr / 10)
+    fit_step = make_train_step(model, fit_cfg, Optimizer(fit_cfg, model))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fit_step(batch, gen)  # compiled routes and allocations are warm; check
+    torch.cuda.synchronize()  # that a step never waits for the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fit_step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("phase 5 a train step under set_sync_debug_mode('error'): no "
+          "host sync", flush=True)
+
+    def overfit():
+        totals, step_ms = [], []
+        for _ in range(10):
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            totals.append(fit_step(batch, gen)["total"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(totals).tolist(), step_ms
+
+    (totals, step_ms), n_fit, routes_fit = counted(overfit)
+    step_ms.sort()
+    print(f"phase 5 overfit one batch, 10 steps: total loss "
+          f"{json.dumps([round(t, 5) for t in totals])}; one train step "
+          f"{step_ms[len(step_ms) // 2]:.3f} ms median (min "
+          f"{step_ms[0]:.3f}, max {step_ms[-1]:.3f}); launches "
+          f"{json.dumps(n_fit)} by route {json.dumps(routes_fit)}",
+          flush=True)
+    check(all(map(math.isfinite, totals)), f"non-finite losses {totals}")
+    check(totals[-1] < totals[0], f"loss did not fall: {totals}")
+    check(n_fit == {"roi_align": 20, "vgg_conv1": 10}
+          and routes_fit == {"roi_align": {"bf16": 20},
+                             "vgg_conv1": {"bf16": 10}},
+          f"overfit launches {n_fit} by route {routes_fit}")
+    print(f"phase 5 peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    changed = [n for n, t in _snapshot(model, trunk0.__contains__).items()
+               if not torch.equal(t, trunk0[n])]
+    check(not changed, f"trunk changed: {changed[:5]}")
+    after = _snapshot(model, heads0.__contains__)
+    still = [n for n, t in after.items() if torch.equal(t, heads0[n])]
+    check(not still, f"head parameters or BN statistics did not move: "
+                     f"{still[:5]}")
+    print(f"phase 5 trunk bit-unchanged ({len(trunk0)} tensors); all "
+          f"{len(heads0)} head parameters and BN statistics moved",
+          flush=True)
+
+    # where one step's time goes (after the checks: these calls train on)
+    with torch.no_grad():
+        trunk_ms = time_ms(lambda: model.trunk(batch.images), iters=5,
+                           warmup=1)
+    opt_ms = time_ms(opt.apply_gradients, iters=5, warmup=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    per_kernel = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 2e3
+    busy_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    print(f"phase 5 one step: host batch assembly {host_ms:.1f} ms a batch, "
+          f"copy to the card {copy_ms:.1f} ms, trunk forward {trunk_ms:.3f} "
+          f"ms, optimizer update {opt_ms:.3f} ms; profiled step "
+          f"{prof_wall_ms:.3f} ms wall, kernels "
+          + (f"{busy_ms:.3f} ms busy ({100 * busy_ms / prof_wall_ms:.1f}%)"
+             if per_kernel else "not measured (no device events)"),
+          flush=True)
+    if per_kernel:
+        print("phase 5 top kernels (ms a step) " + json.dumps(
+            {k[:90]: round(v, 4) for k, v in top}), flush=True)
+
+    # checkpoint round trip: the next step from the saved and the restored
+    # state, on the same batch with generators of the same seed
+    ckdir = tempfile.mkdtemp(prefix="sgg_ckpt_")
+    try:
+        trainer.config = config.replace(save_dir=ckdir)
+        trainer.save(1)
+        other = Trainer(config.replace(save_dir=ckdir), splits)
+        check(other.start_epoch == 2 and other.global_iter == opt.count,
+              "restore did not resume after epoch 1")
+        mine = dict(model.state_dict())
+        diff = [k for k, v in other.model.state_dict().items()
+                if not torch.equal(v, mine[k])]
+        check(not diff, f"restored state differs: {diff[:5]}")
+        a = trainer.train_step(batch, torch.Generator("cuda").manual_seed(5))
+        b = other.train_step(batch, torch.Generator("cuda").manual_seed(5))
+        errs = {k: float((a[k] - b[k]).abs() / a[k].abs()) for k in a}
+        # the forward is deterministic; the backward is not quite (the
+        # gathers' backward adds into bf16 with atomics, in any order)
+        print(f"phase 5 checkpoint round trip: next step from saved vs "
+              f"restored state, rel err {json.dumps(errs)} (losses 1e-6, "
+              f"grad_norm 1e-3)", flush=True)
+        check(all(errs[k] <= 1e-6 for k in ("obj_loss", "rel_loss", "total"))
+              and errs["grad_norm"] <= 1e-3,
+              f"restored run diverges: {errs}")
+        del other
+    finally:
+        shutil.rmtree(ckdir)
+    del trainer, model, opt, batch
+    torch.cuda.empty_cache()
+    return {"train_epoch": n_epoch, "overfit": n_fit}
+
+
+def phase_parity(torch, splits):
+    """One full-width eval step and one full-width train step in f32: card
+    (kernels) against CPU (plain versions) with the same weights."""
+    from sgg_torch import constants
+    from sgg_torch.config import Config
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.models.backbone import Dropout
     from sgg_torch.models.relhead import RelModelIMP, init_weights
-    from sgg_torch.train.step import make_eval_step
+    from sgg_torch.train.assign import sample_edges
+    from sgg_torch.train.state import Optimizer
+    from sgg_torch.train.step import make_eval_step, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -437,12 +692,68 @@ def phase_parity(torch, splits):
     valid = torch.from_numpy(batch.node_mask)
     same = bool(torch.equal(got["obj_preds"].cpu()[valid],
                             want["obj_preds"][valid]))
-    print(f"phase 5 parity card vs CPU (f32, 2 images, full width): max|err| "
-          f"{json.dumps(errs)}, obj_preds equal {same}; card {t_card:.2f} s, "
-          f"CPU {t_cpu:.2f} s", flush=True)
+    print(f"phase 6 eval parity card vs CPU (f32, 2 images, full width): "
+          f"max|err| {json.dumps(errs)}, obj_preds equal {same}; card "
+          f"{t_card:.2f} s, CPU {t_cpu:.2f} s", flush=True)
     check(all(math.isfinite(v) and v <= 1e-3 for v in errs.values()),
           f"card vs CPU outputs differ: {errs}")
     check(same, "card vs CPU obj_preds differ")
+
+    # one train step of 2 images on the same sampled edges, dropout off
+    # (the card's and the CPU's generators draw different numbers)
+    for mod in list(cpu.modules()) + list(card.modules()):
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    train = BatchLoader(splits["train"], batch_size=2,
+                        max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                        shuffle=False, im_scale=constants.IM_SCALE)
+    batch = next(iter(train))
+    host = batch.to("cpu")
+    edges = sample_edges(torch.Generator().manual_seed(0), host.rels,
+                         host.rel_mask, host.node_mask, max_out=TRAIN_EDGES)
+    out, secs, opts = {}, {}, {}
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        cfg = Config(device=dev, mode="sgcls", loss="dnorm", batch_size=2,
+                     max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                     compute_dtype="float32")
+        opts[dev] = Optimizer(cfg, m)
+        step = make_train_step(m, cfg, opts[dev])
+        t0 = time.perf_counter()
+        out[dev] = {k: float(v) for k, v in step(batch, None,
+                                                 edges=edges).items()}
+        secs[dev] = time.perf_counter() - t0
+    loss_err = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+                for k in out["cpu"]}
+    # the update itself: after one step from zero, each momentum buffer is
+    # the clipped gradient plus the decay, unrounded (the parameters round
+    # it away where it is below their ulp, as on BatchNorm scales near 1).
+    # Held as one vector, like grad_norm: a tensor whose gradient cancels
+    # (a conv bias before a train-mode BatchNorm) is summation-order noise
+    # relative to its own size. The tensors that carry most of the
+    # difference are printed with their own relative error
+    mom = opts["cpu"].state_dict()
+    sq = {}
+    for k, v in opts["cuda"].state_dict().items():
+        d = v.cpu() - mom[k]
+        sq[k] = (float(d.square().sum()), float(mom[k].square().sum()))
+    upd_err = math.sqrt(sum(d for d, _ in sq.values())
+                        / sum(r for _, r in sq.values()))
+    top = {k: round(math.sqrt(d / r), 6) for k, (d, r) in
+           sorted(sq.items(), key=lambda kv: -kv[1][0])[:3]}
+    ours = cpu.state_dict()
+    par_err = max(float((v.cpu() - ours[k]).abs().max())
+                  for k, v in card.state_dict().items())
+    print(f"phase 6 train parity card vs CPU (f32, 2 images, full width, "
+          f"same edges): loss/grad_norm rel err {json.dumps(loss_err)}; "
+          f"update (momentum buffers) rel err {upd_err:.3g} in norm, most "
+          f"of it in {json.dumps(top)} (each in its own norm); updated "
+          f"parameters and BN statistics max|err| {par_err:.3g}; card "
+          f"{secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s", flush=True)
+    check(all(v <= 1e-4 for v in loss_err.values()),
+          f"card vs CPU losses differ: {loss_err}")
+    check(upd_err <= 1e-3 and par_err <= 1e-6,
+          f"card vs CPU updates differ: {upd_err} relative in norm, "
+          f"parameters {par_err} max abs")
 
 
 def main() -> None:
@@ -462,15 +773,17 @@ def main() -> None:
               f"TFLOP/s f32", flush=True)
         rows = phase_kernels(torch, peaks)
         from sgg_torch.data.synthetic import synthetic_splits
-        splits = synthetic_splits(num_eval=64)
-        launches = phase_slice(torch, splits)
-        with Deadline(PARITY_DEADLINE_S, "phase 5"):
+        splits = synthetic_splits(num_train=4 * TRAIN_BATCH, num_eval=64)
+        paths = {"eval": phase_slice(torch, splits)}
+        paths.update(phase_train(torch, splits))
+        with Deadline(PARITY_DEADLINE_S, "phase 6"):
             phase_parity(torch, splits)
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
+    print("launches by path " + json.dumps(paths), flush=True)
     kernels = []
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        row["launches"] = sum(n[name] for n in paths.values())
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

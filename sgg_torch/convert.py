@@ -73,8 +73,8 @@ def variables_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             key, arr = _convert_leaf(collection, path, leaf)
             if key in out:
                 raise KeyError(f"two flax leaves map to {key}")
-            out[key] = torch.from_numpy(
-                np.ascontiguousarray(arr, dtype=np.float32))
+            # a copy: the leaf may be a read-only view of a JAX buffer
+            out[key] = torch.tensor(np.asarray(arr, dtype=np.float32))
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[:-len("running_mean")] + "num_batches_tracked"] = \
             torch.tensor(0, dtype=torch.long)

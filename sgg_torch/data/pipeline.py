@@ -10,7 +10,7 @@ host.
 The port's datasets so far are file-less (synthetic): their "image" is a
 constant canvas, and a resize of a constant is that constant, so no image
 library is needed. Decoding image files raises ``NotImplementedError``; it
-comes with the training slice.
+comes with the dataset parsers (ROADMAP Queue A, after item 9).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 _NO_DECODE = ("decoding image files is not ported yet (it comes with the "
-              "training slice); use a file-less dataset")
+              "dataset parsers); use a file-less dataset")
 
 
 def content_size(orig_h: int, orig_w: int, im_scale: int = IM_SCALE):

@@ -9,6 +9,12 @@ classifier (``rel_model_base.py:110-111``, ``load_vgg`` ``:310-321``).
 The trunk's first conv is the CUDA kernel K2 (``ops/vgg_stem.py``); it
 returns channels-last activations, which the other twelve convs (cuDNN)
 keep, so the trunk's NHWC output needs no copy.
+
+Mixed precision follows flax's ``dtype=`` layers: the trainable modules
+keep float32 weights and compute in their ``compute_dtype``, casting input,
+weight and bias at use (``linear_in``), so gradients and
+optimizer updates land on float32 master weights. The frozen trunk is
+stored in the compute type itself, which is the same as casting at use.
 """
 
 from __future__ import annotations
@@ -23,6 +29,39 @@ from sgg_torch.ops.vgg_stem import vgg_conv1
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def linear_in(layer: nn.Linear, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype``: input, weight and bias cast at
+    use (flax ``nn.Dense(dtype=dtype)`` over float32 parameters)."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode keep each element with probability
+    ``1 - p`` and scale the kept ones by ``1 / (1 - p)``.
+
+    The mask is drawn with ``torch.rand`` from the ``generator`` passed to
+    ``forward`` (on the input's device), so a seeded generator repeats a
+    step exactly; without one it comes from the device's default
+    generator. The JAX package draws other bits: the two agree in law,
+    not element by element, and parity tests set ``p = 0``.
+    """
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def normalize_images(x: torch.Tensor) -> torch.Tensor:
@@ -83,21 +122,26 @@ class RoiHead(nn.Module):
     over the pool window through ``v @ sum_spatial(fc6.weight)`` — fc6 is
     linear before its ReLU, so ``fc6(pool + bcast(v)) == fc6(pool) + v @
     K_sum`` (``sgg_tpu/models/backbone.py:RoiHead``).
+
+    Dropout (rate 0.5, train mode only) draws its masks from ``generator``
+    (see ``Dropout``).
     """
 
     def __init__(self, in_dim: int, out_dim: int = 4096,
                  with_final_relu: bool = False):
         super().__init__()
+        self.compute_dtype = torch.float32
         self.fc6 = nn.Linear(in_dim, out_dim)
         self.fc7 = nn.Linear(out_dim, out_dim)
-        self.drop = nn.Dropout(0.5)
+        self.drop = Dropout(0.5)
         self.with_final_relu = with_final_relu
 
     def forward(self, x: torch.Tensor, *,
                 gather_idx: Optional[torch.Tensor] = None,
-                broadcast_add: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dtype = self.fc6.weight.dtype
-        x = self.fc6(x.reshape(*x.shape[:-3], -1).to(dtype))
+                broadcast_add: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dtype = self.compute_dtype
+        x = linear_in(self.fc6, x.reshape(*x.shape[:-3], -1), dtype)
         if gather_idx is not None:  # (B, U, out) -> (B, E, out)
             x = torch.gather(
                 x, 1, gather_idx[..., None].expand(*gather_idx.shape,
@@ -106,9 +150,9 @@ class RoiHead(nn.Module):
             c = broadcast_add.shape[-1]
             out_dim = self.fc6.out_features
             k_sum = self.fc6.weight.reshape(out_dim, -1, c).sum(1)  # (out, C)
-            x = x + broadcast_add.to(dtype) @ k_sum.t()
-        x = self.drop(F.relu(x))
-        x = self.fc7(x)
+            x = x + broadcast_add.to(dtype) @ k_sum.t().to(dtype)
+        x = self.drop(F.relu(x), generator)
+        x = linear_in(self.fc7, x, dtype)
         if self.with_final_relu:
-            x = self.drop(F.relu(x))
+            x = self.drop(F.relu(x), generator)
         return x

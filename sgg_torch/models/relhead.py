@@ -5,7 +5,12 @@ passing (Xu et al. 2017; reference ``sgg_models/rel_model_stanford.py``)
 over padded graph batches. Message pooling is a per-image one-hot product
 over the padded ``(B, E)`` edge set, with masked edges contributing zero;
 node and union features come from RoIAlign (kernel K1) over the NHWC
-trunk feature map; the trunk is frozen (run without gradients).
+trunk feature map; the trunk is frozen (its parameters take no gradient
+and it runs without autograd, as the JAX package's ``stop_gradient``).
+
+The heads keep float32 weights and compute in ``compute_dtype``
+(``RelModelIMP.to_compute_dtype``); ``model.train()`` is the JAX
+``train=True``: dropout on, union BatchNorms on batch statistics.
 
 Only the ``vgg16`` backbone is ported; ``resnet50`` raises.
 """
@@ -21,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sgg_torch.constants import POOL_SIZE, STRIDE, VGG_OBJ_DIM
-from sgg_torch.models.backbone import RoiHead, VGG16Trunk
+from sgg_torch.models.backbone import RoiHead, VGG16Trunk, linear_in
 from sgg_torch.models.frequency_bias import FrequencyBias
 from sgg_torch.models.union_features import UnionBoxFeats
 from sgg_torch.ops.boxes import gather_boxes, union_boxes
@@ -42,21 +47,25 @@ class GRUCell(nn.Module):
     Gates ``[r; z; n]`` along the 3H axis; ``h' = (1 - z) * n + z * h`` with
     ``n = tanh(i_n + r * h_n)``; both bias vectors are kept, as in the
     reference's ``node_gru``/``edge_gru`` (rel_model_stanford.py:34-35).
-    Works on any leading batch dims.
+    Works on any leading batch dims; computes in ``compute_dtype``.
     """
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
         H = hidden_size
         self.hidden_size = H
+        self.compute_dtype = torch.float32
         self.weight_ih = nn.Parameter(torch.empty(3 * H, input_size))
         self.weight_hh = nn.Parameter(torch.empty(3 * H, H))
         self.bias_ih = nn.Parameter(torch.empty(3 * H))
         self.bias_hh = nn.Parameter(torch.empty(3 * H))
 
     def forward(self, carry: torch.Tensor, inputs: torch.Tensor):
-        gi = F.linear(inputs, self.weight_ih, self.bias_ih)
-        gh = F.linear(carry, self.weight_hh, self.bias_hh)
+        dt = self.compute_dtype
+        gi = F.linear(inputs.to(dt), self.weight_ih.to(dt),
+                      self.bias_ih.to(dt))
+        gh = F.linear(carry.to(dt), self.weight_hh.to(dt),
+                      self.bias_hh.to(dt))
         i_r, i_z, i_n = gi.chunk(3, dim=-1)
         h_r, h_z, h_n = gh.chunk(3, dim=-1)
         r = torch.sigmoid(i_r + h_r)
@@ -74,6 +83,7 @@ class IMPHead(nn.Module):
         super().__init__()
         H = hidden_dim
         self.mp_iter = mp_iter
+        self.compute_dtype = torch.float32
         self.obj_unary = nn.Linear(obj_dim, H)
         self.edge_unary = nn.Linear(obj_dim, H)
         self.node_gru = GRUCell(H, H)
@@ -91,10 +101,11 @@ class IMPHead(nn.Module):
 
         Returns (obj_logits (B,N,C) f32, rel_logits (B,E,R) f32).
         """
-        dt = self.obj_unary.weight.dtype
+        dt = self.compute_dtype
         N = node_feat.shape[1]
-        obj_rep = self.obj_unary(node_feat.to(dt))
-        rel_rep = F.relu(self.edge_unary(edge_feat.to(dt)))
+        obj_rep = linear_in(self.obj_unary, node_feat, dt)
+        rel_rep = F.relu(linear_in(self.edge_unary, edge_feat, dt))
+        gate = lambda fc, x: torch.sigmoid(linear_in(fc, x, dt))  # noqa: E731
 
         vert = self.node_gru(torch.zeros_like(obj_rep), obj_rep)
         edge = self.edge_gru(torch.zeros_like(rel_rep), rel_rep)
@@ -111,13 +122,13 @@ class IMPHead(nn.Module):
             cat_obj = torch.cat([obj_vert, edge], dim=-1)
 
             # edge update: gated sum of endpoint states (:78-83)
-            msg = (torch.sigmoid(self.sub_vert_w_fc(cat_sub)) * sub_vert
-                   + torch.sigmoid(self.obj_vert_w_fc(cat_obj)) * obj_vert)
+            msg = (gate(self.sub_vert_w_fc, cat_sub) * sub_vert
+                   + gate(self.obj_vert_w_fc, cat_obj) * obj_vert)
             new_edge = self.edge_gru(edge, msg)
 
             # node update: incidence-pooled gated edge states (:86-92)
-            pre_out = torch.sigmoid(self.out_edge_w_fc(cat_sub)) * edge
-            pre_in = torch.sigmoid(self.in_edge_w_fc(cat_obj)) * edge
+            pre_out = gate(self.out_edge_w_fc, cat_sub) * edge
+            pre_in = gate(self.in_edge_w_fc, cat_obj) * edge
             vert_ctx = (
                 torch.einsum("ben,beh->bnh", subj_inc.float(), pre_out.float())
                 + torch.einsum("ben,beh->bnh", obj_inc.float(),
@@ -158,7 +169,7 @@ class RelModelIMP(nn.Module):
         self.test_bias = test_bias
         self.pool_size = POOL_SIZE
         in_dim = POOL_SIZE * POOL_SIZE * FMAP_CHANNELS
-        self.trunk = VGG16Trunk()
+        self.trunk = VGG16Trunk().requires_grad_(False)
         self.union_feats = UnionBoxFeats(dim=FMAP_CHANNELS,
                                          pooling_size=POOL_SIZE,
                                          edge_model=edge_model)
@@ -171,18 +182,24 @@ class RelModelIMP(nn.Module):
                                            init_table=freq_table)
 
     def to_compute_dtype(self, dtype: torch.dtype) -> "RelModelIMP":
-        """Cast to ``dtype`` except the f32 output layers and the table."""
-        self.to(dtype)
-        self.imp.obj_fc.float()
-        self.imp.rel_fc.float()
-        if self.use_bias:
-            self.freq_bias.float()
+        """Compute in ``dtype``: the frozen trunk is stored in it (so K2
+        and K1 take their ``dtype`` routes); the trainable modules keep
+        float32 weights and cast them at use. The output layers
+        ``obj_fc``/``rel_fc`` and the frequency table stay float32, as in
+        the JAX package."""
+        self.trunk.to(dtype)
+        for mod in self.modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = dtype
         return self
 
     def forward(self, images, boxes, classes, pairs, pair_mask, *,
                 fmap=None, mode: Optional[str] = None,
-                dedup_unions: bool = False) -> Dict[str, torch.Tensor]:
-        """Forward pass over a padded batch (inference).
+                dedup_unions: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Forward pass over a padded batch; train mode (``self.training``)
+        draws dropout masks from ``generator``.
 
         images (B, H, W, 3) or None when ``fmap`` (B, h, w, 512) is given;
         boxes (B, N, 4) image pixels; classes (B, N); pairs (B, E, 2);
@@ -219,13 +236,14 @@ class RelModelIMP(nn.Module):
         rects = self.union_feats(pair_boxes)  # (B, E, h, w, C)
         edge_split = dedup_unions and rects.shape[2] == 1 \
             and rects.shape[3] == 1
-        node_feat = self.roi_fmap_obj(node_pool)
+        node_feat = self.roi_fmap_obj(node_pool, generator=generator)
         if edge_split:
             # fc6 is linear before its ReLU: run it on the deduplicated
             # pools, gather, and add the constant rects vector through the
             # spatially summed kernel
             edge_feat = self.roi_fmap(union_pool_u, gather_idx=gidx,
-                                      broadcast_add=rects[:, :, 0, 0, :])
+                                      broadcast_add=rects[:, :, 0, 0, :],
+                                      generator=generator)
         else:
             union_pool = union_pool_u
             if gidx is not None:
@@ -233,7 +251,8 @@ class RelModelIMP(nn.Module):
                     union_pool_u, 1,
                     gidx[:, :, None, None, None].expand(
                         *gidx.shape, *union_pool_u.shape[2:]))
-            edge_feat = self.roi_fmap(union_pool + rects.to(union_pool.dtype))
+            edge_feat = self.roi_fmap(union_pool + rects.to(union_pool.dtype),
+                                      generator=generator)
 
         obj_logits, rel_logits = self.imp(node_feat, edge_feat, pairs,
                                           pair_mask)

@@ -10,7 +10,12 @@ source is rebuilt. The build directory ``sgg_torch/build/`` is listed in
 
 Each C entry point takes device pointers, sizes and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; ``CudaKernel.launch``
-raises if that is not 0 and otherwise counts the launch.
+raises if that is not 0 and otherwise counts the launch, in all and by
+route (the element type the wrapper launched it for).
+
+The kernels are forward-only and launch outside autograd: a wrapper whose
+CUDA inputs require a gradient while grad mode is on raises
+(``refuse_grad``) instead of returning an output that silently drops it.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -43,7 +49,8 @@ def nvcc_path() -> str:
 class CudaKernel:
     """One ``csrc/<source>`` library and its C entry point ``symbol``.
 
-    ``launches`` counts successful launches; callers may reset it to 0.
+    ``launches`` counts successful launches, ``routes`` the same launches
+    by route; callers may reset both (``reset_counts``).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -51,6 +58,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.routes: Counter = Counter()
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
@@ -111,13 +119,30 @@ class CudaKernel:
                 self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the entry point; raise on a launch error, else count it."""
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.routes.clear()
+
+    def launch(self, *args, route: str) -> None:
+        """Call the entry point; raise on a launch error, else count it
+        under ``route``."""
         code = self._load()(*args)
         if code != 0:
             msg = self._error_string(code).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {code} ({msg})")
         self.launches += 1
+        self.routes[route] += 1
+
+
+def refuse_grad(name: str, *tensors, backward: str) -> None:
+    """Raise if grad mode is on and one of ``tensors`` requires a gradient:
+    the CUDA kernel has no backward (``backward`` says where it is queued)."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward ({backward}); an input "
+            f"requires a gradient. Run it under torch.no_grad() or detach "
+            f"the inputs.")
 
 
 def build_all(kernels: List[CudaKernel]) -> None:

@@ -32,9 +32,10 @@ def draw_union_rects(pair_boxes: torch.Tensor,
     w = torch.where(w > 0, w, torch.ones_like(w))
     h = torch.where(h > 0, h, torch.ones_like(h))
 
-    # a tensor numerator: ``P / w`` would be ``w.reciprocal() * P``
-    sx = w.new_tensor(float(P)) / w
-    sy = h.new_tensor(float(P)) / h
+    # a tensor numerator: ``P / w`` would be ``w.reciprocal() * P``; filled
+    # on the device (``new_tensor`` would copy from the host and wait)
+    sx = torch.full_like(w, float(P)) / w
+    sy = torch.full_like(h, float(P)) / h
     x1 = (boxes[..., 0] - x1u) * sx  # (..., E, 2)
     y1 = (boxes[..., 1] - y1u) * sy
     x2 = (boxes[..., 2] - x1u) * sx

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sgg_torch.ops._cuda import CudaKernel
+from sgg_torch.ops._cuda import CudaKernel, refuse_grad
 
 KERNEL = CudaKernel(
     "roi_align.cu", "sgg_roi_align",
@@ -30,6 +30,7 @@ KERNEL = CudaKernel(
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _interp_weights(start: torch.Tensor, extent: torch.Tensor, dim: int,
@@ -131,7 +132,12 @@ def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, *,
               spatial_scale: float, pooled: int = 7,
               ratio: int = 2) -> torch.Tensor:
     """(B, H, W, C) NHWC fmap + (B, R, 4) image-pixel boxes ->
-    (B, R, P, P, C) in the fmap's type."""
+    (B, R, P, P, C) in the fmap's type.
+
+    On the card the output has no ``grad_fn``: with grad mode on, inputs
+    that require a gradient are refused (K1's backward, ``grad_fmap``, is
+    queued for the GAN slice, ROADMAP Queue B). The plain version on the
+    CPU is differentiable."""
     if fmap.device.type == "cpu":
         return roi_align_reference(fmap, boxes, spatial_scale=spatial_scale,
                                    pooled=pooled, ratio=ratio)
@@ -147,6 +153,9 @@ def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, *,
                          f"{tuple(boxes.shape)}")
     if not (fmap.is_contiguous() and boxes.is_contiguous()):
         raise ValueError("roi_align: fmap and boxes must be contiguous")
+    refuse_grad("roi_align", fmap, boxes,
+                backward="K1's backward is queued for the GAN slice, "
+                         "ROADMAP Queue B")
     B, H, W, C = fmap.shape
     R = boxes.shape[1]
     out = torch.empty((B, R, pooled, pooled, C), dtype=fmap.dtype,
@@ -154,5 +163,6 @@ def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, *,
     KERNEL.launch(fmap.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W,
                   C, R, float(spatial_scale), pooled, ratio,
                   _DTYPES[fmap.dtype],
-                  torch.cuda.current_stream(fmap.device).cuda_stream)
+                  torch.cuda.current_stream(fmap.device).cuda_stream,
+                  route=ROUTES[fmap.dtype])
     return out

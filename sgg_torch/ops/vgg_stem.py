@@ -21,7 +21,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sgg_torch.ops._cuda import CudaKernel
+from sgg_torch.ops._cuda import CudaKernel, refuse_grad
 
 KERNEL = CudaKernel(
     "vgg_stem.cu", "sgg_vgg_conv1",
@@ -29,6 +29,7 @@ KERNEL = CudaKernel(
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def vgg_conv1_reference(x: torch.Tensor, w: torch.Tensor,
@@ -46,6 +47,11 @@ def vgg_conv1(x: torch.Tensor, w: torch.Tensor,
 
     x: (B, H, W, 3) float32/bfloat16; w: (3, 3, 3, 64) HWIO; b: (64,).
     Returns (B, H, W, 64) in x's type, channels-last contiguous.
+
+    On the card the output has no ``grad_fn``: with grad mode on, inputs
+    that require a gradient are refused (the trunk is frozen, so nothing
+    asks for this backward). The plain version on the CPU is
+    differentiable.
     """
     if x.device.type == "cpu":
         return vgg_conv1_reference(x, w, b)
@@ -61,11 +67,15 @@ def vgg_conv1(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
     if not x.is_contiguous():
         raise ValueError("vgg_conv1: x must be contiguous NHWC")
+    refuse_grad("vgg_conv1", x, w, b,
+                backward="the trunk is frozen; like K1's backward, queued "
+                         "in ROADMAP Queue B, it would need a kernel")
     B, H, W, _ = x.shape
     w32 = w.float().contiguous()  # (dy, dx, c, o) == (27, 64) row-major
     b32 = b.float().contiguous()
     out = torch.empty((B, H, W, 64), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.data_ptr(), w32.data_ptr(), b32.data_ptr(),
                   out.data_ptr(), B, H, W, _DTYPES[x.dtype],
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  torch.cuda.current_stream(x.device).cuda_stream,
+                  route=ROUTES[x.dtype])
     return out

@@ -1,25 +1,48 @@
-"""Model construction (``build_model`` of ``sgg_tpu/train/trainer.py``).
+"""Training loop: model construction, the epoch loop, checkpoints,
+validation and the test sweep.
 
-The ``Trainer`` loop, checkpoints and the CLI come with the training slice.
+Counterpart of ``sgg_tpu/train/trainer.py`` (reference ``main.py``): the
+epoch loop with interval loss averaging and s/batch reporting
+(``main.py:196-236``), per-epoch checkpoints with auto-resume
+(``main.py:249-254``), validation after the first epoch and then every
+``VAL_EVERY`` epochs, and the final test sweep over all eval splits
+(``main.py:256-288``). One process on one device (``config.device``).
+Not ported yet, each raising ``NotImplementedError`` with the ROADMAP
+Queue A item that brings it: sgdet (items 11-12), the feature cache (10),
+the GAN (14) and multi-device training (15).
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
 import torch
 
+from sgg_torch import constants
 from sgg_torch.config import Config
 from sgg_torch.data.datasets import SGGDataset
+from sgg_torch.data.pipeline import BatchLoader
 from sgg_torch.device import resolve_device
+from sgg_torch.eval.driver import val_epoch
 from sgg_torch.models.frequency_bias import (count_matrices,
                                              log_predicate_distribution)
 from sgg_torch.models.relhead import RelModelIMP, init_weights
+from sgg_torch.train import checkpoint as ckpt
+from sgg_torch.train.state import Optimizer
+from sgg_torch.train.step import make_train_step
 
 
 def build_model(config: Config, train_data: SGGDataset, *,
                 device="cuda", seed: int = 0) -> RelModelIMP:
     """Flagship IMP model from config + dataset vocabulary (main.py:54-60),
-    with seeded random weights, in the config's compute type, in eval mode
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    with seeded random weights, computing in the config's type over
+    float32 master weights (the frozen trunk stored in that type), in eval
+    mode on ``device`` (the card unless the caller asks for the CPU)."""
     dev = resolve_device(device)
     freq_table = None
     if config.use_bias:
@@ -40,3 +63,205 @@ def build_model(config: Config, train_data: SGGDataset, *,
     dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" \
         else torch.float32
     return model.to_compute_dtype(dtype).to(dev).eval()
+
+
+# the reference evaluates every 5 epochs: evaluation is slow and noisy
+# (main.py:258-259)
+VAL_EVERY = 5
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to sgg_torch yet "
+                               f"(ROADMAP Queue A {item})")
+
+
+class Trainer:
+    """Owns the model, the optimizer, the train step and the epoch, val
+    and test loops, on ``config.device``."""
+
+    def __init__(self, config: Config, splits: Dict[str, SGGDataset],
+                 model: Optional[RelModelIMP] = None):
+        if config.mode == "sgdet":
+            raise _not_ported("sgdet training", "items 11-12")
+        if config.feature_cache:
+            raise _not_ported("the feature cache", "item 10")
+        if config.gan:
+            raise _not_ported("GAN training", "item 14")
+        if config.num_devices > 1:
+            raise _not_ported("multi-device training", "item 15")
+        self.config = config
+        self.splits = splits
+        self.train_data = splits["train"]
+        self.device = resolve_device(config.device)
+        self.model = (model.to(self.device) if model is not None else
+                      build_model(config, self.train_data,
+                                  device=self.device, seed=config.seed))
+        if config.max_edges < config.rels_per_img:
+            # the padded edge bucket bounds the per-image relation budget;
+            # only images with more candidate pairs than the bucket are
+            # affected (reference budget: rels_per_img)
+            print(f"[trainer] edge budget = min(max_edges "
+                  f"{config.max_edges}, rels_per_img "
+                  f"{config.rels_per_img}) — raise -max_edges for full "
+                  f"budget parity on graphs with > {config.max_edges} "
+                  f"candidate pairs")
+        self.steps_per_epoch = max(len(self.train_data) // config.batch_size,
+                                   1)
+        self.optimizer = Optimizer(config, self.model, self.steps_per_epoch)
+        self.train_step = make_train_step(self.model, config, self.optimizer)
+        self.start_epoch = 0
+        self.global_iter = 0
+        if config.save_dir:
+            os.makedirs(config.save_dir, exist_ok=True)
+            self._restore()
+
+    # ------------------------------------------------------------------
+    def _payload(self, epoch: int) -> Dict:
+        params = dict(self.model.named_parameters())
+        return {
+            "step": torch.tensor(self.optimizer.count),
+            "params": {k: v.detach() for k, v in params.items()},
+            "batch_stats": dict(self.model.named_buffers()),
+            "opt_state": self.optimizer.state_dict(),
+            "epoch": torch.tensor(epoch),
+        }
+
+    def save(self, epoch: int) -> None:
+        ckpt.save_payload(self.config.save_dir, self._payload(epoch), epoch)
+
+    def _restore(self) -> None:
+        restored, last, _, stats = ckpt.optimistic_restore_payload(
+            self.config.save_dir, self._payload(0),
+            map_location=self.device)
+        if last < 0:
+            return
+        # the run's own save_dir: a partial match usually means config
+        # drift (e.g. a changed hidden_dim), and resuming part random-init
+        # at a saved epoch would corrupt the run, so say which leaves kept
+        # their init values
+        if stats["missing"] or stats["unused"]:
+            print(f"[resume] WARNING: checkpoint epoch {last} in "
+                  f"{self.config.save_dir} only partially matches this "
+                  f"run's state — {len(stats['missing'])} leaves kept "
+                  f"their fresh-init values "
+                  f"(first: {stats['missing'][:5]}), "
+                  f"{len(stats['unused'])} on-disk leaves had no home "
+                  f"(first: {stats['unused'][:5]}).")
+        with torch.no_grad():
+            for coll in ("params", "batch_stats"):
+                live = dict(self.model.named_parameters()) \
+                    if coll == "params" else dict(self.model.named_buffers())
+                for k, v in restored[coll].items():
+                    live[k].copy_(v)
+        self.optimizer.load_state_dict(restored["opt_state"])
+        self.optimizer.count = int(restored["step"])
+        self.start_epoch = last + 1
+        self.global_iter = self.optimizer.count
+        print(f"resumed from epoch {last}")
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One epoch (reference train_epoch, main.py:196-236). Losses stay
+        on the device between print intervals; a non-finite interval mean
+        raises ``FloatingPointError``."""
+        cfg = self.config
+        loader = BatchLoader(self.train_data, batch_size=cfg.batch_size,
+                             max_nodes=cfg.max_nodes,
+                             max_edges=cfg.max_edges, seed=cfg.seed,
+                             num_workers=cfg.num_workers,
+                             im_scale=constants.IM_SCALE)  # read per call
+        loader._epoch = epoch
+        generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed * 100003 + epoch)
+        accum = defaultdict(list)
+        epoch_means = defaultdict(list)
+        t0 = time.time()
+        for b_i, batch in enumerate(loader):
+            metrics = self.train_step(batch, generator)
+            self.global_iter += 1
+            for k, v in metrics.items():
+                accum[k].append(v)
+            if (b_i + 1) % cfg.print_interval == 0:
+                means = self._means(accum)  # one host sync an interval
+                if not all(map(math.isfinite, means.values())):
+                    # the reference kills the run on a non-finite loss
+                    # (detector/engine.py:41-44); a silent NaN would burn
+                    # the remaining epochs
+                    raise FloatingPointError(
+                        f"non-finite loss at epoch {epoch} batch {b_i}: "
+                        f"{means}")
+                for k, v in means.items():
+                    epoch_means[k].append(v)
+                dt = (time.time() - t0) / cfg.print_interval
+                print(f"e{epoch} b{b_i + 1} "
+                      + " ".join(f"{k}={v:.4f}" for k, v in means.items())
+                      + f" {dt:.3f}s/batch", flush=True)
+                accum.clear()
+                t0 = time.time()
+        if accum:
+            for k, v in self._means(accum).items():
+                epoch_means[k].append(v)
+        return {k: sum(v) / len(v) for k, v in epoch_means.items()}
+
+    @staticmethod
+    def _means(accum) -> Dict[str, float]:
+        keys = list(accum)
+        means = torch.stack([torch.stack(accum[k]).mean() for k in keys])
+        return dict(zip(keys, means.tolist()))
+
+    # ------------------------------------------------------------------
+    def evaluate(self, split_names, verbose: bool = True,
+                 collect_entries: bool = False) -> Dict[str, float]:
+        results = {}
+        for name in split_names:
+            ds = self.splits.get(name)
+            if ds is None or len(ds) == 0:
+                continue
+            res = val_epoch(
+                self.model, ds, self.config, name, train=self.train_data,
+                verbose=verbose, collect_entries=collect_entries,
+                device=self.device)
+            if collect_entries and "_entries" in res:
+                results.setdefault("_entries", {})[name] = res.pop("_entries")
+            for extra in ("_counters", "_throughput"):
+                if extra in res:
+                    results.setdefault(extra, {})[name] = res.pop(extra)
+            results.update(res)
+        return results
+
+    # ------------------------------------------------------------------
+    def fit(self, val_names=("val_zs", "val_alls"),
+            test_names=("test_zs", "test_10s", "test_100s", "test_alls")
+            ) -> Dict[str, float]:
+        """Full run: epochs + periodic val + final test (main.py:244-288).
+
+        Validation runs after the first epoch and then every ``VAL_EVERY``
+        epochs."""
+        cfg = self.config
+        for epoch in range(self.start_epoch, cfg.num_epochs):
+            losses = self.train_epoch(epoch)
+            print(f"epoch {epoch}: " +
+                  " ".join(f"{k}={v:.4f}" for k, v in losses.items()))
+            if cfg.save_dir:
+                self.save(epoch)
+            run_val = (epoch == self.start_epoch
+                       or (epoch % VAL_EVERY == 0
+                           and epoch < cfg.num_epochs - 1))
+            if cfg.val_size != 0 and run_val:
+                self.evaluate(val_names, verbose=False)
+        results = {}
+        if not cfg.notest:
+            results = self.evaluate(test_names,
+                                    collect_entries=cfg.save_scores)
+            if cfg.save_dir and results:
+                with open(os.path.join(cfg.save_dir, "test_results.json"),
+                          "w") as f:
+                    json.dump({k: v for k, v in results.items()
+                               if not k.startswith("_")}, f, indent=2)
+            if cfg.save_scores and cfg.save_dir and "_entries" in results:
+                # test prediction entries (reference main.py:284-288)
+                import pickle
+                with open(os.path.join(cfg.save_dir,
+                                       "test_predictions.pkl"), "wb") as f:
+                    pickle.dump(results.pop("_entries"), f)
+        return results

@@ -209,3 +209,95 @@ def test_tiny_eval_step_card_matches_cpu(dev):
         torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-4,
                                    rtol=0)
     assert torch.equal(got["obj_preds"].cpu(), want["obj_preds"])
+
+
+def test_wrappers_refuse_inputs_that_need_a_gradient(dev):
+    fmap = torch.randn(1, 5, 5, 8, device=dev, requires_grad=True)
+    boxes = torch.tensor([[[0.0, 0.0, 40.0, 50.0]]], device=dev)
+    with pytest.raises(RuntimeError, match="GAN slice, ROADMAP Queue B"):
+        troi.roi_align(fmap, boxes, spatial_scale=1 / 16.0)
+    x = torch.randn(1, 9, 7, 3, device=dev)
+    w = torch.randn(3, 3, 3, 64, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        vgg_stem.vgg_conv1(x, w, torch.randn(64, device=dev))
+    with torch.no_grad():  # nothing to refuse without grad mode
+        troi.roi_align(fmap, boxes, spatial_scale=1 / 16.0)
+        vgg_stem.vgg_conv1(x, w, torch.randn(64, device=dev))
+
+
+def _tiny_train(device, dtype=torch.float32, seed=0):
+    from sgg_torch.config import Config
+    from sgg_torch.models.backbone import Dropout
+    from sgg_torch.models.relhead import RelModelIMP, init_weights
+    from sgg_torch.train.state import Optimizer
+    from sgg_torch.train.step import make_train_step
+
+    model = init_weights(RelModelIMP(num_classes=9, num_predicates=6,
+                                     hidden_dim=16, obj_dim=32), seed)
+    model = model.to_compute_dtype(dtype).to(device)
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    cfg = Config(device=str(device), mode="sgcls", loss="dnorm",
+                 batch_size=2, max_nodes=8, max_edges=12,
+                 compute_dtype="bfloat16" if dtype == torch.bfloat16
+                 else "float32")
+    opt = Optimizer(cfg, model)
+    return model, make_train_step(model, cfg, opt)
+
+
+def _train_batch():
+    from sgg_torch.data.synthetic import SyntheticSGGDataset
+    return SyntheticSGGDataset(num_images=2, num_classes=9, num_predicates=6,
+                               max_objects=6, image_size=64,
+                               with_images=True, seed=3).batch(
+        [0, 1], max_nodes=8, max_edges=12)
+
+
+def test_tiny_train_step_card_matches_cpu(dev):
+    """One f32 train step (dropout off) on the card and on the CPU, from
+    the same weights on the same sampled edges."""
+    from sgg_torch.train.assign import sample_edges
+
+    cpu, cpu_step = _tiny_train("cpu")
+    card, card_step = _tiny_train(dev)
+    card.load_state_dict(cpu.state_dict())
+    batch = _train_batch()
+    edges = sample_edges(torch.Generator().manual_seed(0),
+                         *(torch.from_numpy(a) for a in (
+                             batch.rels, batch.rel_mask, batch.node_mask)),
+                         max_out=12)
+    got = card_step(batch, None, edges=edges)
+    want = cpu_step(batch, None, edges=edges)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], atol=0,
+                                   rtol=1e-4)
+    theirs = cpu.state_dict()
+    for k, v in card.state_dict().items():
+        torch.testing.assert_close(v.cpu(), theirs[k], atol=1e-6, rtol=1e-5)
+
+
+def test_bf16_train_step_launches_the_bf16_routes(dev):
+    model, step = _tiny_train(dev, torch.bfloat16)
+    troi.KERNEL.reset_counts()
+    vgg_stem.KERNEL.reset_counts()
+    metrics = step(_train_batch(), torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).item() for v in metrics.values())
+    assert dict(troi.KERNEL.routes) == {"bf16": 2}
+    assert dict(vgg_stem.KERNEL.routes) == {"bf16": 1}
+
+
+def test_train_step_does_not_wait_for_the_card(dev):
+    """No host sync inside a train step: losses stay on the device."""
+    model, step = _tiny_train(dev, torch.bfloat16)
+    batch = _train_batch().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step(batch, gen)  # first call: cuBLAS/cuDNN set-up may synchronize
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.isfinite(v).item() for v in metrics.values())
