@@ -42,12 +42,34 @@ non-zero exit and without the result line:
    one full-width train step of 2 images on the same sampled edges with
    dropout off (losses and grad_norm within 1e-4 relative; the update, as
    the momentum buffers hold it, within 1e-3 relative in norm; updated
-   parameters and BN statistics within 1e-6 abs).
+   parameters and BN statistics within 1e-6 abs);
+7. SGDet at full width under its own deadline (VG-Stanford vocabulary,
+   ``FasterRCNNVGG`` defaults, seeded random weights with the classifier's
+   weights scaled by ``CLS_SCALE`` so that detections clear the score
+   thresholds): ``python -m sgg_torch.main -m sgdet -nepoch 0 -ckpt <dir>
+   -split synthetic -val_size 32`` in-process from a detector written to a
+   temporary directory (images/s, cap counters, detections an image, the
+   selected thresholds, recalls; at least half the images reach the
+   evaluator, one fills all 50 slots; K1 three launches a batch pass and
+   K2 one, bf16 routes only); one eval pass of 8 images split by stage
+   (CUDA events) with its peak memory; K1 at the detector's shape (8 x 512
+   proposals), per eval and train step, and K2 at batch 8 and 6, against
+   the plain versions; the detect and relate stages and a train step under
+   ``set_sync_debug_mode("error")``; each escalation of the retry wrapper
+   forced once (candidate cap, rounds budget, pair budget), each equal to
+   the exact run (sequential NMS, a covering cap, dense pairs); card
+   against CPU (f32, 2 images: the continuous outputs within 1e-3 of their
+   size, and the CPU's post-processing of the card's continuous outputs
+   giving the card's decisions exactly and its boxes within 1e-3 px); and
+   ``Trainer`` in mode sgdet (``-loss dnorm -b 6``) for 4 steps (finite
+   losses, ``nms_converged_frac``, the detector bit-unchanged, every
+   relation-head parameter moved, 3 K1 + 1 K2 launches a step).
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 row's numbers at the training shapes, the eval shapes' under
-``eval_shape``; ``launches`` summed over the paths of phases 4 and 5) and,
-last, the result line ``{"ok": true, "device": {...}}``.
+``eval_shape``, the SGDet shapes' under ``sgdet``; ``launches`` summed over
+the paths of phases 4, 5 and 7) and, last, the result line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -63,8 +85,15 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOTAL_DEADLINE_S = 1100
 PARITY_DEADLINE_S = 420
+SGDET_DEADLINE_S = 480
 # the JAX bench's training shape (bench.py: sgcls, dnorm, batch 24)
 TRAIN_BATCH, TRAIN_NODES, TRAIN_EDGES = 24, 40, 256
+# SGDet: eval batch 8 (val_epoch's), the CLI's train batch 6; seeded random
+# classifier weights times CLS_SCALE put 50 detections an image above 0.2
+# with ~950 candidates above 0.01 on the synthetic canvases (under the
+# 1024 cap), where unscaled a 151-way softmax leaves every class near 1/151
+SGDET_EVAL_BATCH, SGDET_TRAIN_BATCH, CLS_SCALE = 8, 6, 24.0
+CANVAS = 592  # the full-width canvas (constants.IM_SCALE)
 
 
 def fail(msg: str) -> None:
@@ -756,6 +785,526 @@ def phase_parity(torch, splits):
           f"parameters {par_err} max abs")
 
 
+def sgdet_detector(torch, num_classes: int, seed: int = 0):
+    """The full-width ``FasterRCNNVGG`` (f32, on the CPU) with seeded random
+    weights, its classifier's weights times ``CLS_SCALE``."""
+    from sgg_torch.models.detector import FasterRCNNVGG, init_detector_weights
+    det = init_detector_weights(FasterRCNNVGG(num_classes), seed)
+    with torch.no_grad():
+        det.cls_score.weight.mul_(CLS_SCALE)
+    return det.eval()
+
+
+def _on_card(torch, det, dtype):
+    import copy
+    return copy.deepcopy(det).requires_grad_(False).to_compute_dtype(
+        dtype).cuda().eval()
+
+
+def _counted(torch, fn):
+    """``fn()`` with the kernels' counts zeroed before and read after; a
+    plain version called on a card tensor meanwhile fails the run."""
+    from sgg_torch.ops import roi_align as K1
+    from sgg_torch.ops import vgg_stem as K2
+    plain = [(K1, "roi_align_reference"), (K2, "vgg_conv1_reference")]
+    saved = [getattr(mod, name) for mod, name in plain]
+    on_card = []
+
+    def watch(f, name):
+        def call(x, *a, **k):
+            if x.is_cuda:
+                on_card.append(name)
+            return f(x, *a, **k)
+        return call
+
+    K1.KERNEL.reset_counts()
+    K2.KERNEL.reset_counts()
+    try:
+        for (mod, name), f in zip(plain, saved):
+            setattr(mod, name, watch(f, name))
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), f in zip(plain, saved):
+            setattr(mod, name, f)
+    check(not on_card, f"plain versions ran on the card: {on_card[:3]}")
+    return out, {"roi_align": K1.KERNEL.launches,
+                 "vgg_conv1": K2.KERNEL.launches}, {
+        "roi_align": dict(K1.KERNEL.routes),
+        "vgg_conv1": dict(K2.KERNEL.routes)}
+
+
+def sgdet_eval_cli(torch, det, ckdir):
+    """7a: ``python -m sgg_torch.main -m sgdet -nepoch 0 -ckpt <dir>`` at
+    full width, counted."""
+    from sgg_torch import main as cli
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.models.sgdet import sgdet_eval_with_retry
+    from sgg_torch.models.relhead import RelModelIMP, init_weights
+
+    # warm-up on the same shapes (CUDA context, cuDNN/cuBLAS handles, the
+    # kernels' libraries), outside the counted run
+    warm = _on_card(torch, det, torch.bfloat16)
+    rel = init_weights(RelModelIMP(num_classes=151, num_predicates=51,
+                                   mode="sgdet"), 0)
+    rel = rel.to_compute_dtype(torch.bfloat16).cuda().eval()
+    test = synthetic_splits(num_eval=SGDET_EVAL_BATCH)["test_alls"]
+    batch = next(iter(BatchLoader(test, batch_size=SGDET_EVAL_BATCH,
+                                  max_nodes=64, max_edges=64,
+                                  shuffle=False, drop_last=False)))
+    sgdet_eval_with_retry(warm, rel, batch)
+    del warm, rel
+    torch.cuda.empty_cache()
+
+    argv = ["-m", "sgdet", "-nepoch", "0", "-ckpt", ckdir, "-split",
+            "synthetic", "-val_size", "32", "-nwork", "4"]
+    t0 = time.perf_counter()
+    res, n, routes = _counted(torch, lambda: cli.main(argv))
+    wall = time.perf_counter() - t0
+    thr, cnt, dets = res["_throughput"], res["_counters"], res["_detections"]
+    images = sum(t["sgdet"]["images"] for t in thr.values())
+    secs = sum(t["sgdet"]["seconds"] for t in thr.values())
+    n_det = [d for v in dets.values() for d in v["n_det"]]
+    sel = [t for v in dets.values() for t in v["sel_thresh"]]
+    batches = sum(c.get("sgdet_batches", 0) for c in cnt.values())
+    redetect = sum(c.get("sgdet_nms_unconverged", 0)
+                   + c.get("sgdet_nms_cand_overflow", 0)
+                   for c in cnt.values())
+    shares = {f"{t:g}": round(sel.count(t) / len(sel), 4)
+              for t in sorted(set(sel), reverse=True)}
+    print(f"phase 7 sgdet eval (main -m sgdet -nepoch 0 -ckpt, 4 test "
+          f"splits, batch {SGDET_EVAL_BATCH}): {images} of {len(n_det)} "
+          f"images reached the evaluator in {secs:.3f} s of eval loops = "
+          f"{images / secs:.2f} images/s ({wall:.1f} s with model "
+          f"building); per split " + json.dumps(
+              {k: round(v["sgdet"]["images"] / v["sgdet"]["seconds"], 2)
+               for k, v in thr.items()}) + " images/s", flush=True)
+    print(f"phase 7 counters {json.dumps(cnt)}; detections an image min "
+          f"{min(n_det)} median {sorted(n_det)[len(n_det) // 2]} max "
+          f"{max(n_det)}; selected threshold shares {json.dumps(shares)}; "
+          f"launches {json.dumps(n)} by route {json.dumps(routes)}",
+          flush=True)
+    recalls = {k: v for k, v in res.items()
+               if k.startswith("sgdet/test_alls_R@") and
+               k.split("R@")[1].split("_")[0] in ("20", "50", "100")}
+    print("phase 7 recalls " + json.dumps(recalls), flush=True)
+    check(images >= 0.5 * len(n_det),
+          f"only {images} of {len(n_det)} images reached the evaluator")
+    check(max(n_det) == 50, f"no image filled the 50 detection slots "
+                            f"(max {max(n_det)})")
+    check(len(recalls) == 6 and all(math.isfinite(v)
+                                    for v in recalls.values()),
+          f"recalls missing or not finite: {recalls}")
+    check(all(set(r) == {"bf16"} for r in routes.values()),
+          f"sgdet eval launched a route other than bf16: {routes}")
+    want = {"vgg_conv1": batches + redetect,
+            "roi_align": batches + redetect + 2 * batches}
+    check(n == want, f"sgdet eval launched {n}; {batches} batches with "
+                     f"{redetect} re-detections want {want}")
+    return n
+
+
+def _stage_times(torch, det, step, batch, rung, iters=5):
+    """7b: one eval pass split by stage with CUDA events (ms, mean of
+    ``iters`` after one warm-up)."""
+    from sgg_torch.models.detector import (generate_proposals,
+                                           postprocess_detections)
+    from sgg_torch.ops.roi_align import roi_align
+
+    names = ("trunk", "rpn_proposals", "box_head", "postprocess_nms",
+             "select_pairs", "relation_head")
+    totals = dict.fromkeys(names, 0.0)
+    for it in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        with torch.inference_mode():
+            ev[0].record()
+            fmap = det.trunk(batch.images)
+            ev[1].record()
+            obj, dl = det.rpn(fmap)
+            anchors = det.anchors(fmap.shape[1], fmap.shape[2], fmap.device)
+            props, _, pmask, _ = generate_proposals(
+                anchors, obj, dl, batch.im_hw,
+                pre_nms_top_n=det.rpn_pre_nms_top_n,
+                post_nms_top_n=det.rpn_post_nms_top_n,
+                nms_thresh=det.rpn_nms_thresh, nms_method=det.nms_method,
+                nms_rounds=det.nms_rounds)
+            ev[2].record()
+            feats = det.box_head(roi_align(fmap, props, spatial_scale=1 / 16,
+                                           pooled=7)).float()
+            cl, bd = det.cls_score(feats), det.bbox_pred(feats)
+            ev[3].record()
+            postprocess_detections(
+                cl, bd, props, pmask, batch.im_hw, score_thresh=0.01,
+                nms_thresh=det.nms_thresh,
+                detections_per_img=det.detections_per_img,
+                nms_candidates=det.nms_candidates,
+                nms_method=det.nms_method, nms_rounds=det.nms_rounds)
+            ev[4].record()
+        d = step.detect(batch)  # the whole detect stage, pairs included
+        ev[5].record()
+        step.relate(d, rung)
+        ev[6].record()
+        torch.cuda.synchronize()
+        if it:
+            ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+            detect_ms = ev[4].elapsed_time(ev[5])
+            # select_pairs: the detect stage beyond the detector's stages
+            ms[4] = detect_ms - sum(ms[:4])
+            for k, v in zip(names, ms):
+                totals[k] += v / iters
+    return totals, props
+
+
+def sgdet_kernels(torch, peaks, fmap16, props, n_unions):
+    """7b: K1 at the detector's shape (one launch over 8 x 512 proposals)
+    and K1's three launches of an SGDet eval and train step; K2 at batch 8
+    and 6. Each against its plain version on the same inputs."""
+    from sgg_torch.ops import roi_align as K1
+    from sgg_torch.ops import vgg_stem as K2
+    dev = fmap16.device
+    g = torch.Generator().manual_seed(7)
+    B, H, W, C = fmap16.shape
+    f32 = torch.rand(B, H, W, C, generator=g).to(dev)
+    want = K1.roi_align_reference(f32, props, spatial_scale=1 / 16)
+    err = float((K1.roi_align(f32, props, spatial_scale=1 / 16)
+                 - want).abs().max())
+    rel = rel_err(torch, K1.roi_align(fmap16, props, spatial_scale=1 / 16),
+                  K1.roi_align_reference(fmap16.float(), props,
+                                         spatial_scale=1 / 16))
+    check(err <= 1e-5, f"roi_align detector shape f32 max |err| {err}")
+    check(rel <= 2e-2, f"roi_align detector shape bf16 rel err {rel}")
+    del f32, want
+
+    def k1_bytes(b, r):
+        return b * H * W * C * 2 + b * r * 16 + b * r * 49 * C * 2
+
+    def k1_row(b, rs):
+        fm = fmap16[:b].contiguous()
+        boxes = [eval_boxes(g, b, r, CANVAS).to(dev) for r in rs]
+        boxes[0] = props[:b, :rs[0]].contiguous()
+        n_out = sum(b * r * 49 * C for r in rs)
+        nb = sum(k1_bytes(b, r) for r in rs)
+        bms, bby = bound_ms(nb, n_out * 32, peaks, bf16=True)
+        return dict(
+            ms=time_ms(lambda: [K1.roi_align(fm, x, spatial_scale=1 / 16)
+                                for x in boxes]),
+            plain_ms=time_ms(lambda: [K1.roi_align_reference(
+                fm, x, spatial_scale=1 / 16) for x in boxes], iters=5),
+            bound_ms=bms, bound_by=bby, library_ms=None,
+            shape=f"bf16 fmap {b}x{H}x{W}x{C}; "
+            f"R={'+'.join(map(str, rs))}")
+
+    out = {"roi_align": {
+        "detector_shape": dict(max_abs_err=err, bf16_rel_err=rel,
+                               **k1_row(B, (512,))),
+        "eval_step": k1_row(SGDET_EVAL_BATCH, (512, 50, n_unions)),
+        "train_step": k1_row(SGDET_TRAIN_BATCH, (512, 50, 64))}}
+    k2 = {}
+    for name, b in (("eval_step", SGDET_EVAL_BATCH),
+                    ("train_step", SGDET_TRAIN_BATCH)):
+        x = torch.randn(b, CANVAS, CANVAS, 3,
+                        generator=g).to(dev).bfloat16()
+        w = (torch.randn(3, 3, 3, 64, generator=g) * 0.2).to(dev)
+        bias = torch.zeros(64, device=dev)
+        n_px = b * CANVAS * CANVAS
+        bms, bby = bound_ms(x.numel() * 2 + (w.numel() + 64) * 4
+                            + n_px * 64 * 2, n_px * 64 * 27 * 2, peaks,
+                            bf16=True)
+        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        wc = w.bfloat16().permute(3, 2, 0, 1).contiguous()
+        k2[name] = dict(ms=time_ms(lambda: K2.vgg_conv1(x, w, bias)),
+                        plain_ms=time_ms(lambda: K2.vgg_conv1_reference(
+                            x, w.bfloat16(), bias.bfloat16()), iters=5),
+                        library_ms=time_ms(lambda: torch.relu(
+                            torch.nn.functional.conv2d(
+                                xc, wc, bias.bfloat16(), padding=1))),
+                        bound_ms=bms, bound_by=bby,
+                        shape=f"bf16 {b}x{CANVAS}x{CANVAS}x3 -> "
+                              f"{b}x{CANVAS}x{CANVAS}x64")
+        del x, xc
+    out["vgg_conv1"] = k2
+    torch.cuda.empty_cache()
+    for kname, row in out.items():
+        for shape, m in row.items():
+            print(f"phase 7 {kname} ({shape}): {m['ms']:.4f} ms, bound "
+                  f"{m['bound_ms']:.4f} ms ({m['bound_by']}), plain "
+                  f"{m['plain_ms']:.4f} ms, library "
+                  f"{m.get('library_ms')} ms"
+                  + (f", max|err| f32 {m['max_abs_err']:.3g}, bf16 rel "
+                     f"{m['bf16_rel_err']:.3g}" if "max_abs_err" in m
+                     else "") + f" [{m['shape']}]", flush=True)
+    return out
+
+
+def sgdet_escalations(torch, det, rel, batch):
+    """7c: each escalation of the retry wrapper forced once, each equal to
+    the exact run (sequential NMS, a covering cap, dense pairs)."""
+    import numpy as np
+
+    from sgg_torch.models.sgdet import (make_sgdet_retry_eval_step,
+                                        sgdet_eval_with_retry)
+    from sgg_torch.utils import counters
+    cases = {"candidate cap 64": ({"nms_candidates": 64}, None),
+             "one NMS round": ({"nms_rounds": 1}, None),
+             "pair budget 16": ({}, 16)}
+    need = 0
+    for name, (settings, mp) in cases.items():
+        saved = {k: getattr(det, k) for k in settings}
+        before = counters.snapshot()
+        try:
+            for k, v in settings.items():
+                setattr(det, k, v)
+            t0 = time.perf_counter()
+            got = sgdet_eval_with_retry(det, rel, batch, max_pairs=mp)
+            secs = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                setattr(det, k, v)
+        events = counters.delta(before)
+        need = max(need, int(got["n_nms_candidates"].max()))
+        cap = 1 << max(need - 1, 1).bit_length()
+        exact = make_sgdet_retry_eval_step(
+            det, rel, max_pairs=None, nms_method="sequential",
+            nms_candidates=cap)(batch)
+        diff = [k for k, v in exact.items()
+                if not np.array_equal(v.cpu().numpy(), got[k])]
+        print(f"phase 7 escalation '{name}': counters {json.dumps(events)} "
+              f"in {secs:.3f} s; equal to the exact run (sequential NMS, "
+              f"cap {cap}, dense pairs): {not diff}", flush=True)
+        want_event = {"candidate cap 64": "sgdet_nms_cand_overflow",
+                      "one NMS round": "sgdet_nms_unconverged",
+                      "pair budget 16": "sgdet_pair_overflow"}[name]
+        check(events.get(want_event, 0) == 1,
+              f"{name}: {want_event} did not fire: {events}")
+        check(not diff, f"{name}: differs from the exact run in {diff}")
+
+
+def sgdet_card_vs_cpu(torch, det_cpu):
+    """7d: the detector in f32 on the card and on the CPU, 2 images at full
+    width; then the CPU's post-processing of the card's continuous
+    outputs."""
+    from sgg_torch.models.detector import (generate_proposals,
+                                           postprocess_detections)
+    from sgg_torch.models.sgdet import detection_pairs
+    from sgg_torch.ops.roi_align import roi_align
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 1)
+    card = _on_card(torch, det_cpu, torch.float32)
+    g = torch.Generator().manual_seed(3)
+    images = torch.randn(2, CANVAS, CANVAS, 3, generator=g)
+    im_hw = torch.tensor([[CANVAS, CANVAS], [0.75 * CANVAS, CANVAS]],
+                         dtype=torch.float32)
+    with torch.no_grad():
+        got = card(images.cuda(), im_hw.cuda())
+        pairs_g = [x.cpu() for x in detection_pairs(got["boxes"],
+                                                    got["mask"], True)]
+        t0 = time.perf_counter()
+        want = det_cpu(images, im_hw)
+        t_cpu = time.perf_counter() - t0
+    got = {k: v.cpu() for k, v in got.items()}
+    # the box head is held on the card's proposals: the CPU's own can differ
+    # where two RPN scores differ by less than the devices do
+    with torch.no_grad():
+        feats = det_cpu.box_head(roi_align(
+            want["fmap"], got["proposals"], spatial_scale=1 / 16,
+            pooled=7)).float()
+        want["class_logits"] = det_cpu.cls_score(feats)
+        want["box_deltas"] = det_cpu.bbox_pred(feats)
+    flips = int(((got["proposals"] - want["proposals"]).abs().amax(-1)
+                 > 1e-2).sum())
+    errs = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max())
+            for k in ("fmap", "rpn_obj_logits", "rpn_deltas",
+                      "class_logits", "box_deltas")}
+    # the CPU's post-processing of the card's own continuous outputs
+    props, _, pmask, _ = generate_proposals(
+        got["anchors"], got["rpn_obj_logits"], got["rpn_deltas"], im_hw,
+        pre_nms_top_n=card.rpn_pre_nms_top_n,
+        post_nms_top_n=card.rpn_post_nms_top_n,
+        nms_thresh=card.rpn_nms_thresh, nms_method=card.nms_method,
+        nms_rounds=card.nms_rounds)
+    post = postprocess_detections(
+        got["class_logits"], got["box_deltas"], got["proposals"],
+        got["prop_mask"], im_hw, score_thresh=card.score_thresh,
+        nms_thresh=card.nms_thresh,
+        detections_per_img=card.detections_per_img,
+        nms_candidates=card.nms_candidates, nms_method=card.nms_method,
+        nms_rounds=card.nms_rounds)
+    pairs_c = detection_pairs(post["boxes"], post["mask"], True)
+    same = {"prop_mask": torch.equal(pmask, got["prop_mask"]),
+            "labels": torch.equal(post["labels"], got["labels"]),
+            "mask": torch.equal(post["mask"], got["mask"]),
+            "n_candidates": torch.equal(post["n_candidates"],
+                                        got["n_candidates"]),
+            "pairs": torch.equal(pairs_c[0], pairs_g[0])
+            and torch.equal(pairs_c[1], pairs_g[1])}
+    box_err = {"proposals": float((props - got["proposals"]).abs().max()),
+               "boxes": float((post["boxes"] - got["boxes"]).abs().max())}
+    print(f"phase 7 card vs CPU detector (f32, 2 images, full width): "
+          f"rel err {json.dumps(errs)} (box head on the card's proposals; "
+          f"{flips} of {got['proposals'].shape[0] * got['proposals'].shape[1]}"
+          f" proposal slots more than 1e-2 px off the CPU's own); CPU "
+          f"post-processing "
+          f"of the card's "
+          f"outputs: equal {json.dumps(same)}, box max|err| "
+          f"{json.dumps(box_err)} px; detections {got['mask'].sum(1).tolist()}"
+          f"; CPU forward {t_cpu:.2f} s", flush=True)
+    check(all(v <= 1e-3 for v in errs.values()),
+          f"card vs CPU detector outputs differ: {errs}")
+    check(all(same.values()), f"CPU post-processing differs: {same}")
+    check(all(v <= 1e-3 for v in box_err.values()),
+          f"CPU post-processing boxes differ: {box_err}")
+    del card
+    torch.cuda.empty_cache()
+
+
+def sgdet_train(torch, det_cpu):
+    """7e: ``Trainer`` in mode sgdet (``main.py -m sgdet -loss dnorm -b
+    6``) for 4 steps, then one step under the sync check and the step's
+    time on a batch already on the card."""
+    import copy
+
+    from sgg_torch.config import Config
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.train.trainer import Trainer
+
+    splits = synthetic_splits(num_train=4 * SGDET_TRAIN_BATCH, num_eval=8)
+    config = Config(mode="sgdet", loss="dnorm", batch_size=SGDET_TRAIN_BATCH,
+                    compute_dtype="bfloat16", device="cuda",
+                    print_interval=2, num_workers=4)
+    trainer = Trainer(config, splits, detector=copy.deepcopy(det_cpu))
+    det, model = trainer.detector, trainer.model
+    det0 = _snapshot(det, lambda n: True)
+    rel0 = _snapshot(model, lambda n: "num_batches" not in n)
+    steps = trainer.steps_per_epoch
+    t0 = time.perf_counter()
+    losses, n_epoch, routes = _counted(torch, lambda: trainer.train_epoch(0))
+    loop_s = time.perf_counter() - t0
+    print(f"phase 7 sgdet train_epoch (-loss dnorm -b {SGDET_TRAIN_BATCH}): "
+          f"{steps} steps in {loop_s:.3f} s = "
+          f"{steps * SGDET_TRAIN_BATCH / loop_s:.2f} train images/s (host "
+          f"and first-step set-up included); losses {json.dumps(losses)}; "
+          f"launches {json.dumps(n_epoch)} by route {json.dumps(routes)}",
+          flush=True)
+    check(steps == 4, f"{steps} steps an epoch, want 4")
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"non-finite losses {losses}")
+    check(n_epoch == {"roi_align": 3 * steps, "vgg_conv1": steps}
+          and routes == {"roi_align": {"bf16": 3 * steps},
+                         "vgg_conv1": {"bf16": steps}},
+          f"sgdet train launched {n_epoch} by route {routes} (want 3 K1 + "
+          f"1 K2 a step, bf16)")
+    batch = next(iter(BatchLoader(splits["train"],
+                                  batch_size=SGDET_TRAIN_BATCH,
+                                  max_nodes=config.max_nodes,
+                                  max_edges=config.max_edges,
+                                  seed=config.seed))).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_ms, fracs = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        fracs.append(float(m["nms_converged_frac"]))
+    step_ms.sort()
+    changed = [n for n, t in _snapshot(det, lambda n: True).items()
+               if not torch.equal(t, det0[n])]
+    after = _snapshot(model, rel0.__contains__)
+    still = [n for n, t in after.items() if torch.equal(t, rel0[n])]
+    print(f"phase 7 sgdet train step on a batch on the card: "
+          f"{step_ms[len(step_ms) // 2]:.3f} ms median of 5 (min "
+          f"{step_ms[0]:.3f}, max {step_ms[-1]:.3f}) = "
+          f"{SGDET_TRAIN_BATCH * 1e3 / step_ms[len(step_ms) // 2]:.2f} "
+          f"images/s; no host sync under set_sync_debug_mode('error'); "
+          f"nms_converged_frac {fracs}; detector bit-unchanged "
+          f"({len(det0)} tensors): {not changed}; relation-head tensors "
+          f"moved {len(after) - len(still)} of {len(after)}", flush=True)
+    check(not changed, f"the detector changed: {changed[:5]}")
+    check(not still, f"relation-head tensors did not move: {still[:5]}")
+    del trainer, det, model, batch
+    torch.cuda.empty_cache()
+    return n_epoch
+
+
+def phase_sgdet(torch, peaks, rows):
+    """Phase 7: the SGDet paths at full width."""
+    import shutil
+    import tempfile
+
+    from sgg_torch.config import Config
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.models.sgdet import (SGDET_EVAL_MAX_PAIRS,
+                                        make_sgdet_retry_eval_step)
+    from sgg_torch.train.checkpoint import save_detector
+    from sgg_torch.train.trainer import build_model
+
+    t0 = time.perf_counter()
+    det_cpu = sgdet_detector(torch, 151)
+    print(f"phase 7 detector built in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in det_cpu.parameters()) / 1e6:.1f} M "
+          f"params)", flush=True)
+    ckdir = tempfile.mkdtemp(prefix="sgg_det_")
+    try:
+        save_detector(ckdir, det_cpu)
+        paths = {"sgdet_eval": sgdet_eval_cli(torch, det_cpu, ckdir)}
+    finally:
+        shutil.rmtree(ckdir)
+
+    # one eval pass of 8 images on the card, by stage
+    det = _on_card(torch, det_cpu, torch.bfloat16)
+    test = synthetic_splits(num_eval=32)["test_alls"]
+    rel = build_model(Config(mode="sgdet"), test, device="cuda", seed=0)
+    batch = next(iter(BatchLoader(test, batch_size=SGDET_EVAL_BATCH,
+                                  max_nodes=64, max_edges=64,
+                                  shuffle=False, drop_last=False))).to("cuda")
+    step = make_sgdet_retry_eval_step(det, rel,
+                                      max_pairs=SGDET_EVAL_MAX_PAIRS)
+    d = step.detect(batch)
+    flags = step.flags(d)
+    rung = step.rung_for(flags["pair_count"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages, props = _stage_times(torch, det, step, batch, rung)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # batch on the card, everything warm: neither stage may wait
+        d = step.detect(batch)
+        step.relate(d, rung)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the union launch pools half the edge budget (dedup), padding included
+    n_unions = max((rung or step.n_pairs) // 2, 8)
+    print(f"phase 7 one sgdet eval pass ({SGDET_EVAL_BATCH} images, bf16, "
+          f"pair rung {rung}): ms by stage " + json.dumps(
+              {k: round(v, 3) for k, v in stages.items()})
+          + f", detector {sum(list(stages.values())[:4]):.3f} ms; peak "
+          f"device memory {peak:.2f} GiB; flags {json.dumps(flags)}; the "
+          f"detect and relate stages ran under set_sync_debug_mode('error')",
+          flush=True)
+    kern = sgdet_kernels(torch, peaks, d["fmap"], props, n_unions)
+    for name, row in kern.items():
+        rows[name]["sgdet"] = row
+
+    sgdet_escalations(torch, det, rel, batch)
+    del det, rel, step, batch, d, props
+    torch.cuda.empty_cache()
+    sgdet_card_vs_cpu(torch, det_cpu)
+    paths["sgdet_train"] = sgdet_train(torch, det_cpu)
+    return paths
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
         fail("sgg_torch/ not found beside chip_smoke.py; run from a checkout")
@@ -778,6 +1327,8 @@ def main() -> None:
         paths.update(phase_train(torch, splits))
         with Deadline(PARITY_DEADLINE_S, "phase 6"):
             phase_parity(torch, splits)
+        with Deadline(SGDET_DEADLINE_S, "phase 7"):
+            paths.update(phase_sgdet(torch, peaks, rows))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -1,9 +1,12 @@
 """Evaluation loop: run a model over an eval split and compute all metrics.
 
 Counterpart of ``sgg_tpu/eval/driver.py`` (reference ``lib/eval.py``
-``val_epoch``/``val_batch``) for predcls and sgcls:
+``val_epoch``/``val_batch``):
 
 * sgcls runs both the predcls and sgcls evaluators (``eval.py:21``);
+* sgdet runs the sgdet evaluators only, and not on ``val_`` splits
+  (``eval.py:34-35``), through the detector's box-threshold retry
+  0.2 -> 0.05 -> 0.01 (``eval.py:125-133``, ``models/sgdet.py``);
 * GC + no-GC evaluators, per-predicate mean-recall lists (skipped for
   zero-shot and val splits, ``eval.py:46-53``), per-triplet statistics for
   all-shot splits (``eval.py:41``);
@@ -12,8 +15,7 @@ Counterpart of ``sgg_tpu/eval/driver.py`` (reference ``lib/eval.py``
 
 Eval batches are padded to fixed shapes; the per-batch pair budget comes
 from a ladder, with the unordered-union dedup and its exact fall-back.
-Matching runs in the numpy evaluator on the host. sgdet (the detector and
-its retry loop) comes in a later slice.
+Matching runs in the numpy evaluator on the host.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from sgg_torch.device import resolve_device
 from sgg_torch.eval.sgg_eval import MeanRecallEvaluator, SGGEvaluator
 from sgg_torch.eval.surgery import filter_dets
 from sgg_torch.models.frequency_bias import count_matrices
+from sgg_torch.models.sgdet import sgdet_eval_with_retry
 from sgg_torch.train.step import make_eval_step
 from sgg_torch.utils import counters
 
@@ -71,24 +74,28 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
               eval_batch_size: Optional[int] = None,
               with_images: bool = True, collect_entries: bool = False,
               log_fn=None, verbose: bool = True, pair_ladder=None,
-              device="cuda") -> Dict[str, float]:
+              detector=None, device="cuda") -> Dict[str, float]:
     """Evaluate one split of ``model`` (a ``RelModelIMP``) on ``device``
-    (the card unless the caller asks for the CPU).
+    (the card unless the caller asks for the CPU). In mode sgdet pass the
+    frozen ``detector`` (a ``FasterRCNNVGG``).
 
     Returns a flat results dict ``{eval_m}/{name}_R@K_{GC|NOGC}`` etc., as
     the JAX package's ``val_epoch``. Non-scalar extras: ``_counters`` (the
-    ladder/dedup events of this call) and ``_throughput`` (per regime, the
-    images evaluated and the wall seconds of the regime's loop, host
-    evaluator included).
+    ladder, dedup and sgdet cap events of this call), ``_throughput`` (per
+    regime, the images evaluated and the wall seconds of the regime's loop,
+    host evaluator included) and, in mode sgdet, ``_detections`` (per
+    image: ``n_det`` detections and the selected threshold
+    ``sel_thresh``).
 
     ``pair_ladder``: candidate-pair budgets (ascending, ``None`` = dense
     N*(N-1)); default ``[128, 512, 2048, None]``. Per batch the smallest
     rung covering every image's valid pairs is used (exact).
     """
-    if config.mode == "sgdet":
-        raise NotImplementedError("sgdet evaluation is not ported yet")
     dev = resolve_device(device)
-    eval_modes = ["predcls", "sgcls"]
+    sgdet = config.mode == "sgdet"
+    if sgdet and detector is None:
+        raise ValueError("sgdet evaluation needs the detector")
+    eval_modes = ["sgdet"] if sgdet else ["predcls", "sgcls"]
 
     pred_weights = None
     if config.pred_weight != 0 and train is not None:
@@ -101,6 +108,8 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
     mr_lists = {}
     tc = train.triplet_counts if train is not None else dataset.triplet_counts
     for m in eval_modes:
+        if m == "sgdet" and name.startswith("val_"):
+            continue  # skipped for validation (eval.py:34-35)
         evaluators[m] = SGGEvaluator(m)
         # per-triplet metrics weight GT triplets by their TRAINING-set
         # frequency (reference main.py:260-261)
@@ -126,6 +135,7 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
         pair_ladder = [b for b in (128, 512, 2048) if b < full_pairs] + [None]
     step_cache: Dict = {}
     throughput = {}
+    detections = {"n_det": [], "sel_thresh": []}
 
     def get_eval_step(m, budget, dedup=True):
         key = (m, budget, dedup)
@@ -135,9 +145,12 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
         return step_cache[key]
 
     for m in eval_modes:
+        if m not in evaluators:
+            continue
         t0 = time.perf_counter()
         n_mode = 0
-        bs = eval_batch_size or 16
+        # the sgdet step is the detector's too: 8 images a batch
+        bs = eval_batch_size or (8 if m == "sgdet" else 16)
         loader = BatchLoader(dataset, batch_size=bs, max_nodes=eval_nodes,
                              max_edges=config.max_edges, shuffle=False,
                              drop_last=False, with_images=with_images,
@@ -148,23 +161,34 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
                 break
             gt_node_mask = batch.node_mask
             gt_boxes_b = batch.boxes
-            n_i = gt_node_mask.sum(axis=1)
-            need = int((n_i * (n_i - 1)).max()) if len(n_i) else 0
-            budget = next((b for b in pair_ladder if b is None or b >= need),
-                          None)
-            counters.bump("eval_ladder_batches")
-            counters.bump("eval_ladder_dense" if budget is None
-                          else f"eval_ladder_rung_{budget}")
-            dev_batch = batch.to(dev)
-            for dedup in (True, False):
-                out = get_eval_step(m, budget, dedup)(dev_batch)
-                # the all-pairs enumerations are swap-closed, so this never
-                # fires in practice; the fall-back keeps eval exact anyway
-                if dedup and not bool(out["dedup_ok"].all()):
-                    counters.bump("eval_dedup_fallback")
-                    continue
-                break
-            out = _to_numpy(out)
+            if m == "sgdet":
+                out = sgdet_eval_with_retry(detector, model, batch,
+                                            device=dev)
+                node_mask, boxes = out["det_mask"], out["det_boxes"]
+                n_real = min(batch.batch_size, len(dataset) - img_base)
+                detections["n_det"] += out["n_det"][:n_real].tolist()
+                detections["sel_thresh"] += \
+                    out["sel_thresh"][:n_real].tolist()
+            else:
+                n_i = gt_node_mask.sum(axis=1)
+                need = int((n_i * (n_i - 1)).max()) if len(n_i) else 0
+                budget = next((b for b in pair_ladder
+                               if b is None or b >= need), None)
+                counters.bump("eval_ladder_batches")
+                counters.bump("eval_ladder_dense" if budget is None
+                              else f"eval_ladder_rung_{budget}")
+                dev_batch = batch.to(dev)
+                for dedup in (True, False):
+                    out = get_eval_step(m, budget, dedup)(dev_batch)
+                    # the all-pairs enumerations are swap-closed, so this
+                    # never fires in practice; the fall-back keeps eval
+                    # exact anyway
+                    if dedup and not bool(out["dedup_ok"].all()):
+                        counters.bump("eval_dedup_fallback")
+                        continue
+                    break
+                out = _to_numpy(out)
+                node_mask, boxes = gt_node_mask, gt_boxes_b
             obj_scores, obj_preds = out["obj_scores"], out["obj_preds"]
             rel_dists, pairs = out["rel_dists"], out["pairs"]
             pair_mask = out["pair_mask"]
@@ -172,25 +196,31 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
                 idx = img_base + i
                 if idx >= len(dataset):
                     break
-                n = int(gt_node_mask[i].sum())
+                n = int(node_mask[i].sum())
                 gt_rels = dataset.relationships[idx]
                 if len(gt_rels) == 0 or n == 0:
                     continue
-                entry = filter_dets(gt_boxes_b[i][:n], obj_scores[i][:n],
+                if m == "sgdet" and n < 2:
+                    # fewer than 2 detections at every threshold: the
+                    # reference raises and the image never reaches the
+                    # evaluator (rel_model_base.py:234-235, eval.py:227-228)
+                    continue
+                entry = filter_dets(boxes[i][:n], obj_scores[i][:n],
                                     obj_preds[i][:n], pairs[i], rel_dists[i],
                                     pair_mask[i])
                 if pred_weights is not None:
                     entry["rel_scores"] = apply_predicate_weights(
                         entry["rel_scores"], pred_weights)
-                if n != len(dataset.gt_classes[idx]):
+                n_gt = int(gt_node_mask[i].sum())
+                if n_gt != len(dataset.gt_classes[idx]):
                     raise RuntimeError(
                         f"eval graph truncated: image {idx} has "
                         f"{len(dataset.gt_classes[idx])} GT objects but the "
-                        f"batch carries {n} (bucket {eval_nodes})")
+                        f"batch carries {n_gt} (bucket {eval_nodes})")
                 gt_entry = {
-                    "gt_classes": dataset.gt_classes[idx][:n],
+                    "gt_classes": dataset.gt_classes[idx][:n_gt],
                     "gt_relations": gt_rels,
-                    "gt_boxes": gt_boxes_b[i][:n],
+                    "gt_boxes": gt_boxes_b[i][:n_gt],
                 }
                 if collect_entries and m == eval_modes[0]:
                     # boxes in ORIGINAL image pixels (reference
@@ -211,13 +241,16 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
         throughput[m] = {"images": n_mode,
                          "seconds": time.perf_counter() - t0}
 
-    if n_evaluated == 0 and len(dataset) > 0 and n_batches != 0:
+    if n_evaluated == 0 and len(dataset) > 0 and evaluators and \
+            n_batches != 0:
         raise RuntimeError(
             f"val_epoch evaluated zero images over '{name}' "
             f"({len(dataset)} available) — broken input pipeline?")
 
     results: Dict[str, float] = {}
     for m in eval_modes:
+        if m not in evaluators:
+            continue
         for key, sfx in ((m, "GC"), (m + "_nogc", "NOGC")):
             res = evaluators[key].results(verbose=verbose)
             for rk, v in res.items():
@@ -243,6 +276,8 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
         if verbose:
             print(f"[val_epoch {name}] exactness-cap counters: {cap_events}")
     results["_throughput"] = throughput  # type: ignore
+    if sgdet:
+        results["_detections"] = detections  # type: ignore
     if collect_entries:
         results["_entries"] = entries  # type: ignore
     return results

@@ -1,11 +1,17 @@
 """CLI entry point of the PyTorch port: train and evaluate SGG models.
 
     python -m sgg_torch.main -m sgcls -loss dnorm -b 24 -split synthetic
+    python -m sgg_torch.main -m sgdet -nepoch 0 -ckpt <dir> -split synthetic
 
 Same flags as the JAX package's ``main.py`` (``sgg_torch.config``). Runs on
-the card unless ``-device cpu`` is given. ``-split synthetic`` is the only
-split so far: the VG, GQA and VTransE parsers and image decoding come in a
-later slice, and those splits raise ``NotImplementedError``.
+the card unless ``-device cpu`` is given. Mode sgdet loads the frozen
+detector from ``-ckpt`` (a ``train/checkpoint.py`` detector directory) and
+trains the relation head on its detections; ``-nepoch 0`` only evaluates
+(the test sweep). ``-split synthetic`` is the only split so far: the VG,
+GQA and VTransE parsers and image decoding need libraries the card's
+machine lacks, and those splits raise ``NotImplementedError``; so do
+``-backbone resnet50`` (the ResNet50-FPN slice) and detector pretraining
+(its own slice).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from sgg_torch import constants
     from sgg_torch.config import config_from_args
     from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.train.checkpoint import load_detector
     from sgg_torch.train.trainer import Trainer
 
     config = config_from_args(argv)
@@ -39,7 +46,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     splits = synthetic_splits(
         num_eval=config.val_size if 0 < config.val_size <= 1000 else 16,
         image_size=constants.IM_SCALE)
-    results = Trainer(config, splits).fit()
+    detector = det_state = None
+    if config.mode == "sgdet":
+        # sgdet refuses to start without a pretrained detector (reference
+        # pytorch_misc.py:210-211)
+        if config.backbone != "vgg16":
+            raise NotImplementedError(
+                f"-backbone {config.backbone}: the ResNet50-FPN detector "
+                f"comes with the ResNet50-FPN slice; use vgg16")
+        if not config.ckpt:
+            raise ValueError("-m sgdet needs -ckpt <pretrained detector dir>")
+        from sgg_torch.models.detector import FasterRCNNVGG
+        det_state, epoch = load_detector(config.ckpt)
+        detector = FasterRCNNVGG(num_classes=splits["train"].num_classes)
+        print(f"loaded detector checkpoint from epoch {epoch}")
+    results = Trainer(config, splits, detector=detector,
+                      det_state=det_state).fit()
     for k, v in sorted(results.items()):
         if not k.startswith("_"):
             print(f"{k}: {v:.4f}")

@@ -1,4 +1,4 @@
-"""IMP relation head and the full SGG model (PredCls/SGCls paths).
+"""IMP relation head and the full SGG model (PredCls/SGCls/SGDet paths).
 
 Counterpart of ``sgg_tpu/models/relhead.py``: GRU-based iterative message
 passing (Xu et al. 2017; reference ``sgg_models/rel_model_stanford.py``)
@@ -11,6 +11,10 @@ and it runs without autograd, as the JAX package's ``stop_gradient``).
 The heads keep float32 weights and compute in ``compute_dtype``
 (``RelModelIMP.to_compute_dtype``); ``model.train()`` is the JAX
 ``train=True``: dropout on, union BatchNorms on batch statistics.
+
+In mode ``sgdet`` the model has no trunk of its own: the frozen detector's
+feature map feeds it (``models/sgdet.py``), as the JAX package initializes
+its SGDet relation model feature-map first.
 
 Only the ``vgg16`` backbone is ported; ``resnet50`` raises.
 """
@@ -142,9 +146,10 @@ class IMPHead(nn.Module):
 
 
 class RelModelIMP(nn.Module):
-    """Full PredCls/SGCls SGG model: trunk -> RoI features -> IMP head
-    (reference RelModelStanford.forward/predict, rel_model_stanford.py:
-    97-207, with the VGG16 path of rel_model_base.py:83-117).
+    """Full SGG model: trunk -> RoI features -> IMP head (reference
+    RelModelStanford.forward/predict, rel_model_stanford.py:97-207, with
+    the VGG16 path of rel_model_base.py:83-117). In mode ``sgdet`` there
+    is no trunk: ``forward`` takes the detector's ``fmap``.
 
     State-dict names follow the flax module names of the JAX package
     (``trunk.conv.{i}``, ``roi_fmap_obj``, ``roi_fmap``, ``union_feats``,
@@ -169,7 +174,8 @@ class RelModelIMP(nn.Module):
         self.test_bias = test_bias
         self.pool_size = POOL_SIZE
         in_dim = POOL_SIZE * POOL_SIZE * FMAP_CHANNELS
-        self.trunk = VGG16Trunk().requires_grad_(False)
+        self.trunk = (None if mode == "sgdet"
+                      else VGG16Trunk().requires_grad_(False))
         self.union_feats = UnionBoxFeats(dim=FMAP_CHANNELS,
                                          pooling_size=POOL_SIZE,
                                          edge_model=edge_model)
@@ -187,7 +193,8 @@ class RelModelIMP(nn.Module):
         float32 weights and cast them at use. The output layers
         ``obj_fc``/``rel_fc`` and the frequency table stay float32, as in
         the JAX package."""
-        self.trunk.to(dtype)
+        if self.trunk is not None:
+            self.trunk.to(dtype)
         for mod in self.modules():
             if hasattr(mod, "compute_dtype"):
                 mod.compute_dtype = dtype
@@ -213,6 +220,9 @@ class RelModelIMP(nn.Module):
         """
         mode = mode or self.mode
         if fmap is None:
+            if self.trunk is None:
+                raise ValueError("an sgdet model has no trunk: pass the "
+                                 "detector's fmap")
             with torch.no_grad():  # frozen detector (:125-131)
                 fmap = self.trunk(images)
         boxes = boxes.float().contiguous()

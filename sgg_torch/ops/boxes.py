@@ -2,7 +2,7 @@
 
 Counterpart of ``sgg_tpu/ops/boxes.py``: ``box_iou`` (reference
 ``lib/pytorch_misc.py:60-67``, torchvision ``box_iou`` semantics, no +1
-offsets) and the union-box construction of
+offsets), ``clip_boxes`` and the union-box construction of
 ``sgg_models/rel_model_base.py:248-250``.
 """
 
@@ -43,3 +43,15 @@ def union_boxes(boxes: torch.Tensor, subj: torch.Tensor,
     b_o = gather_boxes(boxes, obj)
     return torch.cat([torch.minimum(b_s[..., :2], b_o[..., :2]),
                       torch.maximum(b_s[..., 2:], b_o[..., 2:])], dim=-1)
+
+
+def clip_boxes(boxes: torch.Tensor, im_hw: torch.Tensor) -> torch.Tensor:
+    """Clip (..., N, 4) boxes to the image bounds; ``im_hw`` (..., 2) is
+    (h, w). ``jnp.clip(x, 0, w)`` order: the lower bound first."""
+    h = im_hw[..., None, 0]
+    w = im_hw[..., None, 1]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([torch.minimum(x1.clamp(min=0.0), w),
+                        torch.minimum(y1.clamp(min=0.0), h),
+                        torch.minimum(x2.clamp(min=0.0), w),
+                        torch.minimum(y2.clamp(min=0.0), h)], dim=-1)

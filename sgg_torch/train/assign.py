@@ -109,11 +109,14 @@ def all_pairs(node_mask: torch.Tensor):
 
     node_mask (B, N) bool -> (pairs (B, N*(N-1), 2) int64, mask (B, N*(N-1))
     bool), in the row-major order of ``nonzero`` over the off-diagonal grid
-    (the evaluator's ranking ties depend on this order).
+    (the evaluator's ranking ties depend on this order). Computed in closed
+    form (``nonzero`` would wait for the card).
     """
     B, N = node_mask.shape
-    off = ~torch.eye(N, dtype=torch.bool, device=node_mask.device)
-    subj, obj = torch.nonzero(off, as_tuple=True)
+    slot = torch.arange(N * (N - 1), device=node_mask.device)
+    subj = torch.div(slot, max(N - 1, 1), rounding_mode="floor")
+    rest = slot - subj * (N - 1)
+    obj = rest + (rest >= subj).long()
     pairs = torch.stack([subj, obj], dim=1)
     pairs = pairs[None].expand(B, N * (N - 1), 2)
     mask = node_mask[:, subj] & node_mask[:, obj]

@@ -8,6 +8,10 @@ only the last ``MAX_TO_KEEP`` epochs are kept, as orbax's
 ``max_to_keep=3``. A restore copies every leaf whose path and shape match
 the caller's template and reports the rest, as the reference's
 ``optimistic_restore``.
+
+A detector directory (what ``-ckpt`` names in mode sgdet) has the same
+layout: ``vgrel-<epoch>.pth`` holding ``{"params", "batch_stats"}`` of a
+``FasterRCNNVGG``, keyed by ``state_dict`` name.
 """
 
 from __future__ import annotations
@@ -97,12 +101,9 @@ def optimistic_restore_payload(
     no checkpoint. A resume from a run's own ``save_dir`` should find both
     lists empty.
     """
-    if epoch is None:
-        epoch = latest_epoch(save_dir)
-        if epoch is None:
-            return dict(template), -1, set(), {"missing": [], "unused": []}
-    on_disk = torch.load(_path(save_dir, epoch), map_location=map_location,
-                         weights_only=True)
+    on_disk, epoch = restore_payload(save_dir, epoch, map_location)
+    if epoch < 0:
+        return dict(template), -1, set(), {"missing": [], "unused": []}
     flat = dict(_flatten(on_disk))
     used: set = set()
     missing: list = []
@@ -115,5 +116,43 @@ def optimistic_restore_payload(
                       f"{tuple(flat[name].shape)} on disk")
         if unused:
             print("unused checkpoint keys:", unused[:20])
-    return merged, int(epoch), set(on_disk), {"missing": missing,
+    return merged, epoch, set(on_disk), {"missing": missing,
                                               "unused": unused}
+
+
+def restore_payload(save_dir: str, epoch: Optional[int] = None,
+                    map_location="cpu") -> Tuple[Dict[str, Any], int]:
+    """The latest (or ``epoch``'s) payload as saved, read onto
+    ``map_location``; (None, -1) when there is none."""
+    if epoch is None:
+        epoch = latest_epoch(save_dir)
+        if epoch is None:
+            return None, -1
+    return torch.load(_path(save_dir, epoch), map_location=map_location,
+                      weights_only=True), int(epoch)
+
+
+def save_detector(save_dir: str, detector: torch.nn.Module,
+                  epoch: int = 0) -> None:
+    """Write ``detector``'s weights as a detector payload."""
+    save_payload(save_dir, {
+        "params": {k: v.detach() for k, v in detector.named_parameters()},
+        "batch_stats": dict(detector.named_buffers())}, epoch)
+
+
+def load_detector(save_dir: str, map_location="cpu"
+                  ) -> Tuple[Dict[str, Any], int]:
+    """The latest detector payload in ``save_dir`` and its epoch; raises
+    ``FileNotFoundError`` when there is none."""
+    payload, epoch = restore_payload(save_dir, map_location=map_location)
+    if epoch < 0:
+        raise FileNotFoundError(f"no detector checkpoint "
+                                f"({CKPT_NAME}-<epoch>.pth) in {save_dir!r}")
+    return payload, epoch
+
+
+def load_detector_state(detector: torch.nn.Module,
+                        payload: Mapping[str, Any]) -> None:
+    """Load a detector payload into ``detector`` with ``strict=True``."""
+    detector.load_state_dict({**payload["params"],
+                              **payload.get("batch_stats", {})}, strict=True)

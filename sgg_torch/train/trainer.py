@@ -7,9 +7,12 @@ epoch loop with interval loss averaging and s/batch reporting
 (``main.py:249-254``), validation after the first epoch and then every
 ``VAL_EVERY`` epochs, and the final test sweep over all eval splits
 (``main.py:256-288``). One process on one device (``config.device``).
-Not ported yet, each raising ``NotImplementedError`` with the ROADMAP
-Queue A item that brings it: sgdet (items 11-12), the feature cache (10),
-the GAN (14) and multi-device training (15).
+In mode sgdet the relation model trains on the detections of a frozen,
+pretrained detector (``main.py:62-63``), which also serves validation and
+the test sweep. Not ported yet, each raising ``NotImplementedError`` with
+the ROADMAP Queue A item that brings it: the feature cache (10), the GAN
+(14) and multi-device training (15); detector pretraining and the
+ResNet50-FPN detector come with their own slices.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from sgg_torch.eval.driver import val_epoch
 from sgg_torch.models.frequency_bias import (count_matrices,
                                              log_predicate_distribution)
 from sgg_torch.models.relhead import RelModelIMP, init_weights
+from sgg_torch.models.sgdet import make_sgdet_train_step
 from sgg_torch.train import checkpoint as ckpt
 from sgg_torch.train.state import Optimizer
 from sgg_torch.train.step import make_train_step
@@ -42,7 +46,8 @@ def build_model(config: Config, train_data: SGGDataset, *,
     """Flagship IMP model from config + dataset vocabulary (main.py:54-60),
     with seeded random weights, computing in the config's type over
     float32 master weights (the frozen trunk stored in that type), in eval
-    mode on ``device`` (the card unless the caller asks for the CPU)."""
+    mode on ``device`` (the card unless the caller asks for the CPU). In
+    mode sgdet it has no trunk: the detector's feature map feeds it."""
     dev = resolve_device(device)
     freq_table = None
     if config.use_bias:
@@ -77,12 +82,18 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class Trainer:
     """Owns the model, the optimizer, the train step and the epoch, val
-    and test loops, on ``config.device``."""
+    and test loops, on ``config.device``.
+
+    Mode sgdet needs ``detector`` (a ``FasterRCNNVGG``); ``det_state``, a
+    detector payload (``checkpoint.load_detector``), is loaded into it
+    with ``strict=True``. The detector is frozen and is not part of the
+    run's checkpoints: they hold the relation model and its optimizer."""
 
     def __init__(self, config: Config, splits: Dict[str, SGGDataset],
-                 model: Optional[RelModelIMP] = None):
-        if config.mode == "sgdet":
-            raise _not_ported("sgdet training", "items 11-12")
+                 model: Optional[RelModelIMP] = None, detector=None,
+                 det_state: Optional[Dict] = None):
+        if config.mode == "sgdet" and detector is None:
+            raise ValueError("sgdet training needs a (pretrained) detector")
         if config.feature_cache:
             raise _not_ported("the feature cache", "item 10")
         if config.gan:
@@ -96,7 +107,15 @@ class Trainer:
         self.model = (model.to(self.device) if model is not None else
                       build_model(config, self.train_data,
                                   device=self.device, seed=config.seed))
-        if config.max_edges < config.rels_per_img:
+        self.detector = None
+        if detector is not None:
+            if det_state is not None:
+                ckpt.load_detector_state(detector, det_state)
+            dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" \
+                else torch.float32
+            self.detector = detector.requires_grad_(False).to_compute_dtype(
+                dtype).to(self.device).eval()
+        if config.mode != "sgdet" and config.max_edges < config.rels_per_img:
             # the padded edge bucket bounds the per-image relation budget;
             # only images with more candidate pairs than the bucket are
             # affected (reference budget: rels_per_img)
@@ -108,7 +127,12 @@ class Trainer:
         self.steps_per_epoch = max(len(self.train_data) // config.batch_size,
                                    1)
         self.optimizer = Optimizer(config, self.model, self.steps_per_epoch)
-        self.train_step = make_train_step(self.model, config, self.optimizer)
+        if config.mode == "sgdet":
+            self.train_step = make_sgdet_train_step(
+                self.detector, self.model, config, self.optimizer)
+        else:
+            self.train_step = make_train_step(self.model, config,
+                                              self.optimizer)
         self.start_epoch = 0
         self.global_iter = 0
         if config.save_dir:
@@ -130,6 +154,8 @@ class Trainer:
         ckpt.save_payload(self.config.save_dir, self._payload(epoch), epoch)
 
     def _restore(self) -> None:
+        # the payload is the relation model's alone: a frozen detector's
+        # leaves are never counted as the run's own
         restored, last, _, stats = ckpt.optimistic_restore_payload(
             self.config.save_dir, self._payload(0),
             map_location=self.device)
@@ -220,10 +246,10 @@ class Trainer:
             res = val_epoch(
                 self.model, ds, self.config, name, train=self.train_data,
                 verbose=verbose, collect_entries=collect_entries,
-                device=self.device)
+                detector=self.detector, device=self.device)
             if collect_entries and "_entries" in res:
                 results.setdefault("_entries", {})[name] = res.pop("_entries")
-            for extra in ("_counters", "_throughput"):
+            for extra in ("_counters", "_throughput", "_detections"):
                 if extra in res:
                     results.setdefault(extra, {})[name] = res.pop(extra)
             results.update(res)

@@ -301,3 +301,85 @@ def test_train_step_does_not_wait_for_the_card(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def _tiny_sgdet(device, dtype=torch.float32):
+    from sgg_torch.models.detector import (FasterRCNNVGG,
+                                           init_detector_weights)
+    from sgg_torch.models.relhead import RelModelIMP, init_weights
+
+    det = init_detector_weights(FasterRCNNVGG(
+        9, obj_dim=48, rpn_pre_nms_top_n=64, rpn_post_nms_top_n=24,
+        detections_per_img=8, score_thresh=0.01), 0)
+    rel = init_weights(RelModelIMP(num_classes=9, num_predicates=6,
+                                   mode="sgdet", hidden_dim=16, obj_dim=32), 1)
+    det = det.requires_grad_(False).to_compute_dtype(dtype).to(device)
+    return det.eval(), rel.to_compute_dtype(dtype).to(device).eval()
+
+
+def _sgdet_batch():
+    from sgg_torch.data.synthetic import SyntheticSGGDataset
+    return SyntheticSGGDataset(num_images=2, num_classes=9, num_predicates=6,
+                               max_objects=6, image_size=96,
+                               with_images=True, seed=3).batch(
+        [0, 1], max_nodes=8, max_edges=12)
+
+
+def test_tiny_sgdet_eval_step_card_matches_cpu(dev):
+    """The retry eval step in f32 on the card and on the CPU, same weights:
+    K1 runs three times (proposals, nodes, unions) and K2 once."""
+    from sgg_torch.models.sgdet import make_sgdet_retry_eval_step
+
+    cpu_det, cpu_rel = _tiny_sgdet("cpu")
+    det, rel = _tiny_sgdet(dev)
+    batch = _sgdet_batch()
+    k_roi, k_stem = troi.KERNEL.launches, vgg_stem.KERNEL.launches
+    got = make_sgdet_retry_eval_step(det, rel, max_pairs=32,
+                                     device=dev)(batch)
+    torch.cuda.synchronize()
+    assert troi.KERNEL.launches == k_roi + 3
+    assert vgg_stem.KERNEL.launches == k_stem + 1
+    want = make_sgdet_retry_eval_step(cpu_det, cpu_rel, max_pairs=32,
+                                      device="cpu")(batch)
+    for k, w in want.items():
+        g = got[k].cpu()
+        if w.is_floating_point():
+            tol = 1e-2 if "boxes" in k else 1e-4
+            torch.testing.assert_close(g, w, atol=tol, rtol=0, msg=k)
+        else:
+            assert torch.equal(g, w), k
+
+
+def test_sgdet_steps_do_not_wait_for_the_card(dev):
+    """bf16: the detect and relate stages of the retry eval step and an
+    SGDet train step run under ``set_sync_debug_mode("error")``, on the
+    kernels' bf16 routes (3 K1 + 1 K2 a step)."""
+    from sgg_torch.config import Config
+    from sgg_torch.models.sgdet import (make_sgdet_retry_eval_step,
+                                        make_sgdet_train_step)
+    from sgg_torch.train.state import Optimizer
+
+    det, rel = _tiny_sgdet(dev, torch.bfloat16)
+    batch = _sgdet_batch().to(dev)
+    step = make_sgdet_retry_eval_step(det, rel, max_pairs=32, device=dev)
+    cfg = Config(device=str(dev), mode="sgdet", loss="dnorm", batch_size=2,
+                 max_nodes=8, max_edges=12, compute_dtype="bfloat16")
+    train = make_sgdet_train_step(det, rel, cfg, Optimizer(cfg, rel))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = step.detect(batch)  # first calls: cuBLAS/cuDNN set-up, anchors
+    rung = step.rung_for(step.flags(d)["pair_count"])
+    step.relate(d, rung)
+    train(batch, gen)
+    torch.cuda.synchronize()
+    troi.KERNEL.reset_counts()
+    vgg_stem.KERNEL.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step.relate(step.detect(batch), rung)
+        metrics = train(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out["rel_dists"]).all())
+    assert all(torch.isfinite(v).item() for v in metrics.values())
+    assert dict(troi.KERNEL.routes) == {"bf16": 6}
+    assert dict(vgg_stem.KERNEL.routes) == {"bf16": 2}
