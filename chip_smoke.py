@@ -8,8 +8,8 @@ JAX. Phases, one or more lines each; any failure ends the run with a
 non-zero exit and without the result line:
 
 1. card facts: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build both CUDA kernels from ``sgg_torch/csrc`` (one ``nvcc`` each, in
-   parallel);
+2. build the five CUDA kernels from the three sources in
+   ``sgg_torch/csrc`` (one ``nvcc`` a source, in parallel);
 3. each kernel against its plain PyTorch version at the training path's
    shapes (batch 24: nodes R=40, unions R=256) and at the eval path's
    (batch 16: R=64 and 256), in f32 (TF32 off, tolerance 1e-5 abs) and in
@@ -27,14 +27,18 @@ non-zero exit and without the result line:
    after, and must match the batches run, all on the bf16 routes;
 5. the training slice at full width (``main.py -m sgcls -loss dnorm -b
    24``: max_nodes 40, max_edges 256, bf16 compute over f32 master
-   weights, dropout on) on a 96-image synthetic train split: a warm-up
+   weights, dropout on, uint8 canvases normalized on the card) on a
+   96-image synthetic train split: a warm-up
    epoch, then one counted and timed ``Trainer.train_epoch`` (2 K1 + 1 K2
    launches a step, bf16 routes, finite losses, train images/s with the
    host), one step under ``set_sync_debug_mode("error")`` (no host sync),
    a one-batch overfit of 10 steps (the loss falls; one step's ms),
    the trunk bit-unchanged and every head parameter and BN statistic
-   moved, where a step's time goes (host assembly, copy, trunk, optimizer,
-   the profiler's kernels), and a checkpoint round trip (the next step's
+   moved, where a step's time goes (host assembly and copy of uint8 and
+   float32 canvases, steps on batches copied on the step's stream
+   against ``device_prefetch``'s own copy stream, timed in turns, trunk,
+   optimizer, the profiler's kernels), and a
+   checkpoint round trip (the next step's
    losses from the saved and the restored state within 1e-6 relative,
    grad_norm within 1e-3: the backward adds into bf16 with atomics);
 6. card (kernels) against CPU (plain versions), same weights, f32, under
@@ -49,7 +53,8 @@ non-zero exit and without the result line:
    thresholds): ``python -m sgg_torch.main -m sgdet -nepoch 0 -ckpt <dir>
    -split synthetic -val_size 32`` in-process from a detector written to a
    temporary directory (images/s, cap counters, detections an image, the
-   selected thresholds, recalls; at least half the images reach the
+   selected thresholds, recalls, ``DetectionEvaluator``'s AP over the
+   detections; at least half the images reach the
    evaluator, one fills all 50 slots; K1 three launches a batch pass and
    K2 one, bf16 routes only); one eval pass of 8 images split by stage
    (CUDA events) with its peak memory; K1 at the detector's shape (8 x 512
@@ -63,13 +68,35 @@ non-zero exit and without the result line:
    giving the card's decisions exactly and its boxes within 1e-3 px); and
    ``Trainer`` in mode sgdet (``-loss dnorm -b 6``) for 4 steps (finite
    losses, ``nms_converged_frac``, the detector bit-unchanged, every
-   relation-head parameter moved, 3 K1 + 1 K2 launches a step).
+   relation-head parameter moved, 3 K1 + 1 K2 launches a step);
+   no backward kernel launches on the frozen paths of phases 4-7;
+8. detector pretraining at full width under its own deadline:
+   ``sgg_torch.pretrain_detector.pretrain`` of ``FasterRCNNVGG(151)``
+   (defaults, 592 px, bf16 over f32 master weights, batch 3, 12 synthetic
+   images, 2 epochs), counted (K1, K1-bwd-fmap, K1-bwd-boxes, K2 and
+   K2-bwd once a step on their bf16 routes; no plain version on a card
+   tensor), finite losses, every parameter moved; its epoch-1 payload,
+   unmodified, loaded strictly and evaluated by ``main -m sgdet -nepoch 0
+   -ckpt`` (no image with a class above the retry floor after 8 steps
+   reads as zero detections; ``DetectionEvaluator`` reads any there are,
+   and phase 7's CLI detections); a step under ``set_sync_debug_mode("error")``, timed whole
+   and by stage, with its peak memory; the three backward kernels at the
+   pretraining shape against their plain versions (f32 and bf16) with
+   times and bounds (cuDNN's weight gradient beside K2-bwd); and one f32
+   step card against CPU (2 images, the card's proposal slots and the same
+   sampler draws: losses within 1e-5 relative; each part's gradient
+   within ``GRAD_LIMIT`` in norm, a limit that the same step with
+   RoIAlign's boxes detached exceeds; the updated parameters apart by no
+   more than the rate times their gradients' difference), with where the
+   gap comes from: both devices' heads on the card's feature map, both
+   trunks' backward from one map gradient, and the max-pool picks, ReLU
+   signs and RoIAlign sample taps that differ between the devices.
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
-row's numbers at the training shapes, the eval shapes' under
-``eval_shape``, the SGDet shapes' under ``sgdet``; ``launches`` summed over
-the paths of phases 4, 5 and 7) and, last, the result line ``{"ok": true,
-"device": {...}}``.
+forward row's numbers at the training shapes, the eval shapes' under
+``eval_shape``, the SGDet shapes' under ``sgdet``; the backward rows' at
+the pretraining shape; ``launches`` summed over the paths of phases 4, 5,
+7 and 8) and, last, the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -94,6 +121,14 @@ TRAIN_BATCH, TRAIN_NODES, TRAIN_EDGES = 24, 40, 256
 # 1024 cap), where unscaled a 151-way softmax leaves every class near 1/151
 SGDET_EVAL_BATCH, SGDET_TRAIN_BATCH, CLS_SCALE = 8, 6, 24.0
 CANVAS = 592  # the full-width canvas (constants.IM_SCALE)
+# detector pretraining: the reference's VG batch (pretrain_detector.py),
+# 12 synthetic images, 2 epochs (8 steps); LR_CHECK: the card-vs-CPU step
+PRETRAIN_BATCH, PRETRAIN_IMAGES, PRETRAIN_EPOCHS = 3, 12, 2
+PRETRAIN_DEADLINE_S = 420
+LR_CHECK = 0.005
+# the card-vs-CPU step's gradients, relative in norm by part: above the
+# sound steps' and below the reading with RoIAlign's boxes detached
+GRAD_LIMIT = 2e-3
 
 
 def fail(msg: str) -> None:
@@ -199,13 +234,26 @@ def phase_card(torch):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
 
+def all_kernels():
+    """Every CUDA kernel of the port by its row name in the ``kernels``
+    line."""
+    from sgg_torch.ops import roi_align as K1
+    from sgg_torch.ops import vgg_stem as K2
+    return {"roi_align": K1.KERNEL, "roi_align_bwd_fmap": K1.KERNEL_BWD_FMAP,
+            "roi_align_bwd_boxes": K1.KERNEL_BWD_BOXES,
+            "vgg_conv1": K2.KERNEL, "vgg_conv1_bwd": K2.KERNEL_BWD}
+
+
 def phase_build():
-    from sgg_torch.ops import _cuda, roi_align, vgg_stem
+    from sgg_torch.ops import _cuda
     t0 = time.perf_counter()
-    _cuda.build_all([roi_align.KERNEL, vgg_stem.KERNEL])
-    print(f"phase 2 build: both kernels in {time.perf_counter() - t0:.2f} s",
+    ks = all_kernels()
+    _cuda.build_all(list(ks.values()))
+    sources = sorted({k.source.name for k in ks.values()})
+    print(f"phase 2 build: {len(ks)} kernels from {len(sources)} sources "
+          f"({', '.join(sources)}) in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for k in (roi_align.KERNEL, vgg_stem.KERNEL):
+    for k in ks.values():
         for line in k.resource_lines():
             print(f"  {k.source.name}: {line}", flush=True)
 
@@ -488,7 +536,7 @@ def phase_train(torch, splits):
 
     from sgg_torch import constants
     from sgg_torch.config import Config
-    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.data.pipeline import BatchLoader, device_prefetch
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
     from sgg_torch.train.state import Optimizer
@@ -544,19 +592,35 @@ def phase_train(torch, splits):
                      "vgg_conv1": {"bf16": steps}},
           f"train steps took routes {routes}, want bf16 only")
 
-    # the host's share: batch assembly alone, then one batch's copy
-    loader = BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
-                         max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
-                         seed=config.seed, num_workers=config.num_workers,
-                         im_scale=constants.IM_SCALE)
-    t0 = time.perf_counter()
-    host_batches = list(loader)
-    host_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
-    t0 = time.perf_counter()
-    batch = host_batches[0].to("cuda")
-    torch.cuda.synchronize()
-    copy_ms = (time.perf_counter() - t0) * 1e3
-    del host_batches
+    # the host's share: batch assembly alone, then one batch's copy, for
+    # the trainer's uint8 canvases and for float32 ones
+    host_ms, copy_ms, host_mb = {}, {}, {}
+    for fmt in ("float32", config.image_format):
+        loader = BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
+                             max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                             seed=config.seed, num_workers=config.num_workers,
+                             im_scale=constants.IM_SCALE, image_format=fmt)
+        t0 = time.perf_counter()
+        host_batches = list(loader)
+        host_ms[fmt] = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+        host_mb[fmt] = host_batches[0].images.nbytes / 1e6
+        t0 = time.perf_counter()
+        batch = host_batches[0].to("cuda")
+        torch.cuda.synchronize()
+        copy_ms[fmt] = (time.perf_counter() - t0) * 1e3
+        if fmt == config.image_format:
+            kept = host_batches
+        del host_batches
+    print(f"phase 5 host batch of {TRAIN_BATCH} canvases by image format: "
+          f"assembly ms {json.dumps(host_ms)}, images MB "
+          f"{json.dumps(host_mb)}, one copy to the card ms "
+          f"{json.dumps(copy_ms)} (the trainer ships "
+          f"{config.image_format})", flush=True)
+    check(config.image_format == "uint8"
+          and host_mb["uint8"] * 4 == host_mb["float32"],
+          f"host images {host_mb} MB, want uint8 at a quarter")
+    host_ms, copy_ms = host_ms[config.image_format], \
+        copy_ms[config.image_format]
 
     # one-batch overfit, each step timed on a batch already on the card: a
     # generator of one seed each step repeats the sampled edges and the
@@ -614,6 +678,32 @@ def phase_train(torch, splits):
     print(f"phase 5 trunk bit-unchanged ({len(trunk0)} tensors); all "
           f"{len(heads0)} head parameters and BN statistics moved",
           flush=True)
+
+    # the trainer's copies on a stream of their own (device_prefetch)
+    # against copies on the step's stream: the same host batches, three
+    # passes over them a loop, loops timed in turns a b b a a b b a (these
+    # calls train on)
+    kept = kept * 3
+
+    def loop(prefetch: bool) -> float:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = device_prefetch(iter(kept), "cuda") if prefetch else \
+            (b.to("cuda") for b in kept)
+        for b in moved:
+            fit_step(b, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(kept)
+
+    loop_ms = {"step_stream": [], "copy_stream": []}
+    for prefetch in (False, True, True, False, False, True, True, False):
+        loop_ms["copy_stream" if prefetch else "step_stream"].append(
+            round(loop(prefetch), 3))
+    print(f"phase 5 copy to the card and step, ms a batch of {len(kept)} "
+          f"host batches ({config.image_format}), in turns a b b a a b b a: "
+          f"{json.dumps(loop_ms)}", flush=True)
+    del kept
 
     # where one step's time goes (after the checks: these calls train on)
     with torch.no_grad():
@@ -801,12 +891,21 @@ def _on_card(torch, det, dtype):
         dtype).cuda().eval()
 
 
+NO_BACKWARD = {"roi_align_bwd_fmap": 0, "roi_align_bwd_boxes": 0,
+               "vgg_conv1_bwd": 0}
+
+
 def _counted(torch, fn):
-    """``fn()`` with the kernels' counts zeroed before and read after; a
-    plain version called on a card tensor meanwhile fails the run."""
+    """``fn()`` with every kernel's count zeroed before and read after; a
+    plain version (forward or backward) called on a card tensor meanwhile
+    fails the run. Returns (out, launches, launches by route), by kernel."""
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
-    plain = [(K1, "roi_align_reference"), (K2, "vgg_conv1_reference")]
+    plain = [(K1, "roi_align_reference"),
+             (K1, "roi_align_backward_reference"),
+             (K1, "roi_align_boxes_grad_reference"),
+             (K2, "vgg_conv1_reference"),
+             (K2, "vgg_conv1_backward_reference")]
     saved = [getattr(mod, name) for mod, name in plain]
     on_card = []
 
@@ -817,8 +916,9 @@ def _counted(torch, fn):
             return f(x, *a, **k)
         return call
 
-    K1.KERNEL.reset_counts()
-    K2.KERNEL.reset_counts()
+    ks = all_kernels()
+    for k in ks.values():
+        k.reset_counts()
     try:
         for (mod, name), f in zip(plain, saved):
             setattr(mod, name, watch(f, name))
@@ -828,10 +928,8 @@ def _counted(torch, fn):
         for (mod, name), f in zip(plain, saved):
             setattr(mod, name, f)
     check(not on_card, f"plain versions ran on the card: {on_card[:3]}")
-    return out, {"roi_align": K1.KERNEL.launches,
-                 "vgg_conv1": K2.KERNEL.launches}, {
-        "roi_align": dict(K1.KERNEL.routes),
-        "vgg_conv1": dict(K2.KERNEL.routes)}
+    return out, {n: k.launches for n, k in ks.items()}, {
+        n: dict(k.routes) for n, k in ks.items()}
 
 
 def sgdet_eval_cli(torch, det, ckdir):
@@ -888,7 +986,10 @@ def sgdet_eval_cli(torch, det, ckdir):
     recalls = {k: v for k, v in res.items()
                if k.startswith("sgdet/test_alls_R@") and
                k.split("R@")[1].split("_")[0] in ("20", "50", "100")}
-    print("phase 7 recalls " + json.dumps(recalls), flush=True)
+    ap, n_img, n_total = _det_ap(dets)
+    print("phase 7 recalls " + json.dumps(recalls) + f"; DetectionEvaluator "
+          f"over {n_img} images, {n_total} detections {json.dumps(ap)}",
+          flush=True)
     check(images >= 0.5 * len(n_det),
           f"only {images} of {len(n_det)} images reached the evaluator")
     check(max(n_det) == 50, f"no image filled the 50 detection slots "
@@ -896,10 +997,10 @@ def sgdet_eval_cli(torch, det, ckdir):
     check(len(recalls) == 6 and all(math.isfinite(v)
                                     for v in recalls.values()),
           f"recalls missing or not finite: {recalls}")
-    check(all(set(r) == {"bf16"} for r in routes.values()),
+    check(all(set(r) <= {"bf16"} for r in routes.values()),
           f"sgdet eval launched a route other than bf16: {routes}")
     want = {"vgg_conv1": batches + redetect,
-            "roi_align": batches + redetect + 2 * batches}
+            "roi_align": batches + redetect + 2 * batches, **NO_BACKWARD}
     check(n == want, f"sgdet eval launched {n}; {batches} batches with "
                      f"{redetect} re-detections want {want}")
     return n
@@ -923,7 +1024,7 @@ def _stage_times(torch, det, step, batch, rung, iters=5):
             ev[1].record()
             obj, dl = det.rpn(fmap)
             anchors = det.anchors(fmap.shape[1], fmap.shape[2], fmap.device)
-            props, _, pmask, _ = generate_proposals(
+            props, _, pmask, _, _ = generate_proposals(
                 anchors, obj, dl, batch.im_hw,
                 pre_nms_top_n=det.rpn_pre_nms_top_n,
                 post_nms_top_n=det.rpn_post_nms_top_n,
@@ -1118,7 +1219,7 @@ def sgdet_card_vs_cpu(torch, det_cpu):
             for k in ("fmap", "rpn_obj_logits", "rpn_deltas",
                       "class_logits", "box_deltas")}
     # the CPU's post-processing of the card's own continuous outputs
-    props, _, pmask, _ = generate_proposals(
+    props, _, pmask, _, _ = generate_proposals(
         got["anchors"], got["rpn_obj_logits"], got["rpn_deltas"], im_hw,
         pre_nms_top_n=card.rpn_pre_nms_top_n,
         post_nms_top_n=card.rpn_post_nms_top_n,
@@ -1191,9 +1292,11 @@ def sgdet_train(torch, det_cpu):
     check(steps == 4, f"{steps} steps an epoch, want 4")
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite losses {losses}")
-    check(n_epoch == {"roi_align": 3 * steps, "vgg_conv1": steps}
+    check(n_epoch == {"roi_align": 3 * steps, "vgg_conv1": steps,
+                      **NO_BACKWARD}
           and routes == {"roi_align": {"bf16": 3 * steps},
-                         "vgg_conv1": {"bf16": steps}},
+                         "vgg_conv1": {"bf16": steps},
+                         **{k: {} for k in NO_BACKWARD}},
           f"sgdet train launched {n_epoch} by route {routes} (want 3 K1 + "
           f"1 K2 a step, bf16)")
     batch = next(iter(BatchLoader(splits["train"],
@@ -1305,6 +1408,640 @@ def phase_sgdet(torch, peaks, rows):
     return paths
 
 
+BWD_META = {  # kernel row: (source, the TPU kernel whose gradient it is)
+    "roi_align_bwd_fmap": ("sgg_torch/csrc/roi_align_bwd.cu",
+                           "sgg_tpu/ops/roi_align_pallas.py:196"),
+    "roi_align_bwd_boxes": ("sgg_torch/csrc/roi_align_bwd.cu",
+                            "sgg_tpu/ops/roi_align_pallas.py:169"),
+    "vgg_conv1_bwd": ("sgg_torch/csrc/vgg_stem_bwd.cu",
+                      "sgg_tpu/ops/vgg_stem_pallas.py:68")}
+
+
+def _groups(named):
+    """Parameter names by detector part."""
+    out = {}
+    for n in named:
+        out.setdefault(n.split(".")[0] if n.split(".")[0] in (
+            "trunk", "rpn", "box_head") else "heads", []).append(n)
+    return out
+
+
+def pretrain_run(torch, splits, ckdir):
+    """8a: ``pretrain`` at full width, counted: every kernel once a step on
+    its bf16 route, finite losses, every parameter moved."""
+    from sgg_torch.models.detector import FasterRCNNVGG, init_detector_weights
+    from sgg_torch.pretrain_detector import pretrain
+
+    init = {n: p.detach().clone() for n, p in init_detector_weights(
+        FasterRCNNVGG(151), 0).named_parameters()}
+    det = FasterRCNNVGG(151).to_compute_dtype(torch.bfloat16)
+    steps = PRETRAIN_EPOCHS * (PRETRAIN_IMAGES // PRETRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (det, state), n, routes = _counted(torch, lambda: pretrain(
+        splits, num_epochs=PRETRAIN_EPOCHS, batch_size=PRETRAIN_BATCH,
+        save_dir=ckdir, detector=det, steps_per_print=2, device="cuda"))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = dict(det.named_parameters())
+    moved = {g: sum(not torch.equal(params[k].detach().cpu(), init[k])
+                    for k in names) for g, names in _groups(params).items()}
+    sizes = {g: len(names) for g, names in _groups(params).items()}
+    losses = [{k: round(v, 5) for k, v in h.items()} for h in state.history]
+    print(f"phase 8 pretrain (FasterRCNNVGG(151), {CANVAS} px, batch "
+          f"{PRETRAIN_BATCH}, {PRETRAIN_IMAGES} images, {PRETRAIN_EPOCHS} "
+          f"epochs, bf16 over f32 masters): {state.step} steps in "
+          f"{wall:.2f} s with set-up = "
+          f"{state.step * PRETRAIN_BATCH / wall:.2f} images/s, the last "
+          f"interval {PRETRAIN_BATCH / state.history[-1]['s_per_batch']:.2f}"
+          f" images/s (host included); peak device "
+          f"memory {peak:.2f} GiB; losses by interval {json.dumps(losses)}; "
+          f"launches {json.dumps(n)} by route {json.dumps(routes)}; "
+          f"parameters moved {json.dumps(moved)} of {json.dumps(sizes)}",
+          flush=True)
+    check(state.step == steps, f"{state.step} steps, want {steps}")
+    check(all(math.isfinite(v) for h in state.history for v in h.values()),
+          "non-finite pretraining losses")
+    check(all(p.dtype == torch.float32 for p in params.values()),
+          "master weights are not float32")
+    check(moved == sizes, f"parameters that did not move: {moved} of "
+                          f"{sizes}")
+    check(n == {k: steps for k in n}
+          and routes == {k: {"bf16": steps} for k in n},
+          f"pretraining launched {n} by route {routes}; want every kernel "
+          f"once a step on the bf16 route")
+    return det, n
+
+
+def _det_ap(dets):
+    """``DetectionEvaluator`` over a CLI run's per-image detections and GT
+    (``val_epoch``'s ``_detections``): (AP, images, detections)."""
+    from sgg_torch.eval.det_eval import DetectionEvaluator
+    ev = DetectionEvaluator(151)
+    n_img = n_det = 0
+    for v in dets.values():
+        for i in range(len(v["boxes"])):
+            ev.add_image(v["boxes"][i], v["labels"][i], v["scores"][i],
+                         v["gt_boxes"][i], v["gt_classes"][i])
+            n_img += 1
+            n_det += len(v["boxes"][i])
+    ap = ev.results()
+    check(set(ap) == {"mAP", "AP50", "AP75"}
+          and all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in ap.values()),
+          f"DetectionEvaluator results {ap}")
+    return ap, n_img, n_det
+
+
+def pretrain_eval(torch, ckdir):
+    """8b: the last payload, unmodified, loads strictly into the CLI's
+    detector; then ``python -m sgg_torch.main -m sgdet -nepoch 0 -ckpt``
+    evaluates that directory, counted. After 8 steps from random weights
+    the detector may score no class above the 0.01 retry floor on any
+    image: the CLI then stops with "evaluated zero images" (as the JAX
+    driver does), which this phase reads as zero detections; otherwise
+    ``DetectionEvaluator`` reads the detections."""
+    from sgg_torch import main as cli
+    from sgg_torch.models.detector import FasterRCNNVGG
+    from sgg_torch.train.checkpoint import load_detector, load_detector_state
+
+    payload, epoch = load_detector(ckdir)
+    check(epoch == PRETRAIN_EPOCHS - 1 and int(payload["step"])
+          == PRETRAIN_EPOCHS * (PRETRAIN_IMAGES // PRETRAIN_BATCH),
+          f"latest payload is epoch {epoch}, step {int(payload['step'])}")
+    load_detector_state(FasterRCNNVGG(151), payload)  # strict, as the CLI
+    del payload
+    argv = ["-m", "sgdet", "-nepoch", "0", "-ckpt", ckdir, "-split",
+            "synthetic", "-val_size", "16", "-nwork", "4"]
+
+    def evaluate():
+        try:
+            return cli.main(argv)
+        except RuntimeError as e:
+            if "evaluated zero images" not in str(e):
+                raise
+            return None
+
+    t0 = time.perf_counter()
+    res, n, routes = _counted(torch, evaluate)
+    wall = time.perf_counter() - t0
+    if res is None:
+        what = ("the CLI stopped at a split that evaluated zero images (no "
+                "class above the 0.01 retry floor)")
+    else:
+        ap, n_img, n_det = _det_ap(res["_detections"])
+        what = (f"{n_img} images, {n_det} detections; DetectionEvaluator "
+                f"{json.dumps(ap)}")
+    print(f"phase 8 sgdet eval of the unmodified epoch-{epoch} payload "
+          f"(main -m sgdet -nepoch 0 -ckpt): {what} in {wall:.1f} s; "
+          f"launches {json.dumps(n)} by route {json.dumps(routes)}",
+          flush=True)
+    check(n["roi_align"] > 0 and n["vgg_conv1"] > 0
+          and all(n[k] == 0 for k in NO_BACKWARD),
+          f"sgdet eval launched {n}")
+    return n
+
+
+def pretrain_step_profile(torch, det, splits):
+    """8c: one train step under ``set_sync_debug_mode("error")``, whole
+    steps by the host clock, a step by stage with CUDA events, the
+    profiler's kernels and the peak memory; returns the map and the
+    proposals of the step's batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.models.detector import (balanced_draws, roi_head_losses,
+                                           rpn_losses)
+    from sgg_torch.pretrain_detector import (DetectorOptimizer,
+                                             make_detector_train_step)
+
+    batch = next(iter(BatchLoader(splits["train"], batch_size=PRETRAIN_BATCH,
+                                  max_nodes=64, max_edges=1,
+                                  seed=0))).to("cuda")
+    # a small rate: the timed steps barely move the pretrained weights
+    opt = DetectorOptimizer(det, lambda count: 5e-6)
+    step = make_detector_train_step(det, opt)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms.sort()
+    names = ("trunk_forward", "heads_forward", "losses", "backward",
+             "optimizer")
+    totals = dict.fromkeys(names, 0.0)
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    for it in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        opt.zero_grad()
+        ev[0].record()
+        fmap = det.trunk(batch.images)
+        ev[1].record()
+        out = det(None, batch.im_hw, fmap=fmap, gt_boxes=batch.boxes,
+                  gt_mask=batch.node_mask)
+        ev[2].record()
+        losses = rpn_losses(
+            balanced_draws(gen, out["rpn_obj_logits"].shape, "cuda"),
+            out["anchors"], out["rpn_obj_logits"], out["rpn_deltas"],
+            batch.boxes, batch.node_mask)
+        losses.update(roi_head_losses(
+            balanced_draws(gen, out["prop_mask"].shape, "cuda"),
+            out["proposals"], out["prop_mask"], out["class_logits"],
+            out["box_deltas"], batch.boxes, batch.classes, batch.node_mask))
+        total = sum(losses.values())
+        ev[3].record()
+        total.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        if it:
+            for i, k in enumerate(names):
+                totals[k] += ev[i].elapsed_time(ev[i + 1]) / iters
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch, gen)
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    print(f"phase 8 pretrain step (batch {PRETRAIN_BATCH}, {CANVAS} px, "
+          f"bf16) on a batch on the card: {step_ms[2]:.3f} ms median of 5 "
+          f"(min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}); by stage "
+          + json.dumps({k: round(v, 3) for k, v in totals.items()})
+          + f" ms; peak device memory {peak:.2f} GiB; no host sync under "
+          f"set_sync_debug_mode('error'); kernels "
+          + (f"{sum(per_kernel.values()):.3f} ms busy, top "
+             + json.dumps({k[:80]: round(v, 4) for k, v in top})
+             if per_kernel else "not measured (no device events)"),
+          flush=True)
+    with torch.no_grad():
+        fmap = det.trunk(batch.images)
+        props = det(None, batch.im_hw, fmap=fmap, gt_boxes=batch.boxes,
+                    gt_mask=batch.node_mask)["proposals"]
+    return fmap, props.contiguous()
+
+
+def _tap_counts(torch, boxes, H, W):
+    """Per ROI and bin, the folded taps of each axis (the nonzero entries
+    of the plain version's weights), and per ROI the samples with a
+    weight derivative, for the backward kernels' operation counts."""
+    from sgg_torch.ops import roi_align as K1
+    b = boxes.float().cpu()
+    x1, y1, roi_w, roi_h = K1._box_frames(b, 1 / 16)
+    ny = (K1._interp_weights(y1, roi_h, H, 7, 2) != 0).sum(-1).double()
+    nx = (K1._interp_weights(x1, roi_w, W, 7, 2) != 0).sum(-1).double()
+    dy = (K1._axis_samples(y1, roi_h, H, 7, 2)[2] != 0).sum(-1).double()
+    dx = (K1._axis_samples(x1, roi_w, W, 7, 2)[2] != 0).sum(-1).double()
+    return ny, nx, dy, dx
+
+
+def pretrain_kernels(torch, peaks, fmap16, props):
+    """8d: K1-bwd-fmap and K1-bwd-boxes at the pretraining shape (the
+    step's proposal slots over a 3 x 37 x 37 x 512 map) and K2-bwd at 3 x
+    592 x 592, each against its plain version on the same inputs (f32 and
+    bf16), timed on the bf16 route beside its bound."""
+    from sgg_torch.ops import roi_align as K1
+    from sgg_torch.ops import vgg_stem as K2
+    B, H, W, C = fmap16.shape
+    R = props.shape[1]
+    g_ = torch.Generator().manual_seed(9)
+    fmap32 = torch.randn(B, H, W, C, generator=g_).cuda()
+    g32 = torch.randn(B, R, 7, 7, C, generator=g_).cuda()
+    rows = {}
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f, g = fmap32.to(dtype), g32.to(dtype)
+        want_f = K1.roi_align_backward_reference(
+            g, props, (H, W), dtype, spatial_scale=1 / 16)
+        got_f = K1._grad_fmap_kernel(g, props, (B, H, W, C), dtype,
+                                     1 / 16, 7, 2)
+        want_b = K1.roi_align_boxes_grad_reference(g, f, props,
+                                                   spatial_scale=1 / 16)
+        got_b = K1._grad_boxes_kernel(g, f, props, 1 / 16, 7, 2)
+        torch.cuda.synchronize()
+        errs[dtype] = {
+            "fmap": (float((got_f.float() - want_f.float()).abs().max()),
+                     rel_err(torch, got_f, want_f.float())),
+            "boxes": (float((got_b - want_b).abs().max()),
+                      rel_err(torch, got_b, want_b))}
+        del want_f, got_f
+    for name, tol in (("fmap", (1e-5, 1e-2)), ("boxes", (1e-4, 1e-4))):
+        rel32, rel16 = errs[torch.float32][name][1], \
+            errs[torch.bfloat16][name][1]
+        check(rel32 <= tol[0] and rel16 <= tol[1],
+              f"roi_align_bwd_{name}: rel err f32 {rel32}, bf16 {rel16}")
+    f16, g16 = fmap32.bfloat16(), g32.bfloat16()
+    ny, nx, dy, dx = _tap_counts(torch, props, H, W)
+    n_boxes = props.numel() * 4
+    fmap_ops = 2 * C * float((ny.sum(-1) * nx.sum(-1)).sum())
+    boxes_ops = 3 * C * float((dy * nx.sum(-1) + dx * ny.sum(-1)).sum())
+    for name, fn, plain, n_bytes, ops in (
+            ("roi_align_bwd_fmap",
+             lambda: K1._grad_fmap_kernel(g16, props, (B, H, W, C),
+                                          torch.bfloat16, 1 / 16, 7, 2),
+             lambda: K1.roi_align_backward_reference(
+                 g16, props, (H, W), torch.bfloat16, spatial_scale=1 / 16),
+             g16.numel() * 2 + n_boxes + f16.numel() * 2, fmap_ops),
+            ("roi_align_bwd_boxes",
+             lambda: K1._grad_boxes_kernel(g16, f16, props, 1 / 16, 7, 2),
+             lambda: K1.roi_align_boxes_grad_reference(
+                 g16, f16, props, spatial_scale=1 / 16),
+             g16.numel() * 2 + f16.numel() * 2 + 2 * n_boxes, boxes_ops)):
+        bms, bby = bound_ms(n_bytes, ops, peaks, bf16=False)
+        key = name.split("_")[-1]
+        rows[name] = dict(
+            max_abs_err=errs[torch.float32][key][0],
+            bf16_rel_err=errs[torch.bfloat16][key][1],
+            f32_rel_err=errs[torch.float32][key][1],
+            ms=time_ms(fn), plain_ms=time_ms(plain, iters=3, warmup=1),
+            bound_ms=bms, bound_by=bby, library_ms=None, bytes=n_bytes,
+            flops=ops, shape=f"g {B}x{R}x7x7x{C}, fmap {B}x{H}x{W}x{C} "
+                             f"bf16, the step's {R} proposal slots")
+    del fmap32, g32, f16, g16
+    torch.cuda.empty_cache()
+
+    x32 = torch.randn(B, CANVAS, CANVAS, 3, generator=g_).cuda()
+    w = (torch.randn(3, 3, 3, 64, generator=g_) * math.sqrt(2 / 27)).cuda()
+    bias = (torch.randn(64, generator=g_) * 0.1).cuda()
+    gg32 = torch.randn(B, CANVAS, CANVAS, 64, generator=g_).cuda()
+    k2 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        out = K2.vgg_conv1(x, w, bias)
+        g = gg32.to(dtype)
+        ww, wb = K2.vgg_conv1_backward_reference(x, out, g)
+        gw, gb = K2._backward_kernel(x, out, g)
+        torch.cuda.synchronize()
+        k2[dtype] = (max(float((gw - ww).abs().max()),
+                         float((gb - wb).abs().max())),
+                     max(rel_err(torch, gw, ww), rel_err(torch, gb, wb)))
+    check(k2[torch.float32][1] <= 1e-5 and k2[torch.bfloat16][1] <= 1e-5,
+          f"vgg_conv1_bwd rel err {k2}")
+    del gg32
+    n_px = B * CANVAS * CANVAS
+    bms, bby = bound_ms(x.numel() * 2 + 2 * n_px * 64 * 2 + 28 * 64 * 4,
+                        n_px * 64 * 28 * 2, peaks, bf16=False)
+    xc = x.permute(0, 3, 1, 2)  # NCHW views of channels-last memory
+    gm = torch.where(out > 0, g, 0).permute(0, 3, 1, 2)
+    wc = w.bfloat16().permute(3, 2, 0, 1).contiguous()
+    rows["vgg_conv1_bwd"] = dict(
+        max_abs_err=k2[torch.float32][0], f32_rel_err=k2[torch.float32][1],
+        bf16_rel_err=k2[torch.bfloat16][1],
+        ms=time_ms(lambda: K2._backward_kernel(x, out, g)),
+        plain_ms=time_ms(lambda: K2.vgg_conv1_backward_reference(x, out, g),
+                         iters=3, warmup=1),
+        bound_ms=bms, bound_by=bby,
+        # cuDNN's weight and bias gradient of the masked output gradient
+        library_ms=time_ms(lambda: torch.ops.aten.convolution_backward(
+            gm, xc, wc, [64], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, True])),
+        bytes=x.numel() * 2 + 2 * n_px * 64 * 2, flops=n_px * 64 * 28 * 2,
+        shape=f"bf16 {B}x{CANVAS}x{CANVAS}x3 images, {B}x{CANVAS}x{CANVAS}"
+              f"x64 output and its gradient")
+    del x, x32, out, g, gm, xc
+    torch.cuda.empty_cache()
+    for name, m in rows.items():
+        print(f"phase 8 {name}: {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} "
+              f"ms ({m['bound_by']}), plain {m['plain_ms']:.4f} ms, library "
+              f"{m['library_ms']} ms; max|err| f32 {m['max_abs_err']:.3g} "
+              f"(rel {m['f32_rel_err']:.3g}), bf16 rel "
+              f"{m['bf16_rel_err']:.3g} [{m['shape']}]", flush=True)
+    return rows
+
+
+def _part_err(torch, got, want, parts):
+    """Relative error in norm of each part's tensors."""
+    out = {}
+    for g, names in parts.items():
+        num = sum(float((got[n] - want[n]).square().sum()) for n in names)
+        den = sum(float(want[n].square().sum()) for n in names)
+        out[g] = math.sqrt(num / max(den, 1e-30))
+    return out
+
+
+def _tap_flips(torch, a, b, mask, H, W):
+    """RoIAlign samples (7 x 7 bins, ratio 2, the stride-16 map) whose low
+    tap differs between two devices' proposals ``a`` and ``b`` (B, P, 4),
+    over the valid slots where either sample has a weight derivative:
+    there the box gradient takes another pair of map values."""
+    from sgg_torch.ops import roi_align as K1
+    fa = K1._box_frames(a.float().cpu(), 1 / 16)
+    fb = K1._box_frames(b.float().cpu(), 1 / 16)
+    n = 0
+    for start, extent, dim in ((0, 2, W), (1, 3, H)):
+        la, _, da, _ = K1._axis_samples(fa[start], fa[extent], dim, 7, 2)
+        lb, _, db, _ = K1._axis_samples(fb[start], fb[extent], dim, 7, 2)
+        n += int(((la != lb) & ((da != 0) | (db != 0))
+                  & mask.cpu()[..., None]).sum())
+    return n
+
+
+def _trunk_routes(torch, trunk, images):
+    """The f32 trunk's forward as ``VGG16Trunk`` runs it, keeping each
+    ReLU's signs and each 2x2 max-pool's picks (where the window's maximum
+    is positive: a window of zeros passes no gradient)."""
+    import torch.nn.functional as F
+
+    from sgg_torch.models.backbone import VGG16_CFG, normalize_images
+    from sgg_torch.ops.vgg_stem import vgg_conv1
+    with torch.no_grad():
+        stem = trunk.conv[0]
+        x = vgg_conv1(normalize_images(images).float().contiguous(),
+                      stem.weight.permute(2, 3, 1, 0), stem.bias)
+        x = x.permute(0, 3, 1, 2)
+        signs, picks, i = [(x > 0).cpu()], [], 1
+        for v in VGG16_CFG[1:]:
+            if v == "M":
+                x, idx = F.max_pool2d(x, 2, 2, return_indices=True)
+                picks.append(torch.where(x > 0, idx, -1).cpu())
+            else:
+                conv = trunk.conv[i]
+                x = F.conv2d(x, conv.weight, conv.bias, padding=1)
+                signs.append((x > 0).cpu())
+                x = F.relu(x)
+                i += 1
+    return signs, picks
+
+
+def pretrain_card_vs_cpu(torch, splits):
+    """8e: one f32 train step at full width, 2 images, on the card and on
+    the CPU from the same weights, on the card's proposal slots and the
+    same sampler draws: the losses, each part's gradient (``p.grad``, no
+    weight decay) and the updated parameters. The gradient limit is
+    calibrated by a fault: the same step on the card with RoIAlign's boxes
+    detached (no box gradient through K1) must exceed it. Then where the
+    sound gap comes from: both devices' heads on the card's feature map,
+    both trunks' backward from the card's map gradient, and the max-pool
+    picks, ReLU signs and RoIAlign sample taps that differ between the
+    devices."""
+    import copy
+
+    import sgg_torch.models.detector as D
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.models.detector import (FasterRCNNVGG, balanced_draws,
+                                           init_detector_weights)
+    from sgg_torch.pretrain_detector import (DetectorOptimizer,
+                                             detector_losses)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 1)
+    init = init_detector_weights(FasterRCNNVGG(151), 1)
+    p0 = {n: p.detach().clone() for n, p in init.named_parameters()}
+    parts = _groups(p0)
+    batch = next(iter(BatchLoader(splits["train"], batch_size=2,
+                                  max_nodes=64, max_edges=1,
+                                  shuffle=False)))
+    batches = {"cuda": batch.to("cuda"), "cpu": batch.to("cpu")}
+    card = copy.deepcopy(init).cuda()
+    with torch.no_grad():
+        out = card(batches["cuda"].images, batches["cuda"].im_hw,
+                   gt_boxes=batches["cuda"].boxes,
+                   gt_mask=batches["cuda"].node_mask)
+    index = (out["proposal_index"], out["rpn_prop_mask"])
+    fmap = out["fmap"]  # the card's, from the initial weights
+    gen = torch.Generator().manual_seed(4)
+    draws = {"rpn": balanced_draws(gen, out["rpn_obj_logits"].shape, "cpu"),
+             "roi": balanced_draws(gen, out["prop_mask"].shape, "cpu")}
+    del out
+    H, W = fmap.shape[1:3]
+
+    def run(det, d, update=True):
+        """Losses, proposals, prop_mask and gradients of one step on
+        ``d``; with ``update`` the optimizer steps too."""
+        opt = DetectorOptimizer(det, lambda count: LR_CHECK)
+        opt.zero_grad()
+        losses, o = detector_losses(
+            det, batches[d],
+            draws={k: tuple(u.to(d) for u in v) for k, v in draws.items()},
+            proposal_index=tuple(t.to(d) for t in index))
+        sum(losses.values()).backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 .detach().cpu().clone() for n, p in det.named_parameters()}
+        if update:
+            opt.step()
+        if d == "cuda":
+            torch.cuda.synchronize()
+        return ({k: v.detach().cpu() for k, v in losses.items()},
+                o["proposals"].detach().cpu(), o["prop_mask"].cpu(), grads)
+
+    cpu = copy.deepcopy(init)
+    t0 = time.perf_counter()
+    sound = {"card": run(card, "cuda")}
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sound["cpu"] = run(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    loss_err = {k: float((sound["card"][0][k] - v).abs()
+                         / v.abs().clamp(min=1e-12))
+                for k, v in sound["cpu"][0].items()}
+    g_card, g_cpu = sound["card"][3], sound["cpu"][3]
+    grad_err = _part_err(torch, g_card, g_cpu, parts)
+    worst = max((float((g_card[n] - g_cpu[n]).norm()
+                       / g_cpu[n].norm().clamp(min=1e-30)), n)
+                for n in g_cpu)
+    # the updated parameters differ by no more than lr times the
+    # gradients' difference, up to one rounding of each update's terms
+    p_card = {n: p.detach().cpu() for n, p in card.named_parameters()}
+    p_cpu = {n: p.detach() for n, p in cpu.named_parameters()}
+    par_excess = 0.0
+    for n, want in p_cpu.items():
+        d = g_cpu[n] + 5e-4 * p0[n]
+        slack = 2.0 ** -22 * (p0[n].abs() + LR_CHECK * d.abs()) + 1e-30
+        par_excess = max(par_excess, float(
+            (((p_card[n] - want).abs() - LR_CHECK * (g_card[n] - g_cpu[n])
+              .abs()) / slack).max()))
+    del card, cpu
+
+    # the fault: RoIAlign's boxes detached on the card
+    roi_align = D.roi_align
+    D.roi_align = lambda f, boxes, **kw: roi_align(f, boxes.detach(), **kw)
+    try:
+        fault = run(copy.deepcopy(init).cuda(), "cuda", update=False)
+    finally:
+        D.roi_align = roi_align
+    fault_err = _part_err(torch, fault[3], g_cpu, parts)
+
+    # both devices' heads on the card's feature map
+    class CardMap(torch.nn.Module):
+        def __init__(self, leaf):
+            super().__init__()
+            self.leaf = leaf
+
+        def forward(self, images):
+            return self.leaf
+
+    heads, gmap = {}, {}
+    for d in ("cuda", "cpu"):
+        det = copy.deepcopy(init).to(d)
+        det.trunk = CardMap(fmap.to(d).clone().requires_grad_())
+        heads[d] = run(det, d, update=False)
+        gmap[d] = det.trunk.leaf.grad.detach()
+        del det
+    head_parts = {g: v for g, v in parts.items() if g != "trunk"}
+    head_err = _part_err(torch, heads["cuda"][3], heads["cpu"][3],
+                         head_parts)
+    gmap_err = float((gmap["cuda"].cpu() - gmap["cpu"]).norm()
+                     / gmap["cpu"].norm())
+    # both trunks' backward from the card's map gradient
+    trunk_g = {}
+    for d in ("cuda", "cpu"):
+        trunk = copy.deepcopy(init.trunk).to(d)
+        trunk(batches[d].images).backward(gmap["cuda"].to(d))
+        trunk_g[d] = {"trunk." + n: p.grad.detach().cpu()
+                      for n, p in trunk.named_parameters()}
+        del trunk
+    trunk_err = _part_err(torch, trunk_g["cuda"], trunk_g["cpu"],
+                          {"trunk": parts["trunk"]})["trunk"]
+    routes = {d: _trunk_routes(torch, copy.deepcopy(init.trunk).to(d),
+                               batches[d].images) for d in ("cuda", "cpu")}
+    relu_flips = [int((a != b).sum()) for a, b in
+                  zip(routes["cuda"][0], routes["cpu"][0])]
+    pool_flips = [int((a != b).sum()) for a, b in
+                  zip(routes["cuda"][1], routes["cpu"][1])]
+    relu_units = sum(a.numel() for a in routes["cpu"][0])
+    del routes
+    taps = {"step": _tap_flips(torch, sound["card"][1], sound["cpu"][1],
+                               sound["cpu"][2], H, W),
+            "heads_on_card_map": _tap_flips(
+                torch, heads["cuda"][1], heads["cpu"][1], heads["cpu"][2],
+                H, W)}
+    # the RoI head's labels (IoU >= 0.5) of both devices' proposals, and
+    # its ReLUs on one input, the card's pooled features
+    labels = [D.assign_targets(heads[d][1], batches["cpu"].boxes,
+                               batches["cpu"].node_mask, 0.5, 0.5,
+                               allow_low_quality=False)[0]
+              for d in ("cuda", "cpu")]
+    label_flips = int(((labels[0] != labels[1]) & heads["cpu"][2]).sum())
+    with torch.no_grad():
+        pooled = D.roi_align(fmap, heads["cuda"][1].cuda().contiguous(),
+                             spatial_scale=1 / 16, pooled=7)
+        pooled = pooled.reshape(*pooled.shape[:2], -1)
+        signs = {}
+        for d in ("cuda", "cpu"):
+            fc6 = copy.deepcopy(init.box_head.fc6).to(d)
+            fc7 = copy.deepcopy(init.box_head.fc7).to(d)
+            h6 = fc6(pooled.to(d))
+            signs[d] = ((h6 > 0).cpu(), (fc7(h6.relu()) > 0).cpu())
+            del fc6, fc7, h6
+        head_relu_flips = [int((a != b).sum())
+                           for a, b in zip(signs["cuda"], signs["cpu"])]
+        del pooled, signs
+    torch.cuda.empty_cache()
+    print(f"phase 8 pretrain step card vs CPU (f32, 2 images, full width, "
+          f"the card's proposal slots and the same draws): losses rel err "
+          f"{json.dumps(loss_err)}; gradients rel err in norm by part "
+          f"{json.dumps(grad_err)} (worst tensor {worst[1]} "
+          f"{worst[0]:.3g}; limit {GRAD_LIMIT:g}); the fault (RoIAlign's "
+          f"boxes detached on the card) {json.dumps(fault_err)}; updated "
+          f"parameters' difference beyond lr x the gradients' in roundings "
+          f"{par_excess:.3g} (limit 1); card {t_card:.2f} s, CPU "
+          f"{t_cpu:.2f} s", flush=True)
+    print(f"phase 8 where the gap comes from: heads of both devices on the "
+          f"card's map, gradients rel err in norm {json.dumps(head_err)}, "
+          f"the map's gradient {gmap_err:.3g}; trunks' backward from the "
+          f"card's map gradient {trunk_err:.3g}; samples on another tap "
+          f"{json.dumps(taps)}; ReLU signs that differ by layer "
+          f"{json.dumps(relu_flips)} of {relu_units}; max-pool picks that "
+          f"differ by pool {json.dumps(pool_flips)}; RoI-head labels that "
+          f"differ {label_flips}; box-head ReLU signs that differ on the "
+          f"card's pooled features (fc6, fc7) {json.dumps(head_relu_flips)}"
+          f" of {heads['cpu'][1].shape[0] * heads['cpu'][1].shape[1]} x "
+          f"{init.box_head.fc6.out_features} each", flush=True)
+    check(all(v <= 1e-5 for v in loss_err.values()),
+          f"card vs CPU pretraining losses differ: {loss_err}")
+    check(all(v <= GRAD_LIMIT for v in grad_err.values()),
+          f"card vs CPU pretraining gradients differ: {grad_err}")
+    check(fault_err["rpn"] > GRAD_LIMIT,
+          f"the gradient check does not see RoIAlign's boxes detached: "
+          f"{fault_err}")
+    check(par_excess <= 1.0,
+          f"card vs CPU updates differ beyond their gradients: "
+          f"{par_excess}")
+
+
+def phase_pretrain(torch, peaks, rows):
+    """Phase 8: detector pretraining at full width."""
+    import shutil
+    import tempfile
+
+    from sgg_torch.data.synthetic import synthetic_splits
+
+    splits = synthetic_splits(num_train=PRETRAIN_IMAGES, num_eval=4)
+    ckdir = tempfile.mkdtemp(prefix="sgg_pretrain_")
+    paths = {}
+    try:
+        det, paths["pretrain"] = pretrain_run(torch, splits, ckdir)
+        paths["pretrain_sgdet_eval"] = pretrain_eval(torch, ckdir)
+    finally:
+        shutil.rmtree(ckdir)
+    fmap, props = pretrain_step_profile(torch, det, splits)
+    del det
+    torch.cuda.empty_cache()
+    for name, row in pretrain_kernels(torch, peaks, fmap, props).items():
+        source, replaces = BWD_META[name]
+        rows[name] = dict(name=name, route="cuda", source=source,
+                          replaces=replaces, **row)
+    del fmap, props
+    torch.cuda.empty_cache()
+    pretrain_card_vs_cpu(torch, splits)
+    return paths
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
         fail("sgg_torch/ not found beside chip_smoke.py; run from a checkout")
@@ -1329,12 +2066,16 @@ def main() -> None:
             phase_parity(torch, splits)
         with Deadline(SGDET_DEADLINE_S, "phase 7"):
             paths.update(phase_sgdet(torch, peaks, rows))
+        with Deadline(PRETRAIN_DEADLINE_S, "phase 8"):
+            paths.update(phase_pretrain(torch, peaks, rows))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)
     kernels = []
     for name, row in rows.items():
-        row["launches"] = sum(n[name] for n in paths.values())
+        row["launches_by_path"] = {p: n.get(name, 0)
+                                   for p, n in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Host input pipeline: canvas → normalize → pad → pack → prefetch.
 
-Counterpart of ``sgg_tpu/data/pipeline.py`` on its float32 canvas path
-(reference ``dataloaders/visual_genome.py:377-455,691-739``): SquarePad to
-IM_SCALE with ImageNet normalization, box scaling/clipping/flip, duplicate
-relation sampling, and fixed-shape padded batch packing. Batches are
-assembled by worker threads and queued so the device never waits on the
-host.
+Counterpart of ``sgg_tpu/data/pipeline.py`` (reference
+``dataloaders/visual_genome.py:377-455,691-739``): SquarePad to IM_SCALE,
+box scaling/clipping/flip, duplicate relation sampling, and fixed-shape
+padded batch packing. Two canvas formats, as in the JAX package:
+``float32`` (normalized on the host, zero padding) and ``uint8`` (raw
+bytes padded with the ImageNet mean rounded to uint8, normalized on the
+device by the trunk: a quarter of the bytes to copy). Batches are
+assembled by worker threads and queued; ``device_prefetch`` keeps the next
+batches' copies to the device in flight while a step runs.
 
 The port's datasets so far are file-less (synthetic): their "image" is a
 constant canvas, and a resize of a constant is that constant, so no image
@@ -15,12 +18,15 @@ comes with the dataset parsers (ROADMAP Queue A, after item 9).
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from sgg_torch.constants import BOX_SCALE, IM_SCALE
 from sgg_torch.data.datasets import SGGDataset, filter_duplicate_rels
@@ -80,12 +86,15 @@ def _resized_constant(image: np.ndarray, ch: int, cw: int) -> np.ndarray:
 def prepare_example(image: np.ndarray, boxes: np.ndarray, rels: np.ndarray,
                     box_coordinates: str, is_train: bool,
                     rng: np.random.RandomState, im_scale: int = IM_SCALE,
-                    filter_duplicates: bool = True):
+                    filter_duplicates: bool = True, uint8: bool = False):
     """One example: resize+normalize+pad image, scale+clip+flip boxes.
 
-    Returns (padded float32 image (S, S, 3), boxes in padded-frame pixels,
-    rels, (content_h, content_w)). Only constant images are taken (see the
-    module docstring).
+    Returns (padded image (S, S, 3), boxes in padded-frame pixels, rels,
+    (content_h, content_w)). The canvas is float32, normalized, padded
+    with 0.0; with ``uint8=True`` it is raw uint8, padded with the ImageNet
+    mean rounded to uint8, and normalized on the device
+    (``sgg_tpu/data/pipeline.py:prepare_example``). Only constant images
+    are taken (see the module docstring).
     """
     h, w = image.shape[:2]
     ch, cw, s = content_size(h, w, im_scale)
@@ -93,10 +102,76 @@ def prepare_example(image: np.ndarray, boxes: np.ndarray, rels: np.ndarray,
         boxes, rels, box_coordinates, is_train, rng, ch, cw, s,
         im_scale=im_scale, filter_duplicates=filter_duplicates)
     img = _resized_constant(image, ch, cw)  # a flip leaves it unchanged
-    img = (img - IMAGENET_MEAN) / IMAGENET_STD
-    canvas = np.zeros((im_scale, im_scale, 3), np.float32)
-    canvas[:ch, :cw] = img
+    if uint8:
+        canvas = np.empty((im_scale, im_scale, 3), np.uint8)
+        canvas[:] = (IMAGENET_MEAN * 255).astype(np.uint8)
+        canvas[:ch, :cw] = np.round(img * 255).astype(np.uint8)
+    else:
+        img = (img - IMAGENET_MEAN) / IMAGENET_STD
+        canvas = np.zeros((im_scale, im_scale, 3), np.float32)
+        canvas[:ch, :cw] = img
     return canvas, boxes, rels, (ch, cw)
+
+
+_COPY_STREAMS: dict = {}
+
+
+def device_prefetch(iterator: Iterable[GraphBatch], device,
+                    size: int = 2) -> Iterator[GraphBatch]:
+    """Overlap the copy to the device with compute: the next ``size``
+    batches are moved with ``GraphBatch.to`` (pinned, ``non_blocking``)
+    before the current one is yielded (``sgg_tpu/data/pipeline.py:
+    device_prefetch``). On a CUDA device the copies are issued on a stream
+    of their own, so they run while the current step's kernels do; the
+    consumer's stream waits for a batch's copies only when it is yielded,
+    and its tensors are marked as used there (``record_stream``) so their
+    memory is not reused under a running step. One copy stream a device
+    serves every call: the caching allocator keeps a stream's blocks for
+    that stream, so a new stream each epoch would allocate anew. Order and
+    content are the iterator's."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda and device not in _COPY_STREAMS:
+        _COPY_STREAMS[device] = torch.cuda.Stream(device)
+    stream = _COPY_STREAMS.get(device)
+    buf: collections.deque = collections.deque()
+
+    def release():
+        batch, done = buf.popleft()
+        if cuda:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(done)
+            for f in dataclasses.fields(batch):
+                t = getattr(batch, f.name)
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(consumer)
+        return batch
+
+    for item in iterator:
+        if cuda:
+            with torch.cuda.stream(stream):
+                moved = item.to(device)
+                done = stream.record_event()
+        else:
+            moved, done = item.to(device), None
+        buf.append((moved, done))
+        if len(buf) > size:
+            yield release()
+    while buf:
+        yield release()
+
+
+def to_image_dtype(batch: GraphBatch, dtype: str) -> GraphBatch:
+    """A host batch's images for the copy to the device: float canvases in
+    bfloat16 when
+    the model computes in it (half the bytes; the trunk casts to its
+    compute type anyway), uint8 and float32 as they are
+    (``sgg_tpu/data/pipeline.py:to_image_dtype``)."""
+    if batch.images is None or dtype == "float32" or \
+            batch.images.dtype == np.uint8:
+        return batch
+    images = torch.from_numpy(batch.images).to(torch.bfloat16)
+    return dataclasses.replace(batch, images=images)
 
 
 class BatchLoader:
@@ -106,7 +181,15 @@ class BatchLoader:
                  max_edges: int, shuffle: Optional[bool] = None,
                  drop_last: Optional[bool] = None, num_workers: int = 4,
                  prefetch: int = 2, seed: int = 0,
-                 with_images: bool = True, im_scale: int = IM_SCALE):
+                 with_images: bool = True, im_scale: int = IM_SCALE,
+                 image_format: str = "float32"):
+        """``image_format``: ``float32`` canvases normalized on the host,
+        or ``uint8`` canvases normalized on the device (4x fewer bytes to
+        copy)."""
+        if image_format not in ("float32", "uint8"):
+            raise ValueError(f"image_format {image_format!r}: float32 or "
+                             f"uint8")
+        self.image_format = image_format
         self.ds = dataset
         self.batch_size = batch_size
         self.max_nodes = max_nodes
@@ -137,7 +220,8 @@ class BatchLoader:
             img, self.ds.gt_boxes[idx], self.ds.relationships[idx],
             self.ds.box_coordinates, self.ds.is_train, rng,
             im_scale=self.im_scale,
-            filter_duplicates=self.ds.filter_duplicates) + (scale_org,)
+            filter_duplicates=self.ds.filter_duplicates,
+            uint8=self.image_format == "uint8") + (scale_org,)
 
     def _example_rng(self, epoch: int, idx: int) -> np.random.RandomState:
         """Per-example RNG keyed on (seed, epoch, image index)."""

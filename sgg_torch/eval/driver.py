@@ -85,7 +85,9 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
     regime, the images evaluated and the wall seconds of the regime's loop,
     host evaluator included) and, in mode sgdet, ``_detections`` (per
     image: ``n_det`` detections and the selected threshold
-    ``sel_thresh``).
+    ``sel_thresh``; the detections' ``boxes``, ``labels`` and ``scores``
+    beside the image's ``gt_boxes`` and ``gt_classes``, in the canvas frame,
+    for ``eval.det_eval.DetectionEvaluator``).
 
     ``pair_ladder``: candidate-pair budgets (ascending, ``None`` = dense
     N*(N-1)); default ``[128, 512, 2048, None]``. Per batch the smallest
@@ -135,7 +137,8 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
         pair_ladder = [b for b in (128, 512, 2048) if b < full_pairs] + [None]
     step_cache: Dict = {}
     throughput = {}
-    detections = {"n_det": [], "sel_thresh": []}
+    detections = {k: [] for k in ("n_det", "sel_thresh", "boxes", "labels",
+                                  "scores", "gt_boxes", "gt_classes")}
 
     def get_eval_step(m, budget, dedup=True):
         key = (m, budget, dedup)
@@ -169,6 +172,15 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
                 detections["n_det"] += out["n_det"][:n_real].tolist()
                 detections["sel_thresh"] += \
                     out["sel_thresh"][:n_real].tolist()
+                for i in range(n_real):  # valid slots come first
+                    n, n_gt = int(out["n_det"][i]), int(gt_node_mask[i].sum())
+                    for k, src in (("boxes", "det_boxes"),
+                                   ("labels", "det_labels"),
+                                   ("scores", "det_scores")):
+                        detections[k].append(out[src][i][:n])
+                    detections["gt_boxes"].append(gt_boxes_b[i][:n_gt])
+                    detections["gt_classes"].append(
+                        np.asarray(batch.classes[i][:n_gt]))
             else:
                 n_i = gt_node_mask.sum(axis=1)
                 need = int((n_i * (n_i - 1)).max()) if len(n_i) else 0

@@ -5,13 +5,13 @@
 
 Same flags as the JAX package's ``main.py`` (``sgg_torch.config``). Runs on
 the card unless ``-device cpu`` is given. Mode sgdet loads the frozen
-detector from ``-ckpt`` (a ``train/checkpoint.py`` detector directory) and
-trains the relation head on its detections; ``-nepoch 0`` only evaluates
-(the test sweep). ``-split synthetic`` is the only split so far: the VG,
-GQA and VTransE parsers and image decoding need libraries the card's
-machine lacks, and those splits raise ``NotImplementedError``; so do
-``-backbone resnet50`` (the ResNet50-FPN slice) and detector pretraining
-(its own slice).
+detector from ``-ckpt`` (a ``train/checkpoint.py`` detector directory, as
+``sgg_torch.pretrain_detector`` writes) and trains the relation head on its
+detections; ``-nepoch 0`` only evaluates (the test sweep). ``-split
+synthetic`` is the only split so far: the VG, GQA and VTransE parsers and
+image decoding need libraries the card's machine lacks, and those splits
+raise ``NotImplementedError``; so does ``-backbone resnet50`` (the
+ResNet50-FPN slice).
 """
 
 from __future__ import annotations

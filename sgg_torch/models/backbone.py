@@ -10,10 +10,10 @@ The trunk's first conv is the CUDA kernel K2 (``ops/vgg_stem.py``); it
 returns channels-last activations, which the other twelve convs (cuDNN)
 keep, so the trunk's NHWC output needs no copy.
 
-Mixed precision follows flax's ``dtype=`` layers: the trainable modules
-keep float32 weights and compute in their ``compute_dtype``, casting input,
-weight and bias at use (``linear_in``), so gradients and
-optimizer updates land on float32 master weights. The frozen trunk is
+Mixed precision follows flax's ``dtype=`` layers: the modules keep
+float32 weights and compute in their ``compute_dtype``, casting input,
+weight and bias at use (``linear_in``, ``VGG16Trunk``), so gradients and
+optimizer updates land on float32 master weights. A frozen trunk may be
 stored in the compute type itself, which is the same as casting at use.
 """
 
@@ -64,13 +64,21 @@ class Dropout(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+_NORM: dict = {}
+
+
 def normalize_images(x: torch.Tensor) -> torch.Tensor:
     """ImageNet normalization for raw uint8 batches; float inputs are
-    taken as already normalized by the host pipeline."""
+    taken as already normalized by the host pipeline. The f32 mean and
+    std (times 255) reach a device once: a copy from the host in every
+    step would wait for the card."""
     if x.dtype != torch.uint8:
         return x
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, device=x.device) * 255.0
+    if x.device not in _NORM:
+        _NORM[x.device] = tuple(
+            (torch.tensor(v) * 255.0).to(x.device)
+            for v in (IMAGENET_MEAN, IMAGENET_STD))
+    mean, std = _NORM[x.device]
     return (x.float() - mean) / std
 
 
@@ -81,10 +89,14 @@ VGG16_CFG: Sequence[Any] = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
 
 
 class VGG16Trunk(nn.Module):
-    """VGG16 conv trunk: (B, H, W, 3) -> (B, H/16, W/16, 512), NHWC."""
+    """VGG16 conv trunk: (B, H, W, 3) -> (B, H/16, W/16, 512), NHWC,
+    computed in ``compute_dtype`` (weights and biases cast at use, so a
+    trunk that trains keeps float32 master weights; the stem, K2, rounds
+    its weights itself)."""
 
     def __init__(self):
         super().__init__()
+        self.compute_dtype = torch.float32
         convs, c_in = [], 3
         for v in VGG16_CFG:
             if v != "M":
@@ -93,7 +105,7 @@ class VGG16Trunk(nn.Module):
         self.conv = nn.ModuleList(convs)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        dtype = self.conv[0].weight.dtype
+        dtype = self.compute_dtype
         x = normalize_images(images).to(dtype).contiguous()
         stem = self.conv[0]
         # K2: NHWC in, NHWC out; viewed as NCHW it is channels-last memory
@@ -104,7 +116,9 @@ class VGG16Trunk(nn.Module):
             if v == "M":
                 x = F.max_pool2d(x, 2, 2)
             else:
-                x = F.relu(self.conv[i](x))
+                conv = self.conv[i]
+                x = F.relu(F.conv2d(x, conv.weight.to(dtype),
+                                    conv.bias.to(dtype), padding=1))
                 i += 1
         return x.permute(0, 2, 3, 1).contiguous()
 

@@ -9,13 +9,17 @@ source is rebuilt. The build directory ``sgg_torch/build/`` is listed in
 ``.gitignore``.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, and
-returns ``cudaGetLastError()`` after its launch; ``CudaKernel.launch``
+returns ``cudaGetLastError()`` after its launch(es); ``CudaKernel.launch``
 raises if that is not 0 and otherwise counts the launch, in all and by
-route (the element type the wrapper launched it for).
+route (the element type the wrapper launched it for). Several entry points
+may share one source (K1's two backward kernels): they share its library,
+built once.
 
-The kernels are forward-only and launch outside autograd: a wrapper whose
-CUDA inputs require a gradient while grad mode is on raises
-(``refuse_grad``) instead of returning an output that silently drops it.
+Forward and backward kernels meet in ``torch.autograd.Function``s
+(``ops/roi_align.py``, ``ops/vgg_stem.py``). An input that no backward
+kernel serves (the images of the VGG stem) is refused while grad mode is
+on and it requires a gradient (``refuse_grad``), instead of returning an
+output that silently drops it.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# one build at a time per process: entry points of one source share its
+# library file
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -107,7 +114,8 @@ class CudaKernel:
     def _load(self):
         with self._lock:
             if self._fn is None:
-                self._finish_build(self._start_build())
+                with _BUILD_LOCK:
+                    self._finish_build(self._start_build())
                 lib = ctypes.CDLL(str(self.library))
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes
@@ -135,29 +143,32 @@ class CudaKernel:
 
 
 def refuse_grad(name: str, *tensors, backward: str) -> None:
-    """Raise if grad mode is on and one of ``tensors`` requires a gradient:
-    the CUDA kernel has no backward (``backward`` says where it is queued)."""
+    """Raise if grad mode is on and one of ``tensors`` requires a gradient
+    that no CUDA kernel computes (``backward`` says why)."""
     import torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward ({backward}); an input "
-            f"requires a gradient. Run it under torch.no_grad() or detach "
-            f"the inputs.")
+            f"{name}: no CUDA kernel computes this input's gradient "
+            f"({backward}); it requires one. Run it under torch.no_grad() "
+            f"or detach the input.")
 
 
 def build_all(kernels: List[CudaKernel]) -> None:
-    """Build every kernel's library, all ``nvcc`` processes at once."""
-    started = []
-    try:
-        for k in kernels:
-            k._lock.acquire()
-            started.append((k, None))
-            started[-1] = (k, k._start_build())
-        for k, build in started:
-            k._finish_build(build)
-    finally:
-        for k, build in started:
-            if build is not None and build[0].poll() is None:
-                build[0].kill()
-                build[0].wait()
-            k._lock.release()
+    """Build every kernel's library, all ``nvcc`` processes at once (one
+    per source)."""
+    started, seen = [], set()
+    with _BUILD_LOCK:
+        try:
+            for k in kernels:
+                if k.library in seen:
+                    continue
+                seen.add(k.library)
+                started.append((k, None))
+                started[-1] = (k, k._start_build())
+            for k, build in started:
+                k._finish_build(build)
+        finally:
+            for k, build in started:
+                if build is not None and build[0].poll() is None:
+                    build[0].kill()
+                    build[0].wait()

@@ -6,11 +6,19 @@ Counterpart of ``sgg_tpu/ops/roi_align.py:roi_align`` and of the TPU kernel
 NHWC feature maps and image-pixel boxes (reference
 ``sgg_models/rel_model_base.py:97-99,256-260``).
 
-``roi_align`` takes the plain version for a tensor on the CPU and launches
-the CUDA kernel (``csrc/roi_align.cu``) for a tensor on the card; there is
-no fall-back from one to the other. ``folded_axis_taps`` models the
-kernel's per-bin tap tables in numpy for the CPU tests; nothing on the
-main path calls it.
+``roi_align`` is a ``torch.autograd.Function``, differentiable in the
+feature map and in the boxes. For tensors on the CPU its forward and
+backward are the plain versions (``roi_align_reference``,
+``roi_align_backward_reference``, ``roi_align_boxes_grad_reference``); for
+tensors on the card they are CUDA kernels: K1 (``csrc/roi_align.cu``)
+forward, K1-bwd-fmap and K1-bwd-boxes (``csrc/roi_align_bwd.cu``)
+backward. There is no fall-back from a kernel to a plain version. The
+backward computes what the JAX package differentiates: ``grad_fmap`` as
+``roi_align_pallas``' custom VJP (``_bwd``), ``grad_boxes`` as XLA's
+autodiff of the separable ``sgg_tpu/ops/roi_align.py:roi_align`` (the JAX
+detector's train step differentiates through its proposals).
+``folded_axis_taps`` models the kernels' per-bin tap tables in numpy for
+the CPU tests; nothing on the main path calls it.
 """
 
 from __future__ import annotations
@@ -22,13 +30,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sgg_torch.ops._cuda import CudaKernel, refuse_grad
+from sgg_torch.ops._cuda import CudaKernel
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
     "roi_align.cu", "sgg_roi_align",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P])
+KERNEL_BWD_FMAP = CudaKernel(
+    "roi_align_bwd.cu", "sgg_roi_align_bwd_fmap",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P])
+KERNEL_BWD_BOXES = CudaKernel(
+    "roi_align_bwd.cu", "sgg_roi_align_bwd_boxes",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -128,19 +141,107 @@ def roi_align_reference(fmap: torch.Tensor, boxes: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
-def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, *,
-              spatial_scale: float, pooled: int = 7,
-              ratio: int = 2) -> torch.Tensor:
-    """(B, H, W, C) NHWC fmap + (B, R, 4) image-pixel boxes ->
-    (B, R, P, P, C) in the fmap's type.
+def roi_align_backward_reference(g: torch.Tensor, boxes: torch.Tensor,
+                                 fmap_hw: Tuple[int, int],
+                                 dtype: torch.dtype, *, spatial_scale: float,
+                                 pooled: int = 7, ratio: int = 2,
+                                 roi_chunk: int = 64) -> torch.Tensor:
+    """Plain ``grad_fmap`` (B, H, W, C) in ``dtype`` from the output's
+    gradient ``g`` (B, R, P, P, C): ``sgg_tpu/ops/roi_align_pallas.py:_bwd``,
+    the two transposed interpolation products in f32
+    (``brqw,brpqc->brpwc``, then ``brph,brpwc->bhwc``), over ROI chunks."""
+    H, W = fmap_hw
+    B, R = boxes.shape[:2]
+    x1, y1, roi_w, roi_h = _box_frames(boxes, spatial_scale)
+    Wy = _interp_weights(y1, roi_h, H, pooled, ratio)  # (B, R, P, H)
+    Wx = _interp_weights(x1, roi_w, W, pooled, ratio)  # (B, R, P, W)
+    grad = g.new_zeros((B, H, W, g.shape[-1]), dtype=torch.float32)
+    for s in range(0, R, roi_chunk):
+        g32 = g[:, s:s + roi_chunk].float()
+        gy = torch.einsum("brqw,brpqc->brpwc", Wx[:, s:s + roi_chunk], g32)
+        grad += torch.einsum("brph,brpwc->bhwc", Wy[:, s:s + roi_chunk], gy)
+    return grad.to(dtype)
 
-    On the card the output has no ``grad_fn``: with grad mode on, inputs
-    that require a gradient are refused (K1's backward, ``grad_fmap``, is
-    queued for the GAN slice, ROADMAP Queue B). The plain version on the
-    CPU is differentiable."""
-    if fmap.device.type == "cpu":
-        return roi_align_reference(fmap, boxes, spatial_scale=spatial_scale,
-                                   pooled=pooled, ratio=ratio)
+
+def _axis_samples(start: torch.Tensor, extent: torch.Tensor, dim: int,
+                  pooled: int, ratio: int):
+    """Per sample along one axis (..., S): the low and high tap and the
+    derivative of the sample's bilinear weights in its coordinate, folded
+    with the bin average (``1 / ratio``): 0 where the sample is invalid or
+    capped, times ``jnp.clip``'s gradient at 0 (1 above, 1/2 at, 0 below);
+    and ``(i + 0.5) / S``, the coordinate's derivative in the extent."""
+    S = pooled * ratio
+    i = torch.arange(S, dtype=torch.float32, device=start.device)
+    frac_pos = (i + 0.5) / torch.full_like(i, S)
+    y = start[..., None] + extent[..., None] * (i + 0.5) / torch.full_like(
+        i, S)
+    valid = (y >= -1.0) & (y <= dim)
+    yc = y.clamp(min=0.0)
+    y_low = torch.floor(yc).long()
+    cap = y_low >= dim - 1
+    y_low = torch.where(cap, torch.full_like(y_low, dim - 1), y_low)
+    y_high = torch.where(cap, torch.full_like(y_low, dim - 1), y_low + 1)
+    clip_grad = torch.where(y > 0, 1.0, torch.where(y == 0, 0.5, 0.0))
+    dmask = torch.where(valid & ~cap, clip_grad, 0.0) / ratio
+    return y_low, y_high, dmask, frac_pos
+
+
+def _floor_grad(raw: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``jnp.maximum(raw, 1.0)`` in ``raw``."""
+    return torch.where(raw > 1.0, 1.0, torch.where(raw == 1.0, 0.5, 0.0))
+
+
+def _chain_axis(T: torch.Tensor, start, extent, raw, dim: int, pooled: int,
+                ratio: int):
+    """d/d(low edge), d/d(high edge) of one axis from ``T`` (B, R, P, dim),
+    the output's gradient contracted with everything but this axis'
+    weights."""
+    lo, hi, dmask, frac_pos = _axis_samples(start, extent, dim, pooled, ratio)
+    bins = T.repeat_interleave(ratio, dim=2)  # (B, R, S, dim): bin of i
+    dy = dmask * (torch.gather(bins, 3, hi[..., None])[..., 0]
+                  - torch.gather(bins, 3, lo[..., None])[..., 0])
+    d_start = dy.sum(-1)
+    d_hi = (dy * frac_pos).sum(-1) * _floor_grad(raw)
+    return d_start - d_hi, d_hi
+
+
+def roi_align_boxes_grad_reference(g: torch.Tensor, fmap: torch.Tensor,
+                                   boxes: torch.Tensor, *,
+                                   spatial_scale: float, pooled: int = 7,
+                                   ratio: int = 2,
+                                   roi_chunk: int = 64) -> torch.Tensor:
+    """Plain ``grad_boxes`` (B, R, 4) f32: what XLA's autodiff of
+    ``sgg_tpu/ops/roi_align.py:roi_align`` gives for the boxes, in f32.
+
+    Per sample along y, ``d/dy_i = dmask_i * (T_y[p(i), hi_i] -
+    T_y[p(i), lo_i])`` with ``T_y = sum_{q, x, c} g Wx f`` (einsums in f32),
+    the same along x; then through ``y_i = start + extent (i + 0.5) / S``,
+    the floor of the extent at 1 and the spatial scale."""
+    B, H, W, C = fmap.shape
+    f32 = fmap.float()
+    sb = boxes.float() * spatial_scale
+    x1, y1 = sb[..., 0], sb[..., 1]
+    raw_w, raw_h = sb[..., 2] - x1, sb[..., 3] - y1
+    roi_w, roi_h = raw_w.clamp(min=1.0), raw_h.clamp(min=1.0)
+    Wy = _interp_weights(y1, roi_h, H, pooled, ratio)
+    Wx = _interp_weights(x1, roi_w, W, pooled, ratio)
+    Ty, Tx = [], []
+    for s in range(0, boxes.shape[1], roi_chunk):
+        g32 = g[:, s:s + roi_chunk].float()
+        gy = torch.einsum("brqw,brpqc->brpwc", Wx[:, s:s + roi_chunk], g32)
+        Ty.append(torch.einsum("brpwc,bhwc->brph", gy, f32))
+        t = torch.einsum("brph,bhwc->brpwc", Wy[:, s:s + roi_chunk], f32)
+        Tx.append(torch.einsum("brpwc,brpqc->brqw", t, g32))
+    if not Ty:
+        return boxes.new_zeros(boxes.shape, dtype=torch.float32)
+    dy1, dy2 = _chain_axis(torch.cat(Ty, 1), y1, roi_h, raw_h, H, pooled,
+                           ratio)
+    dx1, dx2 = _chain_axis(torch.cat(Tx, 1), x1, roi_w, raw_w, W, pooled,
+                           ratio)
+    return torch.stack([dx1, dy1, dx2, dy2], -1) * spatial_scale
+
+
+def _check_card(fmap: torch.Tensor, boxes: torch.Tensor) -> None:
     if fmap.device.type != "cuda" or boxes.device != fmap.device:
         raise ValueError(f"roi_align: fmap on {fmap.device}, boxes on "
                          f"{boxes.device}")
@@ -153,16 +254,97 @@ def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, *,
                          f"{tuple(boxes.shape)}")
     if not (fmap.is_contiguous() and boxes.is_contiguous()):
         raise ValueError("roi_align: fmap and boxes must be contiguous")
-    refuse_grad("roi_align", fmap, boxes,
-                backward="K1's backward is queued for the GAN slice, "
-                         "ROADMAP Queue B")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward_kernel(fmap, boxes, scale, pooled, ratio) -> torch.Tensor:
     B, H, W, C = fmap.shape
     R = boxes.shape[1]
     out = torch.empty((B, R, pooled, pooled, C), dtype=fmap.dtype,
                       device=fmap.device)
     KERNEL.launch(fmap.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W,
-                  C, R, float(spatial_scale), pooled, ratio,
-                  _DTYPES[fmap.dtype],
-                  torch.cuda.current_stream(fmap.device).cuda_stream,
-                  route=ROUTES[fmap.dtype])
+                  C, R, float(scale), pooled, ratio, _DTYPES[fmap.dtype],
+                  _stream(fmap), route=ROUTES[fmap.dtype])
     return out
+
+
+def _grad_fmap_kernel(g, boxes, fmap_shape, dtype, scale, pooled, ratio):
+    """K1-bwd-fmap: f32 atomics into scratch allocated here, then cast."""
+    B, H, W, C = fmap_shape
+    scratch = torch.empty((B, H, W, C), dtype=torch.float32, device=g.device)
+    grad = scratch if dtype == torch.float32 else torch.empty(
+        (B, H, W, C), dtype=dtype, device=g.device)
+    KERNEL_BWD_FMAP.launch(
+        g.data_ptr(), boxes.data_ptr(), scratch.data_ptr(), grad.data_ptr(),
+        B, H, W, C, boxes.shape[1], float(scale), pooled, ratio,
+        _DTYPES[dtype], _stream(g), route=ROUTES[dtype])
+    return grad
+
+
+def _grad_boxes_kernel(g, fmap, boxes, scale, pooled, ratio):
+    B, H, W, C = fmap.shape
+    grad = torch.empty(boxes.shape, dtype=torch.float32, device=g.device)
+    KERNEL_BWD_BOXES.launch(
+        g.data_ptr(), fmap.data_ptr(), boxes.data_ptr(), grad.data_ptr(),
+        B, H, W, C, boxes.shape[1], float(scale), pooled, ratio,
+        _DTYPES[fmap.dtype], _stream(g), route=ROUTES[fmap.dtype])
+    return grad
+
+
+class _RoIAlign(torch.autograd.Function):
+    """K1 and its backward kernels on the card, the plain versions on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, fmap, boxes, spatial_scale, pooled, ratio):
+        ctx.args = (spatial_scale, pooled, ratio)
+        ctx.fmap_shape, ctx.fmap_dtype = tuple(fmap.shape), fmap.dtype
+        ctx.save_for_backward(fmap, boxes)
+        if fmap.device.type == "cpu":
+            return roi_align_reference(fmap, boxes,
+                                       spatial_scale=spatial_scale,
+                                       pooled=pooled, ratio=ratio)
+        return _forward_kernel(fmap, boxes, spatial_scale, pooled, ratio)
+
+    @staticmethod
+    def backward(ctx, g):
+        fmap, boxes = ctx.saved_tensors
+        scale, pooled, ratio = ctx.args
+        want_fmap, want_boxes = ctx.needs_input_grad[:2]
+        grad_fmap = grad_boxes = None
+        if fmap.device.type == "cpu":
+            if want_fmap:
+                grad_fmap = roi_align_backward_reference(
+                    g, boxes, ctx.fmap_shape[1:3], ctx.fmap_dtype,
+                    spatial_scale=scale, pooled=pooled, ratio=ratio)
+            if want_boxes:
+                grad_boxes = roi_align_boxes_grad_reference(
+                    g, fmap, boxes, spatial_scale=scale, pooled=pooled,
+                    ratio=ratio)
+            return grad_fmap, grad_boxes, None, None, None
+        g = g.to(ctx.fmap_dtype).contiguous()
+        if want_fmap:
+            grad_fmap = _grad_fmap_kernel(g, boxes, ctx.fmap_shape,
+                                          ctx.fmap_dtype, scale, pooled,
+                                          ratio)
+        if want_boxes:
+            grad_boxes = _grad_boxes_kernel(g, fmap, boxes, scale, pooled,
+                                            ratio)
+        return grad_fmap, grad_boxes, None, None, None
+
+
+def roi_align(fmap: torch.Tensor, boxes: torch.Tensor, *,
+              spatial_scale: float, pooled: int = 7,
+              ratio: int = 2) -> torch.Tensor:
+    """(B, H, W, C) NHWC fmap + (B, R, 4) image-pixel boxes ->
+    (B, R, P, P, C) in the fmap's type, differentiable in both inputs.
+
+    On the CPU: the plain versions. On the card: K1 forward; backward K1-
+    bwd-fmap where the map needs a gradient and K1-bwd-boxes where the
+    boxes do (the fmap's gradient in its type, the boxes' in f32)."""
+    if fmap.device.type != "cpu":
+        _check_card(fmap, boxes)
+    return _RoIAlign.apply(fmap, boxes, spatial_scale, pooled, ratio)

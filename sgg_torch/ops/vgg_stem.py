@@ -6,12 +6,17 @@ vgg_conv1_pallas`` — the first layer of ``VGG16Trunk`` (reference
 torchvision ``vgg16.features[0]``, ``sgg_models/rel_model_base.py:310-321``).
 Channels-last in and out, HWIO weights, as in the JAX package.
 
-``vgg_conv1`` takes the plain version for a tensor on the CPU and launches
-the CUDA kernel (``csrc/vgg_stem.cu``) for a tensor on the card; there is
-no fall-back from one to the other. For bfloat16 ``x`` both versions round
+``vgg_conv1`` is a ``torch.autograd.Function``, differentiable in the
+weights and the bias (the images get no gradient, and one that asks for it
+is refused). For tensors on the CPU its forward and backward are the plain
+versions (``vgg_conv1_reference``, ``vgg_conv1_backward_reference``); for
+tensors on the card they are CUDA kernels: K2 (``csrc/vgg_stem.cu``)
+forward, K2-bwd (``csrc/vgg_stem_bwd.cu``) backward. There is no fall-back
+from a kernel to a plain version. For bfloat16 ``x`` both forwards round
 the weights to bfloat16 (the kernel then multiplies on the tensor cores
 with float32 accumulation and a float32 bias); for float32 ``x`` the kernel
-is exact float32 arithmetic.
+is exact float32 arithmetic. Both backwards sum in float32 and return
+float32 gradients, which autograd casts to the weights' type.
 """
 
 from __future__ import annotations
@@ -23,11 +28,15 @@ import torch.nn.functional as F
 
 from sgg_torch.ops._cuda import CudaKernel, refuse_grad
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "vgg_stem.cu", "sgg_vgg_conv1",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p])
+    "vgg_stem.cu", "sgg_vgg_conv1", [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+KERNEL_BWD = CudaKernel(
+    "vgg_stem_bwd.cu", "sgg_vgg_conv1_bwd",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+# K2-bwd's first pass: a fixed grid (so a fixed summation order), 8 blocks
+# an SM of an H100
+BWD_BLOCKS = 1056
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -41,20 +50,22 @@ def vgg_conv1_reference(x: torch.Tensor, w: torch.Tensor,
     return torch.relu(y).permute(0, 2, 3, 1).contiguous()
 
 
-def vgg_conv1(x: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
-    """relu(conv3x3(x, w, pad=1) + b) for the 3 -> 64 VGG stem, any H, W.
+def vgg_conv1_backward_reference(x: torch.Tensor, out: torch.Tensor,
+                                 g: torch.Tensor):
+    """Plain (grad_w (3, 3, 3, 64) HWIO, grad_b (64,)), f32: the autograd
+    of ``vgg_conv1_reference`` in f32 for the output's gradient ``g``,
+    with the ReLU's mask taken from the forward's output ``out``."""
+    x32 = x.float().permute(0, 3, 1, 2)
+    gm = torch.where(out > 0, g.float(), 0.0).permute(0, 3, 1, 2)
+    w = torch.zeros((64, 3, 3, 3), device=x.device, requires_grad=True)
+    b = torch.zeros(64, device=x.device, requires_grad=True)
+    with torch.enable_grad():
+        y = F.conv2d(x32, w, b, padding=1)
+        gw, gb = torch.autograd.grad(y, (w, b), gm)
+    return gw.permute(2, 3, 1, 0).contiguous(), gb
 
-    x: (B, H, W, 3) float32/bfloat16; w: (3, 3, 3, 64) HWIO; b: (64,).
-    Returns (B, H, W, 64) in x's type, channels-last contiguous.
 
-    On the card the output has no ``grad_fn``: with grad mode on, inputs
-    that require a gradient are refused (the trunk is frozen, so nothing
-    asks for this backward). The plain version on the CPU is
-    differentiable.
-    """
-    if x.device.type == "cpu":
-        return vgg_conv1_reference(x, w, b)
+def _check_card(x, w, b) -> None:
     if x.device.type != "cuda" or w.device != x.device \
             or b.device != x.device:
         raise ValueError(f"vgg_conv1: x on {x.device}, w on {w.device}, "
@@ -67,15 +78,70 @@ def vgg_conv1(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)}, b {tuple(b.shape)}")
     if not x.is_contiguous():
         raise ValueError("vgg_conv1: x must be contiguous NHWC")
-    refuse_grad("vgg_conv1", x, w, b,
-                backward="the trunk is frozen; like K1's backward, queued "
-                         "in ROADMAP Queue B, it would need a kernel")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward_kernel(x, w, b) -> torch.Tensor:
     B, H, W, _ = x.shape
     w32 = w.float().contiguous()  # (dy, dx, c, o) == (27, 64) row-major
     b32 = b.float().contiguous()
     out = torch.empty((B, H, W, 64), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.data_ptr(), w32.data_ptr(), b32.data_ptr(),
-                  out.data_ptr(), B, H, W, _DTYPES[x.dtype],
-                  torch.cuda.current_stream(x.device).cuda_stream,
+                  out.data_ptr(), B, H, W, _DTYPES[x.dtype], _stream(x),
                   route=ROUTES[x.dtype])
     return out
+
+
+def _backward_kernel(x, out, g):
+    """K2-bwd: per-block partial sums, then one reduce; f32."""
+    B, H, W, _ = x.shape
+    partials = torch.empty((BWD_BLOCKS, 28, 64), dtype=torch.float32,
+                           device=x.device)
+    grad = torch.empty((28, 64), dtype=torch.float32, device=x.device)
+    KERNEL_BWD.launch(x.data_ptr(), out.data_ptr(), g.data_ptr(),
+                      partials.data_ptr(), grad.data_ptr(), B, H, W,
+                      BWD_BLOCKS, _DTYPES[x.dtype], _stream(x),
+                      route=ROUTES[x.dtype])
+    return grad[:27].view(3, 3, 3, 64), grad[27]
+
+
+class _VggConv1(torch.autograd.Function):
+    """K2 and K2-bwd on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        out = (vgg_conv1_reference(x, w, b) if x.device.type == "cpu"
+               else _forward_kernel(x, w, b))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if not any(ctx.needs_input_grad[1:]):
+            return None, None, None
+        if x.device.type == "cpu":
+            gw, gb = vgg_conv1_backward_reference(x, out, g)
+        else:
+            gw, gb = _backward_kernel(x, out, g.to(x.dtype).contiguous())
+        return None, gw, gb
+
+
+def vgg_conv1(x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """relu(conv3x3(x, w, pad=1) + b) for the 3 -> 64 VGG stem, any H, W.
+
+    x: (B, H, W, 3) float32/bfloat16; w: (3, 3, 3, 64) HWIO; b: (64,).
+    Returns (B, H, W, 64) in x's type, channels-last contiguous,
+    differentiable in ``w`` and ``b``. Images that require a gradient are
+    refused while grad mode is on: no kernel computes it.
+    """
+    if x.device.type != "cpu":
+        _check_card(x, w, b)
+    refuse_grad("vgg_conv1", x,
+                backward="the VGG stem's images get no gradient; K2-bwd "
+                         "computes the weights' and the bias'")
+    return _VggConv1.apply(x, w, b)

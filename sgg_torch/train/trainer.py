@@ -8,11 +8,15 @@ epoch loop with interval loss averaging and s/batch reporting
 ``VAL_EVERY`` epochs, and the final test sweep over all eval splits
 (``main.py:256-288``). One process on one device (``config.device``).
 In mode sgdet the relation model trains on the detections of a frozen,
-pretrained detector (``main.py:62-63``), which also serves validation and
-the test sweep. Not ported yet, each raising ``NotImplementedError`` with
-the ROADMAP Queue A item that brings it: the feature cache (10), the GAN
-(14) and multi-device training (15); detector pretraining and the
-ResNet50-FPN detector come with their own slices.
+pretrained detector (``main.py:62-63``; ``sgg_torch/pretrain_detector.py``
+writes one), which also serves validation and the test sweep. Batches
+reach the step in the config's ``image_format`` (uint8 canvases are
+normalized on the device), float canvases in bfloat16 when the model
+computes in it, their copies to the device issued ahead on a stream of
+their own while the previous steps run (``device_prefetch``). Not ported yet, each raising
+``NotImplementedError`` with the ROADMAP Queue A item that brings it: the
+feature cache (10), the GAN (14) and multi-device training (15); the
+ResNet50-FPN detector comes with its own slice.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 from sgg_torch import constants
 from sgg_torch.config import Config
 from sgg_torch.data.datasets import SGGDataset
-from sgg_torch.data.pipeline import BatchLoader
+from sgg_torch.data.pipeline import (BatchLoader, device_prefetch,
+                                     to_image_dtype)
 from sgg_torch.device import resolve_device
 from sgg_torch.eval.driver import val_epoch
 from sgg_torch.models.frequency_bias import (count_matrices,
@@ -195,14 +200,19 @@ class Trainer:
                              max_nodes=cfg.max_nodes,
                              max_edges=cfg.max_edges, seed=cfg.seed,
                              num_workers=cfg.num_workers,
+                             image_format=cfg.image_format,
                              im_scale=constants.IM_SCALE)  # read per call
         loader._epoch = epoch
+        # the next batches' copies to the device run while a step does
+        batches = device_prefetch(
+            (to_image_dtype(b, cfg.compute_dtype) for b in loader),
+            self.device)
         generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed * 100003 + epoch)
         accum = defaultdict(list)
         epoch_means = defaultdict(list)
         t0 = time.time()
-        for b_i, batch in enumerate(loader):
+        for b_i, batch in enumerate(batches):
             metrics = self.train_step(batch, generator)
             self.global_iter += 1
             for k, v in metrics.items():

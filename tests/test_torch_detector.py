@@ -186,14 +186,27 @@ def test_sgdet_relation_variables_load_strictly():
 
 
 def test_detector_compute_type_and_training_refused():
-    """bf16 compute stores the trunk, RPN and box head in bf16 and keeps
-    the classifier in f32; ``gt_boxes`` (detector training) is refused."""
-    det = init_detector_weights(FasterRCNNVGG(C, obj_dim=48), 0)
-    det.to_compute_dtype(torch.bfloat16)
-    for name, p in det.named_parameters():
-        want = torch.float32 if name.startswith(("cls_score", "bbox_pred")) \
-            else torch.bfloat16
-        assert p.dtype == want, name
-    with pytest.raises(NotImplementedError, match="detector-pretraining"):
-        det(torch.zeros(1, 32, 32, 3), torch.ones(1, 2),
-            gt_boxes=torch.zeros(1, 1, 4))
+    """bf16 compute keeps float32 master weights (the trunk, RPN and box
+    head cast them at use, so the detector can train); a frozen detector
+    (no parameter requires a gradient) stores those three in bf16; the
+    classifier stays f32 either way. Training (``gt_boxes``) runs; what is
+    refused is an image batch that asks for a gradient, which no kernel
+    computes."""
+    heads = ("cls_score", "bbox_pred")
+    for frozen in (True, False):
+        det = init_detector_weights(FasterRCNNVGG(C, obj_dim=48), 0)
+        det.requires_grad_(not frozen).to_compute_dtype(torch.bfloat16)
+        assert det.trunk.compute_dtype == det.rpn.compute_dtype \
+            == det.box_head.compute_dtype == torch.bfloat16
+        for name, p in det.named_parameters():
+            want = torch.bfloat16 if frozen and not name.startswith(heads) \
+                else torch.float32
+            assert p.dtype == want, (frozen, name)
+    gt = torch.tensor([[[2.0, 3.0, 20.0, 30.0]]])
+    out = det(torch.zeros(1, 32, 32, 3), torch.full((1, 2), 32.0),
+              gt_boxes=gt, gt_mask=torch.ones(1, 1, dtype=torch.bool))
+    assert torch.equal(out["proposals"][:, -1:], gt)
+    assert bool(out["prop_mask"][0, -1])
+    with pytest.raises(RuntimeError, match="no CUDA kernel computes"):
+        det(torch.zeros(1, 32, 32, 3, requires_grad=True),
+            torch.full((1, 2), 32.0))
