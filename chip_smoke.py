@@ -74,15 +74,18 @@ non-zero exit and without the result line:
    ``sgg_torch.pretrain_detector.pretrain`` of ``FasterRCNNVGG(151)``
    (defaults, 592 px, bf16 over f32 master weights, batch 3, 12 synthetic
    images, 2 epochs), counted (K1, K1-bwd-fmap, K1-bwd-boxes, K2 and
-   K2-bwd once a step on their bf16 routes; no plain version on a card
-   tensor), finite losses, every parameter moved; its epoch-1 payload,
+   K2-bwd once a step on their bf16 routes, K2-bwd's "bf16-mma" on the
+   tensor cores; no plain version on a card tensor), finite losses, every
+   parameter moved; its epoch-1 payload,
    unmodified, loaded strictly and evaluated by ``main -m sgdet -nepoch 0
    -ckpt`` (no image with a class above the retry floor after 8 steps
    reads as zero detections; ``DetectionEvaluator`` reads any there are,
    and phase 7's CLI detections); a step under ``set_sync_debug_mode("error")``, timed whole
    and by stage, with its peak memory; the three backward kernels at the
    pretraining shape against their plain versions (f32 and bf16) with
-   times and bounds (cuDNN's weight gradient beside K2-bwd); and one f32
+   times and bounds (cuDNN's weight gradient beside K2-bwd), K1-bwd-boxes
+   and K2-bwd launched twice on the same inputs giving the same bits, and
+   the proposals' footprints in map cells a ROI; and one f32
    step card against CPU (2 images, the card's proposal slots and the same
    sampler draws: losses within 1e-5 relative; each part's gradient
    within ``GRAD_LIMIT`` in norm, a limit that the same step with
@@ -1466,10 +1469,11 @@ def pretrain_run(torch, splits, ckdir):
           "master weights are not float32")
     check(moved == sizes, f"parameters that did not move: {moved} of "
                           f"{sizes}")
-    check(n == {k: steps for k in n}
-          and routes == {k: {"bf16": steps} for k in n},
+    want = {k: {"bf16-mma" if k == "vgg_conv1_bwd" else "bf16": steps}
+            for k in n}
+    check(n == {k: steps for k in n} and routes == want,
           f"pretraining launched {n} by route {routes}; want every kernel "
-          f"once a step on the bf16 route")
+          f"once a step, on the routes {want}")
     return det, n
 
 
@@ -1650,11 +1654,26 @@ def _tap_counts(torch, boxes, H, W):
     return ny, nx, dy, dx
 
 
+def _footprints(torch, boxes, H, W):
+    """Per ROI the map cells its samples' taps span (rows x columns of
+    the lo .. hi rectangle): the most that staging a ROI's map in shared
+    memory would read once."""
+    from sgg_torch.ops import roi_align as K1
+    x1, y1, roi_w, roi_h = K1._box_frames(boxes.float().cpu(), 1 / 16)
+    spans = []
+    for start, extent, dim in ((y1, roi_h, H), (x1, roi_w, W)):
+        lo, hi = K1._axis_samples(start, extent, dim, 7, 2)[:2]
+        spans.append(hi.max(-1).values - lo.min(-1).values + 1)
+    return (spans[0] * spans[1]).double()
+
+
 def pretrain_kernels(torch, peaks, fmap16, props):
     """8d: K1-bwd-fmap and K1-bwd-boxes at the pretraining shape (the
     step's proposal slots over a 3 x 37 x 37 x 512 map) and K2-bwd at 3 x
     592 x 592, each against its plain version on the same inputs (f32 and
-    bf16), timed on the bf16 route beside its bound."""
+    bf16), timed on the bf16 route (K2-bwd's "bf16-mma") beside its bound;
+    K1-bwd-boxes and K2-bwd launched twice on the same inputs must give the
+    same bits; the proposals' footprints in map cells."""
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
     B, H, W, C = fmap16.shape
@@ -1686,6 +1705,19 @@ def pretrain_kernels(torch, peaks, fmap16, props):
         check(rel32 <= tol[0] and rel16 <= tol[1],
               f"roi_align_bwd_{name}: rel err f32 {rel32}, bf16 {rel16}")
     f16, g16 = fmap32.bfloat16(), g32.bfloat16()
+    for f, g in ((fmap32, g32), (f16, g16)):
+        twice = [K1._grad_boxes_kernel(g, f, props, 1 / 16, 7, 2)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(*twice), f"roi_align_bwd_boxes ({f.dtype}): two "
+                                   f"launches on the same inputs differ")
+    foot = _footprints(torch, props, H, W)
+    print(f"phase 8 roi_align_bwd_boxes: the same bits from two launches "
+          f"(f32, bf16); the {R} proposal slots' footprints: mean "
+          f"{float(foot.mean()):.1f}, max {float(foot.max()):.0f} map cells "
+          f"a ROI ({float(foot.mean()) * C * 2 / 1024:.1f} KiB in bf16 at "
+          f"C={C}), against the {7 * 7 * 16} cell slots the kernel reads a "
+          f"ROI", flush=True)
     ny, nx, dy, dx = _tap_counts(torch, props, H, W)
     n_boxes = props.numel() * 4
     fmap_ops = 2 * C * float((ny.sum(-1) * nx.sum(-1)).sum())
@@ -1732,6 +1764,15 @@ def pretrain_kernels(torch, peaks, fmap16, props):
                      max(rel_err(torch, gw, ww), rel_err(torch, gb, wb)))
     check(k2[torch.float32][1] <= 1e-5 and k2[torch.bfloat16][1] <= 1e-5,
           f"vgg_conv1_bwd rel err {k2}")
+    K2.KERNEL_BWD.reset_counts()
+    twice = [K2._backward_kernel(x, out, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    k2_route = dict(K2.KERNEL_BWD.routes)
+    check(k2_route == {"bf16-mma": 2}
+          and all(torch.equal(a, b) for a, b in zip(*twice)),
+          f"vgg_conv1_bwd: routes {k2_route}, two launches on the same "
+          f"inputs equal: {[torch.equal(a, b) for a, b in zip(*twice)]}")
+    del twice
     del gg32
     n_px = B * CANVAS * CANVAS
     bms, bby = bound_ms(x.numel() * 2 + 2 * n_px * 64 * 2 + 28 * 64 * 4,
@@ -1740,6 +1781,7 @@ def pretrain_kernels(torch, peaks, fmap16, props):
     gm = torch.where(out > 0, g, 0).permute(0, 3, 1, 2)
     wc = w.bfloat16().permute(3, 2, 0, 1).contiguous()
     rows["vgg_conv1_bwd"] = dict(
+        kernel_route="bf16-mma",
         max_abs_err=k2[torch.float32][0], f32_rel_err=k2[torch.float32][1],
         bf16_rel_err=k2[torch.bfloat16][1],
         ms=time_ms(lambda: K2._backward_kernel(x, out, g)),
@@ -1756,7 +1798,9 @@ def pretrain_kernels(torch, peaks, fmap16, props):
     del x, x32, out, g, gm, xc
     torch.cuda.empty_cache()
     for name, m in rows.items():
-        print(f"phase 8 {name}: {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} "
+        route = f" on {m['kernel_route']}" if "kernel_route" in m else ""
+        print(f"phase 8 {name}: {m['ms']:.4f} ms{route}, bound "
+              f"{m['bound_ms']:.4f} "
               f"ms ({m['bound_by']}), plain {m['plain_ms']:.4f} ms, library "
               f"{m['library_ms']} ms; max|err| f32 {m['max_abs_err']:.3g} "
               f"(rel {m['f32_rel_err']:.3g}), bf16 rel "
@@ -1784,8 +1828,8 @@ def _tap_flips(torch, a, b, mask, H, W):
     fb = K1._box_frames(b.float().cpu(), 1 / 16)
     n = 0
     for start, extent, dim in ((0, 2, W), (1, 3, H)):
-        la, _, da, _ = K1._axis_samples(fa[start], fa[extent], dim, 7, 2)
-        lb, _, db, _ = K1._axis_samples(fb[start], fb[extent], dim, 7, 2)
+        la, _, da, *_ = K1._axis_samples(fa[start], fa[extent], dim, 7, 2)
+        lb, _, db, *_ = K1._axis_samples(fb[start], fb[extent], dim, 7, 2)
         n += int(((la != lb) & ((da != 0) | (db != 0))
                   & mask.cpu()[..., None]).sum())
     return n

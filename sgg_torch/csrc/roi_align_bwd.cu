@@ -30,18 +30,35 @@
 //   to run.
 //
 // sgg_roi_align_bwd_boxes: d loss / d boxes, f32, as XLA differentiates
-//   the separable roi_align: per sample along y,
-//   d/dy_i = (1/ratio) [valid, not capped] clip'(y_i)
-//            * sum_{q, x taps, c} w_x g[p(i), q, c] (f[hi_i, x, c] - f[lo_i, x, c])
-//   (clip' = 1 above 0, 1/2 at 0, 0 below, as jnp.clip's gradient), the
-//   same along x with the roles swapped, then chained through
-//   y_i = start + extent (i + 0.5) / S and extent = max(., 1) (a gradient
-//   of 1/2 at the floor, 0 below it) and the spatial scale. Design: one
-//   block per ROI; a thread owns V channels and walks the samples, a warp
-//   reduces each sample's partial with shuffles into shared memory, and
-//   the per-warp partials are summed in a fixed order, so the result does
-//   not depend on scheduling. What bounds it: reading g and, from L2, the
-//   taps of the map (2 rows x up to 4 taps x P bins per sample).
+//   the separable roi_align. Per bin (p, q) and map cell (y, x) let
+//   D[p, q, y, x] = sum_c g[p, q, c] f[y, x, c]. Then per sample i along y
+//   (bin p(i)),
+//     d/dy_i = dm_i sum_q sum_x Wx[q, x]
+//                   (D[p(i), q, hi_i, x] - D[p(i), q, lo_i, x])
+//   with dm_i = (1/ratio) [valid, not capped] clip'(y_i) (clip' = 1 above
+//   0, 1/2 at 0, 0 below, as jnp.clip's gradient) and Wx the other axis'
+//   bin weights; the same along x with the roles swapped; then chained
+//   through y_i = start + extent (i + 0.5) / S and extent = max(., 1) (a
+//   gradient of 1/2 at the floor, 0 below it) and the spatial scale.
+//   A bin's cells are its samples' unfolded lo and hi rows times their lo
+//   and hi columns ("slots": (2 ratio)^2 = 16 at ratio 2), not the folded
+//   taps of the forward: a sample on an integer coordinate has w_hi = 0
+//   but dm_i != 0, so its derivative still needs D at its hi row.
+//   What bounds it: reading g once and, from L2, the bins' cells of the map
+//   (16 cells x C a bin at ratio 2, shared between neighbouring bins).
+//   Design: one block per ROI, one warp per bin at a time (bins warp,
+//   warp + 8, ...). A lane holds its channels of g[p, q, :] in registers
+//   (16-byte loads: 8 bf16 or 4 f32 a chunk; 2- or 1-channel loads where C
+//   or the alignment does not allow that) and issues the bin's 16 cell
+//   loads of a chunk together; the warp reduces the 16 partial dot products
+//   with one transposing butterfly of shuffles (16 shuffles: lane l ends
+//   with cell (l / 2) % 16); lanes then combine the cells into the bin's
+//   per-sample terms, which each warp adds into its own per-sample sums in
+//   its fixed bin order; the warps' sums are added in warp order. No
+//   atomics, so two runs give the same bits. Copying a small ROI's
+//   footprint to shared memory first (with g in registers) measured slower
+//   on the card than these L1-served reads (PERF.md); times: chip_smoke.py
+//   phase 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,6 +106,28 @@ __device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
       v[0] = __uint_as_float(r << 16), v[1] = __uint_as_float(r & 0xffff0000u);
     }
   }
+}
+
+// V adjacent channels at p as one load of V * sizeof(T) bytes, kept raw
+// until unpack: a bin's loads are all issued before the first is used.
+template <int kBytes> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<4> { using type = unsigned; };
+template <> struct RawOf<2> { using type = unsigned short; };
+template <typename T, int V>
+using Raw = typename RawOf<V * sizeof(T)>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p) {
+  return __ldg(reinterpret_cast<const Raw<T, V>*>(p));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const Raw<T, V>& r, float (&v)[V]) {
+  const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = to_f32(e[k]);
 }
 
 // Adds V f32 values at p atomically: one 16-byte vector atomic for V == 4.
@@ -234,18 +273,65 @@ __global__ void cast_bf16_kernel(const float* __restrict__ src,
     dst[i] = __float2bfloat16(src[i]);
 }
 
+constexpr int kCellGroup = 16;  // cells reduced by one butterfly
+constexpr int kMaxSlots = kMaxTapsPerBin;  // lo, hi of a bin's samples
+// Sum of the warp's 32 values of each v[j]: lane l ends with v[(l / 2) % 16]
+// in v[0] (a transposing butterfly: each step halves the values a lane
+// keeps and swaps the other half with its partner).
+__device__ __forceinline__ float warp_sum16(float (&v)[kCellGroup],
+                                            int lane) {
+#pragma unroll
+  for (int m = 16, n = kCellGroup; m >= 2; m >>= 1, n >>= 1) {
+    const bool upper = lane & m;
+#pragma unroll
+    for (int j = 0; j < n / 2; ++j) {
+      const float send = upper ? v[j] : v[j + n / 2];
+      const float keep = upper ? v[j + n / 2] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+  }
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// Bin (p, q)'s terms from its cells D (ns x ns, written by this warp) into
+// the warp's per-sample sums: lane s < ratio takes y-sample p ratio + s,
+// lane 16 + s x-sample q ratio + s.
+__device__ __forceinline__ void combine_bin(
+    const float* D, int ns, int ratio, int p, int q, int lane,
+    const float (*s_w)[2 * kMaxSamples], float (*part)[kMaxSamples]) {
+  __syncwarp();
+  const int s = lane & 15;
+  if (s < ratio) {
+    const int axis = lane >> 4;
+    const float* ow = s_w[1 - axis] + 2 * (axis == 0 ? q : p) * ratio;
+    float v = 0.0f;
+    for (int o = 0; o < ns; ++o) {
+      const float d = axis == 0
+          ? D[(2 * s + 1) * ns + o] - D[2 * s * ns + o]
+          : D[o * ns + 2 * s + 1] - D[o * ns + 2 * s];
+      v = fmaf(ow[o], d, v);
+    }
+    part[axis][(axis == 0 ? p : q) * ratio + s] += v;
+  }
+  __syncwarp();
+}
+
+// two blocks an SM (at most 128 registers a thread)
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     roi_align_bwd_boxes_kernel(const T* __restrict__ g,
                                const T* __restrict__ fmap,
                                const float* __restrict__ boxes,
                                float* __restrict__ grad_boxes, int R, int H,
                                int W, int C, float scale, int P, int ratio) {
-  __shared__ int s_idx[2][kMaxTaps];
-  __shared__ float s_w[2][kMaxTaps];
-  __shared__ int s_n[2][kMaxSamples];
-  __shared__ int s_lo[2][kMaxSamples], s_hi[2][kMaxSamples];
+  // element offsets of the slots: row slots (W C a row) and column slots (C
+  // a column); sample i's lo tap at 2 i, its hi tap at 2 i + 1, so bin p's
+  // slots are p ns .. p ns + ns - 1
+  __shared__ int s_off[2][2 * kMaxSamples];
+  // slot weights of sample i: w_lo / ratio at 2 i, w_hi / ratio at 2 i + 1
+  __shared__ float s_w[2][2 * kMaxSamples];
   __shared__ float s_dm[2][kMaxSamples];
+  __shared__ float s_D[kWarps][kMaxSlots * kMaxSlots];
   __shared__ float s_part[kWarps][2][kMaxSamples];
   __shared__ float s_val[2][kMaxSamples];
 
@@ -254,62 +340,68 @@ __global__ void __launch_bounds__(kThreads)
   const int t = threadIdx.x;
   const int S = P * ratio;
   const float* bx = boxes + static_cast<size_t>(roi) * 4;
-  build_tables(bx, scale, P, ratio, H, W, s_idx, s_w, s_n);
   if (t < 2 * S) {
     const int axis = t < S ? 0 : 1;
     const int i = t - axis * S;
     float start, extent, raw;
     axis_frame(bx, axis, scale, &start, &extent, &raw);
     const Sample a = axis_sample(start, extent, i, S, axis == 0 ? H : W);
-    s_lo[axis][i] = a.lo;
-    s_hi[axis][i] = a.hi;
+    const float inv = 1.0f / static_cast<float>(ratio);
+    const int stride = axis == 0 ? W * C : C;
+    s_off[axis][2 * i] = a.lo * stride;
+    s_off[axis][2 * i + 1] = a.hi * stride;
+    s_w[axis][2 * i] = a.w_lo * inv;
+    s_w[axis][2 * i + 1] = a.w_hi * inv;
     s_dm[axis][i] = a.dmask / static_cast<float>(ratio);
   }
+  for (int e = t; e < kWarps * 2 * kMaxSamples; e += kThreads)
+    (&s_part[0][0][0])[e] = 0.0f;
   __syncthreads();
 
-  const int slots = 2 * ratio;
   const int lane = t & 31, warp = t >> 5;
+  const int ns = 2 * ratio, ncells = ns * ns;
   const T* gr = g + static_cast<size_t>(roi) * P * P * C;
   const T* fm = fmap + static_cast<size_t>(b) * H * W * C;
-  const size_t row = static_cast<size_t>(W) * C;
-  for (int axis = 0; axis < 2; ++axis) {
-    for (int i = 0; i < S; ++i) {
-      if (s_dm[axis][i] == 0.0f) continue;  // block-uniform
-      const int bin = i / ratio;
-      const int lo = s_lo[axis][i], hi = s_hi[axis][i];
-      float part = 0.0f;
-      for (int c = t * V; c < C; c += kThreads * V) {
-        for (int o = 0; o < P; ++o) {  // the other axis' bins
-          const int p = axis == 0 ? bin : o, q = axis == 0 ? o : bin;
-          float gv[V];
-          load_vec<T, V>(gr + static_cast<size_t>(p * P + q) * C + c, gv);
-          const int n = s_n[1 - axis][o];
-          const int* oi = s_idx[1 - axis] + o * slots;
-          const float* ow = s_w[1 - axis] + o * slots;
-          for (int e = 0; e < n; ++e) {
-            // axis 0 (rows): taps f[hi, x_e] - f[lo, x_e];
-            // axis 1 (columns): f[y_e, hi] - f[y_e, lo]
-            const T* a_hi = axis == 0
-                ? fm + hi * row + static_cast<size_t>(oi[e]) * C + c
-                : fm + oi[e] * row + static_cast<size_t>(hi) * C + c;
-            const T* a_lo = axis == 0
-                ? fm + lo * row + static_cast<size_t>(oi[e]) * C + c
-                : fm + oi[e] * row + static_cast<size_t>(lo) * C + c;
-            float vh[V], vl[V];
-            load_vec<T, V>(a_hi, vh);
-            load_vec<T, V>(a_lo, vl);
-            float s = 0.0f;
+  const int chunks = C / V;
+  float* D = s_D[warp];
+  for (int bin = warp; bin < P * P; bin += kWarps) {
+    const int p = bin / P, q = bin - p * P;
+    const T* gb = gr + static_cast<size_t>(bin) * C;
+    for (int grp = 0; grp < ncells; grp += kCellGroup) {
+      int off[kCellGroup];
 #pragma unroll
-            for (int k = 0; k < V; ++k) s = fmaf(gv[k], vh[k] - vl[k], s);
-            part = fmaf(ow[e], s, part);
-          }
+      for (int j = 0; j < kCellGroup; ++j) {
+        const int cell = min(grp + j, ncells - 1);  // row slot, column slot
+        off[j] = s_off[0][p * ns + cell / ns] + s_off[1][q * ns + cell % ns];
+      }
+      float part[kCellGroup];
+#pragma unroll
+      for (int j = 0; j < kCellGroup; ++j) part[j] = 0.0f;
+      for (int ch = lane; ch < chunks; ch += 32) {
+        const int c = ch * V;
+        // all 17 loads in flight before the first use (a cell past
+        // ncells repeats the last one and is dropped below)
+        const Raw<T, V> graw = load_raw<T, V>(gb + c);
+        Raw<T, V> fraw[kCellGroup];
+#pragma unroll
+        for (int j = 0; j < kCellGroup; ++j)
+          fraw[j] = load_raw<T, V>(fm + off[j] + c);
+        float gv[V];
+        unpack<T, V>(graw, gv);
+#pragma unroll
+        for (int j = 0; j < kCellGroup; ++j) {
+          float fv[V];
+          unpack<T, V>(fraw[j], fv);
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            part[j] = fmaf(gv[k], fv[k], part[j]);
         }
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_down_sync(0xffffffffu, part, off);
-      if (lane == 0) s_part[warp][axis][i] = part;
+      const float total = warp_sum16(part, lane);
+      const int cell = grp + ((lane >> 1) & (kCellGroup - 1));
+      if ((lane & 1) == 0 && cell < ncells) D[cell] = total;
     }
+    combine_bin(D, ns, ratio, p, q, lane, s_w, s_part[warp]);
   }
   __syncthreads();
   if (t < 2 * S) {
@@ -372,21 +464,34 @@ int launch_fmap(const void* g, const void* boxes, float* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int V>
+void launch_boxes_v(const void* g, const void* fmap, const void* boxes,
+                    float* grad_boxes, int B, int H, int W, int C, int R,
+                    float scale, int P, int ratio, cudaStream_t s) {
+  roi_align_bwd_boxes_kernel<T, V><<<B * R, kThreads, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(fmap),
+      static_cast<const float*>(boxes), grad_boxes, R, H, W, C, scale, P,
+      ratio);
+}
+
+// 16-byte chunks (8 bf16 or 4 f32 channels) where C and both tensors'
+// alignment allow, else pairs, else single channels.
 template <typename T>
 int launch_boxes(const void* g, const void* fmap, const void* boxes,
                  float* grad_boxes, int B, int H, int W, int C, int R,
                  float scale, int P, int ratio, cudaStream_t s) {
-  const T* gp = static_cast<const T*>(g);
-  const T* fp = static_cast<const T*>(fmap);
-  const float* bx = static_cast<const float*>(boxes);
+  constexpr int kWide = 16 / sizeof(T);
   const uintptr_t addr =
       reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(fmap);
-  if (C % 2 == 0 && addr % (2 * sizeof(T)) == 0)
-    roi_align_bwd_boxes_kernel<T, 2><<<B * R, kThreads, 0, s>>>(
-        gp, fp, bx, grad_boxes, R, H, W, C, scale, P, ratio);
+  if (C % kWide == 0 && addr % 16 == 0)
+    launch_boxes_v<T, kWide>(g, fmap, boxes, grad_boxes, B, H, W, C, R,
+                             scale, P, ratio, s);
+  else if (C % 2 == 0 && addr % (2 * sizeof(T)) == 0)
+    launch_boxes_v<T, 2>(g, fmap, boxes, grad_boxes, B, H, W, C, R, scale,
+                         P, ratio, s);
   else
-    roi_align_bwd_boxes_kernel<T, 1><<<B * R, kThreads, 0, s>>>(
-        gp, fp, bx, grad_boxes, R, H, W, C, scale, P, ratio);
+    launch_boxes_v<T, 1>(g, fmap, boxes, grad_boxes, B, H, W, C, R, scale,
+                         P, ratio, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -165,11 +165,12 @@ def roi_align_backward_reference(g: torch.Tensor, boxes: torch.Tensor,
 
 def _axis_samples(start: torch.Tensor, extent: torch.Tensor, dim: int,
                   pooled: int, ratio: int):
-    """Per sample along one axis (..., S): the low and high tap and the
+    """Per sample along one axis (..., S): the low and high tap; the
     derivative of the sample's bilinear weights in its coordinate, folded
     with the bin average (``1 / ratio``): 0 where the sample is invalid or
     capped, times ``jnp.clip``'s gradient at 0 (1 above, 1/2 at, 0 below);
-    and ``(i + 0.5) / S``, the coordinate's derivative in the extent."""
+    ``(i + 0.5) / S``, the coordinate's derivative in the extent; and the
+    low and high tap's weights (0 where the sample is invalid)."""
     S = pooled * ratio
     i = torch.arange(S, dtype=torch.float32, device=start.device)
     frac_pos = (i + 0.5) / torch.full_like(i, S)
@@ -183,7 +184,25 @@ def _axis_samples(start: torch.Tensor, extent: torch.Tensor, dim: int,
     y_high = torch.where(cap, torch.full_like(y_low, dim - 1), y_low + 1)
     clip_grad = torch.where(y > 0, 1.0, torch.where(y == 0, 0.5, 0.0))
     dmask = torch.where(valid & ~cap, clip_grad, 0.0) / ratio
-    return y_low, y_high, dmask, frac_pos
+    zero = torch.zeros_like(yc)
+    frac = torch.where(cap, zero, yc - y_low.float())
+    w_low = torch.where(valid, 1.0 - frac, zero)
+    w_high = torch.where(valid, frac, zero)
+    return y_low, y_high, dmask, frac_pos, w_low, w_high
+
+
+def _bin_slots(start, extent, dim: int, pooled: int, ratio: int):
+    """Per bin (..., P, 2 ratio) the slots of its samples along one axis:
+    sample s's low tap at slot 2 s and its high tap at 2 s + 1, unfolded
+    (a tap whose weight is 0 keeps its slot), with the slots' weights
+    divided by ``ratio``; and per sample (..., S) ``dmask`` and
+    ``frac_pos`` of ``_axis_samples``."""
+    lo, hi, dmask, frac_pos, w_lo, w_hi = _axis_samples(start, extent, dim,
+                                                        pooled, ratio)
+    shape = (*lo.shape[:-1], pooled, 2 * ratio)
+    cells = torch.stack([lo, hi], -1).reshape(shape)
+    weights = (torch.stack([w_lo, w_hi], -1) / ratio).reshape(shape)
+    return cells, weights, dmask, frac_pos
 
 
 def _floor_grad(raw: torch.Tensor) -> torch.Tensor:
@@ -191,17 +210,12 @@ def _floor_grad(raw: torch.Tensor) -> torch.Tensor:
     return torch.where(raw > 1.0, 1.0, torch.where(raw == 1.0, 0.5, 0.0))
 
 
-def _chain_axis(T: torch.Tensor, start, extent, raw, dim: int, pooled: int,
-                ratio: int):
-    """d/d(low edge), d/d(high edge) of one axis from ``T`` (B, R, P, dim),
-    the output's gradient contracted with everything but this axis'
-    weights."""
-    lo, hi, dmask, frac_pos = _axis_samples(start, extent, dim, pooled, ratio)
-    bins = T.repeat_interleave(ratio, dim=2)  # (B, R, S, dim): bin of i
-    dy = dmask * (torch.gather(bins, 3, hi[..., None])[..., 0]
-                  - torch.gather(bins, 3, lo[..., None])[..., 0])
-    d_start = dy.sum(-1)
-    d_hi = (dy * frac_pos).sum(-1) * _floor_grad(raw)
+def _chain_axis(d: torch.Tensor, frac_pos: torch.Tensor, raw: torch.Tensor):
+    """d/d(low edge), d/d(high edge) of one axis from the samples'
+    derivatives ``d`` (B, R, S), through ``y_i = start + extent (i + 0.5) /
+    S`` and the floor of the extent at 1."""
+    d_start = d.sum(-1)
+    d_hi = (d * frac_pos).sum(-1) * _floor_grad(raw)
     return d_start - d_hi, d_hi
 
 
@@ -211,33 +225,46 @@ def roi_align_boxes_grad_reference(g: torch.Tensor, fmap: torch.Tensor,
                                    ratio: int = 2,
                                    roi_chunk: int = 64) -> torch.Tensor:
     """Plain ``grad_boxes`` (B, R, 4) f32: what XLA's autodiff of
-    ``sgg_tpu/ops/roi_align.py:roi_align`` gives for the boxes, in f32.
+    ``sgg_tpu/ops/roi_align.py:roi_align`` gives for the boxes, in f32, in
+    K1-bwd-boxes' algebra.
 
-    Per sample along y, ``d/dy_i = dmask_i * (T_y[p(i), hi_i] -
-    T_y[p(i), lo_i])`` with ``T_y = sum_{q, x, c} g Wx f`` (einsums in f32),
-    the same along x; then through ``y_i = start + extent (i + 0.5) / S``,
-    the floor of the extent at 1 and the spatial scale."""
+    Per bin (p, q) and cell (a, b) of its slots (``_bin_slots``: the lo and
+    hi row of each of its y samples times the lo and hi column of each of
+    its x samples), ``D = sum_c g[p, q, c] f[row_a, col_b, c]``. Sample s
+    of bin p along y then takes ``dmask * sum_q sum_b wx[q, b] (D[2 s + 1,
+    b] - D[2 s, b])``, the same along x with the roles swapped; then
+    through ``y_i = start + extent (i + 0.5) / S``, the floor of the extent
+    at 1 and the spatial scale. The slots are unfolded: a sample on an
+    integer coordinate has a high tap of weight 0 whose cell its derivative
+    still needs."""
     B, H, W, C = fmap.shape
-    f32 = fmap.float()
+    R = boxes.shape[1]
+    if R == 0:
+        return boxes.new_zeros(boxes.shape, dtype=torch.float32)
+    f32 = fmap.float().reshape(B, H * W, C)
     sb = boxes.float() * spatial_scale
     x1, y1 = sb[..., 0], sb[..., 1]
     raw_w, raw_h = sb[..., 2] - x1, sb[..., 3] - y1
-    roi_w, roi_h = raw_w.clamp(min=1.0), raw_h.clamp(min=1.0)
-    Wy = _interp_weights(y1, roi_h, H, pooled, ratio)
-    Wx = _interp_weights(x1, roi_w, W, pooled, ratio)
-    Ty, Tx = [], []
-    for s in range(0, boxes.shape[1], roi_chunk):
-        g32 = g[:, s:s + roi_chunk].float()
-        gy = torch.einsum("brqw,brpqc->brpwc", Wx[:, s:s + roi_chunk], g32)
-        Ty.append(torch.einsum("brpwc,bhwc->brph", gy, f32))
-        t = torch.einsum("brph,bhwc->brpwc", Wy[:, s:s + roi_chunk], f32)
-        Tx.append(torch.einsum("brpwc,brpqc->brqw", t, g32))
-    if not Ty:
-        return boxes.new_zeros(boxes.shape, dtype=torch.float32)
-    dy1, dy2 = _chain_axis(torch.cat(Ty, 1), y1, roi_h, raw_h, H, pooled,
-                           ratio)
-    dx1, dx2 = _chain_axis(torch.cat(Tx, 1), x1, roi_w, raw_w, W, pooled,
-                           ratio)
+    rows, wy, dmy, fy = _bin_slots(y1, raw_h.clamp(min=1.0), H, pooled,
+                                   ratio)
+    cols, wx, dmx, fx = _bin_slots(x1, raw_w.clamp(min=1.0), W, pooled,
+                                   ratio)
+    ty, tx = [], []
+    for s in range(0, R, roi_chunk):
+        sl = slice(s, s + roi_chunk)
+        cells = (rows[:, sl, :, None, :, None] * W
+                 + cols[:, sl, None, :, None, :])  # (B, r, P, P, 2ratio^2)
+        fc = torch.gather(f32, 1, cells.reshape(B, -1, 1).expand(-1, -1, C))
+        D = torch.einsum("brpqc,brpqaec->brpqae", g[:, sl].float(),
+                         fc.reshape(*cells.shape, C))
+        ty.append(torch.einsum("brpqse,brqe->brps",
+                               D[..., 1::2, :] - D[..., 0::2, :], wx[:, sl]))
+        tx.append(torch.einsum("brpqas,brpa->brqs",
+                               D[..., 1::2] - D[..., 0::2], wy[:, sl]))
+    dy1, dy2 = _chain_axis(torch.cat(ty, 1).reshape(B, R, -1) * dmy, fy,
+                           raw_h)
+    dx1, dx2 = _chain_axis(torch.cat(tx, 1).reshape(B, R, -1) * dmx, fx,
+                           raw_w)
     return torch.stack([dx1, dy1, dx2, dy2], -1) * spatial_scale
 
 

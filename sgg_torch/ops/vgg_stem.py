@@ -11,7 +11,9 @@ weights and the bias (the images get no gradient, and one that asks for it
 is refused). For tensors on the CPU its forward and backward are the plain
 versions (``vgg_conv1_reference``, ``vgg_conv1_backward_reference``); for
 tensors on the card they are CUDA kernels: K2 (``csrc/vgg_stem.cu``)
-forward, K2-bwd (``csrc/vgg_stem_bwd.cu``) backward. There is no fall-back
+forward, K2-bwd (``csrc/vgg_stem_bwd.cu``) backward, whose launch counter
+names its two routes: "bf16-mma" (bf16 inputs, on the tensor cores) and
+"f32" (exact FMAs on the CUDA cores). There is no fall-back
 from a kernel to a plain version. For bfloat16 ``x`` both forwards round
 the weights to bfloat16 (the kernel then multiplies on the tensor cores
 with float32 accumulation and a float32 bias); for float32 ``x`` the kernel
@@ -34,11 +36,12 @@ KERNEL = CudaKernel(
 KERNEL_BWD = CudaKernel(
     "vgg_stem_bwd.cu", "sgg_vgg_conv1_bwd",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-# K2-bwd's first pass: a fixed grid (so a fixed summation order), 8 blocks
-# an SM of an H100
+# K2-bwd's first pass runs a fixed grid, so a fixed summation order: the f32
+# route 1056 blocks (8 an SM of an H100), the bf16-mma route 2 blocks an SM
 BWD_BLOCKS = 1056
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+BWD_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16-mma"}
 
 
 def vgg_conv1_reference(x: torch.Tensor, w: torch.Tensor,
@@ -96,15 +99,24 @@ def _forward_kernel(x, w, b) -> torch.Tensor:
 
 
 def _backward_kernel(x, out, g):
-    """K2-bwd: per-block partial sums, then one reduce; f32."""
+    """K2-bwd: per-block partial sums, then one reduce; f32. bf16 inputs
+    take the tensor cores ("bf16-mma", which copies its inputs in 16- and
+    4-byte pieces: a view off 16-byte alignment is copied first), f32
+    inputs exact FMAs ("f32")."""
     B, H, W, _ = x.shape
-    partials = torch.empty((BWD_BLOCKS, 28, 64), dtype=torch.float32,
+    blocks = BWD_BLOCKS
+    if x.dtype == torch.bfloat16:
+        blocks = 2 * torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        x, out, g = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (x, out, g))
+    partials = torch.empty((blocks, 28, 64), dtype=torch.float32,
                            device=x.device)
     grad = torch.empty((28, 64), dtype=torch.float32, device=x.device)
     KERNEL_BWD.launch(x.data_ptr(), out.data_ptr(), g.data_ptr(),
                       partials.data_ptr(), grad.data_ptr(), B, H, W,
-                      BWD_BLOCKS, _DTYPES[x.dtype], _stream(x),
-                      route=ROUTES[x.dtype])
+                      blocks, _DTYPES[x.dtype], _stream(x),
+                      route=BWD_ROUTES[x.dtype])
     return grad[:27].view(3, 3, 3, 64), grad[27]
 
 

@@ -47,11 +47,24 @@ def _case(kind, seed=0, C=8):
     if kind == "wholemap":
         boxes[:, 0] = [0.0, 0.0, W * 16.0, H * 16.0]   # capped last samples
         boxes[:, 1] = [-20.0, -20.0, W * 16.0 + 30.0, H * 16.0 + 30.0]
+    if kind == "on_grid":
+        # y1 = 12, y2 = 124 px: start 0.75 and extent 7 cells, so every even
+        # sample of S = 14 lands on an integer row (1, 2, ..., 7); the same
+        # along x. Such a sample's high tap has weight 0, its derivative not.
+        boxes[:, 0] = [12.0, 12.0, 124.0, 124.0]
+        boxes[:, 1] = [28.0, 12.0, 140.0, 124.0]    # columns 2 .. 8
+        boxes[:, 2] = [12.0, 28.0, 124.0, 140.0]    # rows 2 .. 8, 8 capped
+        boxes[:, 3] = [44.0, 44.0, 156.0, 156.0]    # past the map's end
+        # (no sample exactly at 0: XLA compiles ``/ S`` as a product with the
+        # rounded reciprocal, which puts JAX's sample there just above 0,
+        # past clip's tie, where the port divides exactly)
+        boxes[:, 4, 0::2] = [12.0, 124.0]           # on the grid along x only
     g = rng.randn(B, R, 7, 7, C).astype(np.float32)
     return fmap, boxes, g
 
 
-KINDS = ["random", "ragged", "degenerate", "outside", "wholemap"]
+KINDS = ["random", "ragged", "degenerate", "outside", "wholemap",
+         "on_grid"]
 _JAX = {}
 
 
@@ -87,8 +100,29 @@ def test_fmap_grad_matches_pallas_vjp(kind):
     assert err <= 1e-5
 
 
+def test_on_grid_case_puts_samples_on_integer_coordinates():
+    """The ``on_grid`` boxes give samples whose high tap weighs 0 while
+    their weights' derivative does not."""
+    _, boxes, _ = _case("on_grid")
+    sb = torch.from_numpy(boxes) * SCALE
+    for axis, dim in ((1, 9), (0, 11)):
+        start = sb[..., axis]
+        extent = (sb[..., axis + 2] - start).clamp(min=1.0)
+        _, _, dmask, _, _, w_high = troi._axis_samples(start, extent, dim, 7,
+                                                       2)
+        on_grid = (w_high == 0) & (dmask != 0)
+        assert int(on_grid[:, :4].sum()) >= 2 * 4 * 3, axis
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_boxes_grad_matches_xla_autodiff(kind):
+    """The plain box gradient against XLA's autodiff. Its algebra is
+    K1-bwd-boxes': per bin the dot products of g with the map at the
+    unfolded lo/hi rows and columns of the bin's samples. In the
+    ``on_grid`` case many samples sit on integer coordinates, where the
+    high tap's weight is 0 but the derivative needs the map at that tap: a
+    version that took the folded tap tables of the forward (zero weights
+    dropped) would fail this case."""
     fmap, boxes, g = _case(kind)
     want = _jax_grads(kind)[1]
     got = troi.roi_align_boxes_grad_reference(

@@ -47,6 +47,13 @@ def _roi_case(kind, C=200, seed=0):
     if kind == "wholemap":  # every bin has its full 4 x 4 distinct taps
         boxes[:, 0] = [0.0, 0.0, W * 16.0, H * 16.0]
         boxes[:, 1] = [-20.0, -20.0, W * 16.0 + 30.0, H * 16.0 + 30.0]
+    if kind == "on_grid":  # even samples on integer map coordinates, where
+        # the high tap weighs 0 and the box gradient still needs it
+        boxes[:, 0] = [12.0, 12.0, 124.0, 124.0]
+        boxes[:, 1] = [28.0, 12.0, 140.0, 124.0]
+        boxes[:, 2] = [12.0, 28.0, 124.0, 140.0]
+        boxes[:, 3] = [44.0, 44.0, 156.0, 156.0]
+        boxes[:, 4, 0::2] = [12.0, 124.0]
     return fmap, boxes
 
 
@@ -244,17 +251,18 @@ def _rel(got, want):
                  / want.float().abs().max().clamp(min=1e-30))
 
 
-# C = 200: 4 channels a thread (fmap) / 2 (boxes); 203: single channels
-@pytest.mark.parametrize("C", [200, 203])
+# C = 200: 4 channels a thread (fmap) / a 16-byte chunk (boxes); 203:
+# single channels; 256: FPN's width
+@pytest.mark.parametrize("C", [200, 203, 256])
 @pytest.mark.parametrize("kind", ["random", "ragged", "degenerate",
-                                  "outside", "wholemap"])
+                                  "outside", "wholemap", "on_grid"])
 def test_roi_align_backward_kernels_match_plain(kind, C, dev):
     """K1-bwd-fmap and K1-bwd-boxes against their plain versions on the
     same inputs, both summing in f32: within 1e-5 of the largest value for
     the f32 map gradient (the kernel adds with atomics, in an order that
     varies) and 1e-2 for the bf16 one (rounded to bf16 once, after the
     sums); the box gradient within 1e-4 (its samples' differences of taps
-    cancel)."""
+    cancel), and the same bits from a second launch."""
     fmap, boxes, g = (torch.from_numpy(a).to(dev)
                       for a in _bwd_case(kind, C))
     hw = fmap.shape[1:3]
@@ -267,8 +275,10 @@ def test_roi_align_backward_kernels_match_plain(kind, C, dev):
         got_f = troi._grad_fmap_kernel(gg, boxes, tuple(f.shape), dtype,
                                        1 / 16.0, 7, 2)
         got_b = troi._grad_boxes_kernel(gg, f, boxes, 1 / 16.0, 7, 2)
+        again_b = troi._grad_boxes_kernel(gg, f, boxes, 1 / 16.0, 7, 2)
         torch.cuda.synchronize()
         assert got_f.dtype == dtype and got_b.dtype == torch.float32
+        assert torch.equal(got_b, again_b), (dtype, "boxes repeat")
         assert _rel(got_f, want_f) <= tol, (dtype, "fmap")
         assert _rel(got_b, want_b) <= 1e-4, (dtype, "boxes")
 
@@ -288,6 +298,28 @@ def test_vgg_conv1_backward_kernel_matches_plain(hw, dtype, dev):
     got_w, got_b = vgg_stem._backward_kernel(x, out, g)
     torch.cuda.synchronize()
     assert _rel(got_w, want_w) <= 1e-5 and _rel(got_b, want_b) <= 1e-5
+
+
+# not multiples of the bf16-mma route's 128-pixel tiles; W = 300 spans more
+# than two tiles in a row of H = 5
+@pytest.mark.parametrize("bhw", [(1, 37, 29), (2, 64, 70), (1, 5, 300)])
+def test_vgg_conv1_backward_bf16_mma_ragged_and_repeatable(bhw, dev):
+    """K2-bwd's bf16-mma route against the plain version (1e-5 of the
+    largest value), on its route, and the same bits from two launches."""
+    g_ = torch.Generator().manual_seed(sum(bhw))
+    x = torch.randn(*bhw, 3, generator=g_).to(dev, torch.bfloat16)
+    w = (torch.randn(3, 3, 3, 64, generator=g_) * 0.3).to(dev)
+    b = (torch.randn(64, generator=g_) * 0.1).to(dev)
+    out = vgg_stem.vgg_conv1(x, w, b)
+    g = torch.randn(out.shape, generator=g_).to(dev, torch.bfloat16)
+    want_w, want_b = vgg_stem.vgg_conv1_backward_reference(x, out, g)
+    vgg_stem.KERNEL_BWD.reset_counts()
+    got = vgg_stem._backward_kernel(x, out, g)
+    again = vgg_stem._backward_kernel(x, out, g)
+    torch.cuda.synchronize()
+    assert dict(vgg_stem.KERNEL_BWD.routes) == {"bf16-mma": 2}
+    assert _rel(got[0], want_w) <= 1e-5 and _rel(got[1], want_b) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_autograd_on_the_card_launches_kernels_never_plain(dev,
@@ -428,7 +460,9 @@ def test_detector_train_step_does_not_wait_for_the_card(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert all(torch.isfinite(v).item() for v in metrics.values())
-    assert [dict(k.routes) for k in ks] == [{"bf16": 1}] * 5
+    # K2-bwd on the tensor cores only
+    assert [dict(k.routes) for k in ks] == [{"bf16": 1}] * 4 + [
+        {"bf16-mma": 1}]
 
 
 def _tiny_train(device, dtype=torch.float32, seed=0):
