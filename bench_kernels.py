@@ -1,21 +1,31 @@
 """Time several sources of the port's CUDA kernels against each other on
-one card, at the evaluation path's shapes in bfloat16.
+one card, in bfloat16.
 
     python3 bench_kernels.py \\
         --k1 new=sgg_torch/csrc/roi_align.cu --k1 old=<other>/roi_align.cu \\
-        --k2 new=sgg_torch/csrc/vgg_stem.cu --k2 old=<other>/vgg_stem.cu
+        --k2 new=sgg_torch/csrc/vgg_stem.cu --k2 old=<other>/vgg_stem.cu \\
+        --k1bwd new=sgg_torch/csrc/roi_align_bwd.cu \\
+        --k1bwd old=<other>/roi_align_bwd.cu
 
 Run from the root of a checkout, beside ``chip_smoke.py``, whose timer and
 boxes it shares. Each ``label=path`` is a source with the C interface of
-``csrc/roi_align.cu`` (``--k1``) or ``csrc/vgg_stem.cu`` (``--k2``); without
-any, the package's own sources are timed. All sources are built at once
-(one ``nvcc`` each), each is held against the plain version (the error is
-reported, not judged: a source with its loads or stores cut out for a limit
-study is wrong by design), and the labels are timed in turns, forward then
-backward (a b b a), twice, so that a drift of the card's clocks falls on
-all alike. Times are CUDA events over 20 launches after a warm-up. K1 is
-timed as one forward's two launches (nodes R=64 + unions R=256 over a
-16x37x37x512 map) and each alone; K2 on 16x592x592x3.
+``csrc/roi_align.cu`` (``--k1``), ``csrc/vgg_stem.cu`` (``--k2``) or
+``csrc/roi_align_bwd.cu``'s ``sgg_roi_align_bwd_fmap`` (``--k1bwd``: the
+gather's, or the earlier scatter's, which took an f32 scratch map in place
+of the workspace; told apart by the gather's layout function). Only the
+kernels named are timed; without any option, the package's own sources of
+all three. All sources are built at once (one ``nvcc`` each), each is held
+against the plain version (the error is reported, not judged: a source
+with its loads or stores cut out for a limit study is wrong by design), and
+the labels are timed in turns, forward then backward (a b b a), twice, so
+that a drift of the card's clocks falls on all alike. Times are CUDA events
+over 20 launches after a warm-up. K1 is timed as one forward's two launches
+(nodes R=64 + unions R=256 over a 16x37x37x512 map) and each alone; K2 on
+16x592x592x3; K1-bwd-fmap at the detector pretraining shape (g
+3x512x7x7x512 over a 3x37x37x512 map, spatial scale 1/16), at the FPN
+stride-4 level's (3x148x148x256, scale 1/4) with the same boxes, and with
+512 ROIs an image crowded around one point (a few tiles of each image
+hold them all). Boxes: ``eval_boxes`` on a 592-pixel canvas.
 
 Prints the card's name and power limit, one line per label, the time
 PyTorch's fill takes for the outputs' bytes (what the card needs to write
@@ -26,6 +36,7 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -41,8 +52,9 @@ from sgg_torch.ops import _cuda, roi_align, vgg_stem
 ROUNDS = 2  # a b b a, twice
 
 
-def _variants(module, specs: List[str]) -> Dict[str, _cuda.CudaKernel]:
-    own = module.KERNEL
+def _variants(module, specs: List[str],
+              own=None) -> Dict[str, _cuda.CudaKernel]:
+    own = own or module.KERNEL
     if not specs:
         return {"package": own}
     out = {}
@@ -83,11 +95,85 @@ def bench(module, variants, cases, want):
     return res
 
 
+# the earlier scatter's interface: (g, boxes, f32 scratch map, grad, B, H,
+# W, C, R, scale, pooled, ratio, dtype, stream)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SCATTER_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
+
+
+def _is_gather(kernel: _cuda.CudaKernel) -> bool:
+    return hasattr(ctypes.CDLL(str(kernel.library)),
+                   "sgg_roi_align_bwd_fmap_layout")
+
+
+def _fmap_bwd_call(kernel, gather: bool, g, boxes, shape, scale):
+    """One launch of a K1-bwd-fmap source as its wrapper makes it (its
+    workspace or scratch allocated per call); returns the gradient."""
+    B, H, W, C = shape
+    R = boxes.shape[1]
+    grad = torch.empty(shape, dtype=g.dtype, device=g.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if gather:
+        out = (ctypes.c_longlong * 7)()
+        kernel.helper("sgg_roi_align_bwd_fmap_layout",
+                      [_I, _I, _I, _I, _I,
+                       ctypes.POINTER(ctypes.c_longlong)])(B, H, W, R, 7, out)
+        nbytes = out[4]  # the source's own layout: its tile may differ
+        work = torch.empty(-(-nbytes // 4), dtype=torch.int32,
+                           device=g.device)
+        kernel.launch(g.data_ptr(), boxes.data_ptr(), work.data_ptr(),
+                      work.numel() * 4, grad.data_ptr(), B, H, W, C, R,
+                      float(scale), 7, 2, 1, stream, route="bf16")
+    else:
+        work = torch.empty(shape, dtype=torch.float32, device=g.device)
+        kernel.launch(g.data_ptr(), boxes.data_ptr(), work.data_ptr(),
+                      grad.data_ptr(), B, H, W, C, R, float(scale), 7, 2,
+                      1, stream, route="bf16")
+    return grad
+
+
+def bench_fmap_bwd(variants, gen, dev):
+    """K1-bwd-fmap's sources in turns at three cases; label -> readings."""
+    gather = {label: _is_gather(k) for label, k in variants.items()}
+    for label, k in variants.items():
+        if not gather[label]:
+            k.argtypes = SCATTER_ARGTYPES
+    B, R = 3, 512
+    boxes = eval_boxes(gen, B, R, 592)
+    centre = torch.rand(B, 1, 2, generator=gen) * 400 + 96
+    half = torch.rand(B, R, 2, generator=gen) * 40 + 8
+    crowd = torch.cat([centre - half, centre + half], -1)
+    cases = {"pretrain": (boxes, (B, 37, 37, 512), 1 / 16),
+             "fpn_stride4": (boxes, (B, 148, 148, 256), 1 / 4),
+             "crowded": (crowd, (B, 37, 37, 512), 1 / 16)}
+    res = {label: {"gather": gather[label], "ms": {n: [] for n in cases},
+                   "rel_err": {}} for label in variants}
+    calls = {}
+    for name, (bx, shape, scale) in cases.items():
+        bx = bx.contiguous().to(dev)
+        g = torch.randn(B, R, 7, 7, shape[-1], generator=gen).to(
+            dev, torch.bfloat16)
+        want = roi_align.roi_align_backward_reference(
+            g, bx, shape[1:3], torch.float32, spatial_scale=scale)
+        for label, k in variants.items():
+            calls[name, label] = (lambda k=k, gt=gather[label], g=g, bx=bx,
+                                  shape=shape, scale=scale:
+                                  _fmap_bwd_call(k, gt, g, bx, shape, scale))
+            res[label]["rel_err"][name] = _rel_err(calls[name, label](), want)
+        del want
+    for label in _turns(list(variants)):
+        for name in cases:
+            res[label]["ms"][name].append(time_ms(calls[name, label]))
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1", action="append", default=[])
     ap.add_argument("--k2", action="append", default=[])
+    ap.add_argument("--k1bwd", action="append", default=[])
     args = ap.parse_args()
+    everything = not (args.k1 or args.k2 or args.k1bwd)
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels: no CUDA card visible to torch")
     card = subprocess.run(
@@ -97,10 +183,13 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    k1s = _variants(roi_align, args.k1)
-    k2s = _variants(vgg_stem, args.k2)
-    _cuda.build_all(list(k1s.values()) + list(k2s.values()))
-    for label, k in list(k1s.items()) + list(k2s.items()):
+    k1s = _variants(roi_align, args.k1) if args.k1 or everything else {}
+    k2s = _variants(vgg_stem, args.k2) if args.k2 or everything else {}
+    kbs = (_variants(roi_align, args.k1bwd, roi_align.KERNEL_BWD_FMAP)
+           if args.k1bwd or everything else {})
+    every = list(k1s.items()) + list(k2s.items()) + list(kbs.items())
+    _cuda.build_all([k for _, k in every])
+    for label, k in every:
         for line in k.resource_lines():
             print(f"  {label} ({k.source.name}): {line}", flush=True)
 
@@ -108,6 +197,26 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
+    report = {"card": card, "torch": torch.__version__}
+    if kbs:
+        report["roi_align_bwd_fmap"] = bench_fmap_bwd(kbs, g, dev)
+    if k1s or k2s:
+        report.update(bench_forward(k1s, k2s, g, dev))
+    for kernel, per in report.items():
+        if not isinstance(per, dict):
+            continue
+        for label, r in per.items():
+            if not isinstance(r, dict) or "ms" not in r:
+                continue
+            ms = {n: f"min {min(v):.4f} mean {sum(v) / len(v):.4f}"
+                  for n, v in r["ms"].items()}
+            print(f"{kernel} {label}: ms {ms}; bf16 rel err vs plain "
+                  f"{r['rel_err']}", flush=True)
+    print(json.dumps(report), flush=True)
+
+
+def bench_forward(k1s, k2s, g, dev):
+    """K1 and K2 forward sources in turns at the eval shapes."""
     B, H, C, canvas = 16, 37, 512, 592
     fmap = torch.rand(B, H, H, C, generator=g).to(dev)
     nodes = eval_boxes(g, B, 64, canvas).to(dev)
@@ -124,20 +233,25 @@ def main() -> None:
         k1_nodes()
         k1_unions()
 
-    want1 = {"unions": roi_align.roi_align_reference(fmap, unions,
-                                                     spatial_scale=1 / 16)}
-    res1 = bench(roi_align, k1s,
-                 {"forward": k1_forward, "nodes": k1_nodes,
-                  "unions": k1_unions}, want1)
-    del want1, fmap
+    out = {}
+    if k1s:
+        want1 = {"unions": roi_align.roi_align_reference(
+            fmap, unions, spatial_scale=1 / 16)}
+        out["roi_align"] = bench(roi_align, k1s,
+                                 {"forward": k1_forward, "nodes": k1_nodes,
+                                  "unions": k1_unions}, want1)
+        del want1
+    del fmap
     x = torch.randn(B, canvas, canvas, 3, generator=g).to(dev)
     w = (torch.randn(3, 3, 3, 64, generator=g) * math.sqrt(2 / 27)).to(dev)
     b = (torch.randn(64, generator=g) * 0.1).to(dev)
-    want2 = {"conv": vgg_stem.vgg_conv1_reference(x, w, b)}
-    x16 = x.bfloat16()
+    if k2s:
+        want2 = {"conv": vgg_stem.vgg_conv1_reference(x, w, b)}
+        x16 = x.bfloat16()
+        out["vgg_conv1"] = bench(vgg_stem, k2s,
+                                 {"conv": lambda: vgg_stem.vgg_conv1(
+                                     x16, w, b)}, want2)
     del x
-    res2 = bench(vgg_stem, k2s,
-                 {"conv": lambda: vgg_stem.vgg_conv1(x16, w, b)}, want2)
     # what the card takes to write the kernels' outputs and nothing else
     # (PyTorch's fill of as many bytes): the practical floor of a kernel
     # that is bound by its output write
@@ -145,18 +259,10 @@ def main() -> None:
                        device=dev)
     out2 = torch.empty(B * canvas * canvas * 64, dtype=torch.bfloat16,
                        device=dev)
-    fill = {"roi_align": time_ms(out1.zero_),
-            "vgg_conv1": time_ms(out2.zero_)}
-    print(f"fill of the outputs' bytes: ms {fill}", flush=True)
-    report = {"card": card, "torch": torch.__version__,
-              "roi_align": res1, "vgg_conv1": res2, "fill_ms": fill}
-    for kernel in ("roi_align", "vgg_conv1"):
-        for label, r in report[kernel].items():
-            ms = {n: f"min {min(v):.4f} mean {sum(v) / len(v):.4f}"
-                  for n, v in r["ms"].items()}
-            print(f"{kernel} {label}: ms {ms}; bf16 rel err vs plain "
-                  f"{r['rel_err']}", flush=True)
-    print(json.dumps(report), flush=True)
+    out["fill_ms"] = {"roi_align": time_ms(out1.zero_),
+                      "vgg_conv1": time_ms(out2.zero_)}
+    print(f"fill of the outputs' bytes: ms {out['fill_ms']}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -83,9 +83,12 @@ non-zero exit and without the result line:
    and phase 7's CLI detections); a step under ``set_sync_debug_mode("error")``, timed whole
    and by stage, with its peak memory; the three backward kernels at the
    pretraining shape against their plain versions (f32 and bf16) with
-   times and bounds (cuDNN's weight gradient beside K2-bwd), K1-bwd-boxes
-   and K2-bwd launched twice on the same inputs giving the same bits, and
-   the proposals' footprints in map cells a ROI; and one f32
+   times and bounds (cuDNN's weight gradient beside K2-bwd), each launched
+   twice on the same inputs giving the same bits, K1-bwd-fmap's tile lists
+   equal to their CPU model and its ROIs a tile (mean, max) beside the
+   proposals' footprints in map cells a ROI, the busiest tile's ROIs timed
+   alone, and K1-bwd-fmap at the FPN stride-4 level's shape (3 x 148 x 148
+   x 256, the same proposals at scale 1/4) beside its bound; and one f32
    step card against CPU (2 images, the card's proposal slots and the same
    sampler draws: losses within 1e-5 relative; each part's gradient
    within ``GRAD_LIMIT`` in norm, a limit that the same step with
@@ -1411,6 +1414,10 @@ def phase_sgdet(torch, peaks, rows):
     return paths
 
 
+# the training paths' routes where a kernel's bf16 route is named for its
+# design
+ROUTES_BF16 = {"roi_align_bwd_fmap": "bf16-gather",
+               "vgg_conv1_bwd": "bf16-mma"}
 BWD_META = {  # kernel row: (source, the TPU kernel whose gradient it is)
     "roi_align_bwd_fmap": ("sgg_torch/csrc/roi_align_bwd.cu",
                            "sgg_tpu/ops/roi_align_pallas.py:196"),
@@ -1469,8 +1476,7 @@ def pretrain_run(torch, splits, ckdir):
           "master weights are not float32")
     check(moved == sizes, f"parameters that did not move: {moved} of "
                           f"{sizes}")
-    want = {k: {"bf16-mma" if k == "vgg_conv1_bwd" else "bf16": steps}
-            for k in n}
+    want = {k: {ROUTES_BF16.get(k, "bf16"): steps} for k in n}
     check(n == {k: steps for k in n} and routes == want,
           f"pretraining launched {n} by route {routes}; want every kernel "
           f"once a step, on the routes {want}")
@@ -1640,13 +1646,13 @@ def pretrain_step_profile(torch, det, splits):
     return fmap, props.contiguous()
 
 
-def _tap_counts(torch, boxes, H, W):
+def _tap_counts(torch, boxes, H, W, scale=1 / 16):
     """Per ROI and bin, the folded taps of each axis (the nonzero entries
     of the plain version's weights), and per ROI the samples with a
     weight derivative, for the backward kernels' operation counts."""
     from sgg_torch.ops import roi_align as K1
     b = boxes.float().cpu()
-    x1, y1, roi_w, roi_h = K1._box_frames(b, 1 / 16)
+    x1, y1, roi_w, roi_h = K1._box_frames(b, scale)
     ny = (K1._interp_weights(y1, roi_h, H, 7, 2) != 0).sum(-1).double()
     nx = (K1._interp_weights(x1, roi_w, W, 7, 2) != 0).sum(-1).double()
     dy = (K1._axis_samples(y1, roi_h, H, 7, 2)[2] != 0).sum(-1).double()
@@ -1667,13 +1673,69 @@ def _footprints(torch, boxes, H, W):
     return (spans[0] * spans[1]).double()
 
 
+def fmap_tiles(torch, K1, g16, props, fmap_shape, scale):
+    """K1-bwd-fmap's tile lists on the card, held equal to the CPU model;
+    returns (ROIs a tile, mean and max; the busiest tile's image and
+    ROIs)."""
+    B, H, W, _ = fmap_shape
+    R = props.shape[1]
+    layout = K1.fmap_workspace_layout(B, H, W, R)
+    ws = torch.empty(-(-layout["bytes"] // 4), dtype=torch.int32,
+                     device=g16.device)
+    K1._grad_fmap_kernel(g16, props, fmap_shape, torch.bfloat16, scale, 7, 2,
+                         workspace=ws)
+    lists = K1.fmap_tile_lists(ws, layout, B, R)
+    check(lists == K1.roi_tile_lists(props, (H, W), spatial_scale=scale),
+          f"roi_align_bwd_fmap: the kernel's tile lists at {fmap_shape} "
+          f"differ from roi_tile_lists")
+    counts = [(len(lst), b, lst) for b, per_b in enumerate(lists)
+              for lst in per_b]
+    busiest = max(counts, key=lambda t: t[0])
+    return (sum(n for n, _, _ in counts) / len(counts), busiest[0],
+            busiest[1:])
+
+
+def fmap_fpn_level(torch, K1, peaks, props, g_):
+    """8d: K1-bwd-fmap at the FPN stride-4 level's shape (3 x 148 x 148 x
+    256, the same proposals at scale 1/4): within its limit of the plain
+    version, its lists the model's, its time beside its bound."""
+    B, R = props.shape[:2]
+    H = CANVAS // 4
+    C = 256
+    g16 = torch.randn(B, R, 7, 7, C, generator=g_).cuda().bfloat16()
+    want = K1.roi_align_backward_reference(g16, props, (H, H), torch.float32,
+                                           spatial_scale=0.25)
+    got = K1._grad_fmap_kernel(g16, props, (B, H, H, C), torch.bfloat16,
+                               0.25, 7, 2)
+    torch.cuda.synchronize()
+    rel = rel_err(torch, got, want)
+    del want, got
+    check(rel <= 1e-2, f"roi_align_bwd_fmap at the FPN level: bf16 rel err "
+                       f"{rel}")
+    mean, most, _ = fmap_tiles(torch, K1, g16, props, (B, H, H, C), 0.25)
+    ny, nx, _, _ = _tap_counts(torch, props, H, H, scale=0.25)
+    ops = 2 * C * float((ny.sum(-1) * nx.sum(-1)).sum())
+    n_bytes = g16.numel() * 2 + props.numel() * 4 + B * H * H * C * 2
+    bms, bby = bound_ms(n_bytes, ops, peaks, bf16=False)
+    ms = time_ms(lambda: K1._grad_fmap_kernel(
+        g16, props, (B, H, H, C), torch.bfloat16, 0.25, 7, 2))
+    print(f"phase 8 roi_align_bwd_fmap at the FPN stride-4 level's shape (g "
+          f"{B}x{R}x7x7x{C} over {B}x{H}x{H}x{C} bf16, the step's proposals "
+          f"at scale 1/4): {ms:.4f} ms, bound {bms:.4f} ms ({bby}), "
+          f"{ms / bms:.2f}x the bound; bf16 rel err {rel:.3g}; ROIs a tile "
+          f"mean {mean:.1f}, max {most}", flush=True)
+
+
 def pretrain_kernels(torch, peaks, fmap16, props):
     """8d: K1-bwd-fmap and K1-bwd-boxes at the pretraining shape (the
     step's proposal slots over a 3 x 37 x 37 x 512 map) and K2-bwd at 3 x
     592 x 592, each against its plain version on the same inputs (f32 and
-    bf16), timed on the bf16 route (K2-bwd's "bf16-mma") beside its bound;
-    K1-bwd-boxes and K2-bwd launched twice on the same inputs must give the
-    same bits; the proposals' footprints in map cells."""
+    bf16), timed on the bf16 route (K1-bwd-fmap's "bf16-gather", K2-bwd's
+    "bf16-mma") beside its bound; each launched twice on the same inputs
+    must give the same bits; K1-bwd-fmap's tile lists equal to the CPU
+    model, its ROIs a tile beside the proposals' footprints in map cells,
+    the busiest tile's ROIs timed alone; K1-bwd-fmap at the FPN stride-4
+    level's shape."""
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
     B, H, W, C = fmap16.shape
@@ -1706,18 +1768,29 @@ def pretrain_kernels(torch, peaks, fmap16, props):
               f"roi_align_bwd_{name}: rel err f32 {rel32}, bf16 {rel16}")
     f16, g16 = fmap32.bfloat16(), g32.bfloat16()
     for f, g in ((fmap32, g32), (f16, g16)):
-        twice = [K1._grad_boxes_kernel(g, f, props, 1 / 16, 7, 2)
+        twice = [(K1._grad_fmap_kernel(g, props, (B, H, W, C), g.dtype,
+                                       1 / 16, 7, 2),
+                  K1._grad_boxes_kernel(g, f, props, 1 / 16, 7, 2))
                  for _ in range(2)]
         torch.cuda.synchronize()
-        check(torch.equal(*twice), f"roi_align_bwd_boxes ({f.dtype}): two "
-                                   f"launches on the same inputs differ")
+        for i, name in enumerate(("fmap", "boxes")):
+            check(torch.equal(twice[0][i], twice[1][i]),
+                  f"roi_align_bwd_{name} ({f.dtype}): two launches on the "
+                  f"same inputs differ")
+    del twice
     foot = _footprints(torch, props, H, W)
-    print(f"phase 8 roi_align_bwd_boxes: the same bits from two launches "
-          f"(f32, bf16); the {R} proposal slots' footprints: mean "
-          f"{float(foot.mean()):.1f}, max {float(foot.max()):.0f} map cells "
-          f"a ROI ({float(foot.mean()) * C * 2 / 1024:.1f} KiB in bf16 at "
-          f"C={C}), against the {7 * 7 * 16} cell slots the kernel reads a "
-          f"ROI", flush=True)
+    mean, most, (bi, busiest) = fmap_tiles(torch, K1, g16, props,
+                                           (B, H, W, C), 1 / 16)
+    print(f"phase 8 roi_align_bwd_fmap and roi_align_bwd_boxes: the same "
+          f"bits from two launches (f32, bf16); the {R} proposal slots' "
+          f"footprints: mean {float(foot.mean()):.1f}, max "
+          f"{float(foot.max()):.0f} map cells a ROI "
+          f"({float(foot.mean()) * C * 2 / 1024:.1f} KiB in bf16 at C={C}), "
+          f"against the {7 * 7 * 16} cell slots K1-bwd-boxes reads a ROI; "
+          f"K1-bwd-fmap's tile lists equal to the model's, ROIs a tile of "
+          f"{K1.FMAP_TILE[0]}x{K1.FMAP_TILE[1]} cells: mean {mean:.1f}, max "
+          f"{most}", flush=True)
+    fmap_fpn_level(torch, K1, peaks, props, g_)
     ny, nx, dy, dx = _tap_counts(torch, props, H, W)
     n_boxes = props.numel() * 4
     fmap_ops = 2 * C * float((ny.sum(-1) * nx.sum(-1)).sum())
@@ -1737,6 +1810,8 @@ def pretrain_kernels(torch, peaks, fmap16, props):
         bms, bby = bound_ms(n_bytes, ops, peaks, bf16=False)
         key = name.split("_")[-1]
         rows[name] = dict(
+            **({"kernel_route": ROUTES_BF16[name]} if name in ROUTES_BF16
+               else {}),
             max_abs_err=errs[torch.float32][key][0],
             bf16_rel_err=errs[torch.bfloat16][key][1],
             f32_rel_err=errs[torch.float32][key][1],
@@ -1744,7 +1819,18 @@ def pretrain_kernels(torch, peaks, fmap16, props):
             bound_ms=bms, bound_by=bby, library_ms=None, bytes=n_bytes,
             flops=ops, shape=f"g {B}x{R}x7x7x{C}, fmap {B}x{H}x{W}x{C} "
                              f"bf16, the step's {R} proposal slots")
-    del fmap32, g32, f16, g16
+    # the busiest tile's ROIs alone: its blocks' work, with the little the
+    # same ROIs add to other tiles
+    sub = torch.tensor(busiest, device=props.device)
+    p_sub = props[bi:bi + 1, sub].contiguous()
+    g_sub = g16[bi:bi + 1, sub].contiguous()
+    ms_sub = time_ms(lambda: K1._grad_fmap_kernel(
+        g_sub, p_sub, (1, H, W, C), torch.bfloat16, 1 / 16, 7, 2))
+    print(f"phase 8 roi_align_bwd_fmap: the busiest tile's {len(busiest)} "
+          f"ROIs alone take {ms_sub:.4f} ms, "
+          f"{ms_sub / rows['roi_align_bwd_fmap']['ms']:.2f} of the kernel's "
+          f"time at the pretraining shape", flush=True)
+    del fmap32, g32, f16, g16, g_sub
     torch.cuda.empty_cache()
 
     x32 = torch.randn(B, CANVAS, CANVAS, 3, generator=g_).cuda()

@@ -18,16 +18,40 @@
 // sgg_roi_align_bwd_fmap: grad_fmap[b, y, x, c] =
 //   sum_{r, p, q} Wy[b, r, p, y] Wx[b, r, q, x] g[b, r, p, q, c].
 //   What bounds it: reading g once (3 x 512 x 49 x 512 bf16 = 77 MB at the
-//   detector's training shape) and writing the gradient. Design: one block
-//   per ROI; the per-bin folded tap tables of the forward (the bin average
-//   in the weights, equal taps merged, zero weights dropped) in shared
-//   memory; a thread owns V adjacent channels of one bin at a time, reads
-//   its g vector once and adds w_y * w_x * g into every (y, x) tap of the
-//   bin. ROIs overlap, so the adds are f32 atomics (16-byte vector atomics
-//   where C % 4 == 0) into f32 scratch that the entry point zeroes first;
-//   a second pass casts the scratch to bfloat16 for a bf16 map. The order
-//   of the atomic adds, and so the rounding of the sums, varies from run
-//   to run.
+//   detector's training shape) and writing the gradient once, in the map's
+//   type. Design: an output-stationary gather, which replaces a scatter of
+//   f32 atomics (one block a ROI) into scratch that had to be cleared first
+//   and cast after. The map is cut into tiles of kTileH x kTileW cells
+//   (ragged at the right and bottom edges). (1) Per ROI and axis, a bit
+//   mask of the tiles that hold one of its taps of nonzero weight, and (2)
+//   per ROI, axis and map index, the P bins' weights there (the bin average
+//   folded in, a bin's taps of equal index merged, as the forward's tables
+//   hold them): one launch. (3) One block per (image, tile) tests the ROIs
+//   32 a warp (__ballot_sync, __popc) and lists those whose row and column
+//   masks both hold the tile, in ascending order, each with the bins that
+//   can reach the tile along either axis (np x nq of them: the ROI's
+//   "k-rows" there) and a prefix sum of the k-rows. (4) The gather, one
+//   unit per (image, tile, channel chunk), images outermost so that one
+//   image's g stays in L2 while its tiles run. Every cell is written once,
+//   zeros included: no atomics, no f32 scratch, no clearing or cast pass,
+//   and two runs give the same bits.
+//   A unit's work is a product over its k-rows in (r, p, q) order, D (cells
+//   x C) += K (cells x k) G (k x C), with K's entries the weights Wy[y][p]
+//   Wx[x][q] and G's rows g[r, p, q, :]; most of K is 0 (a bin's taps cover
+//   a few cells). On the CUDA cores that is a load and 4 FMAs a nonzero
+//   entry, held by latency, and the tiles that crowded proposals fill hold
+//   several times the mean's work. So bf16 maps take the tensor cores: 128
+//   channels a unit, g's rows by cp.async kStages - 1 batches ahead, K
+//   built in shared memory as bf16 hi + lo (the split keeps ~16 bits of
+//   every weight; g is bf16 already), mma.sync into f32. Units of up to
+//   kHeavyBatches batches get a block each; the heavier ones a cluster of
+//   kSplit blocks, which split the batches and add their partial sums in
+//   block order through distributed shared memory, launched on a side
+//   stream beside the light ones. f32 maps, and bf16 ones whose C or
+//   alignment that route does not take, go through the CUDA cores: a warp
+//   a tile row, a lane V channels of its cells, w_y w_x g added in f32
+//   registers in (r, p, q) order. Times: chip_smoke.py phase 8,
+//   bench_kernels.py --k1bwd (PERF.md).
 //
 // sgg_roi_align_bwd_boxes: d loss / d boxes, f32, as XLA differentiates
 //   the separable roi_align. Per bin (p, q) and map cell (y, x) let
@@ -60,6 +84,7 @@
 //   on the card than these L1-served reads (PERF.md); times: chip_smoke.py
 //   phase 8.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -72,7 +97,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSamples = 64;  // pooled * ratio per axis
 constexpr int kMaxTapsPerBin = 2 * 8;  // 2 * ratio, ratio <= 8
-constexpr int kMaxTaps = kMaxTapsPerBin * kMaxSamples;
+// K1-bwd-fmap's tiles of map cells (rows x columns; kTileH % 4 == 0)
+constexpr int kTileH = 4;
+constexpr int kTileW = 4;
+constexpr int kCells = kTileH * kTileW;
+constexpr int kTileThreads = 256;  // both gathers: 8 warps
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v) {
@@ -83,28 +112,23 @@ __device__ __forceinline__ float to_f32(T v) {
   }
 }
 
-// V adjacent channels at p as f32.
+// V (1 or 4) f32 values at p in T, rounded to nearest even: one store.
 template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
-  if constexpr (V == 1) {
-    v[0] = to_f32(__ldg(p));
-  } else if constexpr (std::is_same<T, float>::value) {
-    if constexpr (V == 4) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (V == 1) {
+      p[0] = v[0];
     } else {
-      const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-      v[0] = a.x, v[1] = a.y;
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
     }
+  } else if constexpr (V == 1) {
+    p[0] = __float2bfloat16(v[0]);
   } else {
-    if constexpr (V == 4) {
-      const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-      v[0] = __uint_as_float(r.x << 16), v[1] = __uint_as_float(r.x & 0xffff0000u);
-      v[2] = __uint_as_float(r.y << 16), v[3] = __uint_as_float(r.y & 0xffff0000u);
-    } else {
-      const unsigned r = __ldg(reinterpret_cast<const unsigned*>(p));
-      v[0] = __uint_as_float(r << 16), v[1] = __uint_as_float(r & 0xffff0000u);
-    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                   *reinterpret_cast<const unsigned*>(&hi));
   }
 }
 
@@ -128,17 +152,6 @@ __device__ __forceinline__ void unpack(const Raw<T, V>& r, float (&v)[V]) {
   const T* e = reinterpret_cast<const T*>(&r);
 #pragma unroll
   for (int k = 0; k < V; ++k) v[k] = to_f32(e[k]);
-}
-
-// Adds V f32 values at p atomically: one 16-byte vector atomic for V == 4.
-template <int V>
-__device__ __forceinline__ void atomic_add_vec(float* p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) atomicAdd(p + k, v[k]);
-  }
 }
 
 struct Sample {
@@ -169,20 +182,6 @@ __device__ __forceinline__ Sample axis_sample(float start, float extent, int i,
   return s;
 }
 
-__device__ __forceinline__ void add_tap(int* idx, float* wts, int* n,
-                                        int index, float w) {
-  if (w == 0.0f) return;
-  for (int k = 0; k < *n; ++k) {
-    if (idx[k] == index) {
-      wts[k] += w;
-      return;
-    }
-  }
-  idx[*n] = index;
-  wts[*n] = w;
-  ++*n;
-}
-
 // start and extent of one axis of a ROI, rounded as the forward rounds
 // them; raw = the extent before its floor at 1.
 __device__ __forceinline__ void axis_frame(const float* bx, int axis,
@@ -194,83 +193,703 @@ __device__ __forceinline__ void axis_frame(const float* bx, int axis,
   *extent = fmaxf(*raw, 1.0f);
 }
 
-// Folded tap tables of both axes into shared memory (threads 0 .. 2P-1).
-__device__ __forceinline__ void build_tables(const float* bx, float scale,
-                                             int P, int ratio, int H, int W,
-                                             int (*s_idx)[kMaxTaps],
-                                             float (*s_w)[kMaxTaps],
-                                             int (*s_n)[kMaxSamples]) {
-  const int t = threadIdx.x;
-  if (t < 2 * P) {
-    const int axis = t < P ? 0 : 1;
-    const int bin = t - axis * P;
-    float start, extent, raw;
-    axis_frame(bx, axis, scale, &start, &extent, &raw);
-    const int dim = axis == 0 ? H : W;
-    const int slots = 2 * ratio;
-    int* idx = s_idx[axis] + bin * slots;
-    float* wts = s_w[axis] + bin * slots;
-    const float inv = 1.0f / static_cast<float>(ratio);
-    int n = 0;
-    for (int s = 0; s < ratio; ++s) {
-      const Sample a = axis_sample(start, extent, bin * ratio + s, P * ratio,
-                                   dim);
-      add_tap(idx, wts, &n, a.lo, a.w_lo * inv);
-      add_tap(idx, wts, &n, a.hi, a.w_hi * inv);
-    }
-    s_n[axis][bin] = n;
+// K1-bwd-fmap's workspace, in 4-byte words: per (image, tile) its count of
+// ROIs and its k-rows (sum over its ROIs of np nq), then per (image, tile)
+// three arrays of R (the first `count` used): its ROIs, their bin ranges
+// (p0 | np << 8 | q0 << 16 | nq << 24) and their first k-row; then per ROI
+// the tile masks of its rows (my words) and of its columns (mx words); then
+// per ROI its H + W lines (rows, then columns) of P f32 bin weights.
+struct Layout {
+  int nty, ntx, my, mx;
+  size_t krows, lists, infos, koffs, masks, lines, words;  // counts at 0
+};
+
+Layout fmap_layout(int B, int H, int W, int R, int P) {
+  Layout L;
+  L.nty = (H + kTileH - 1) / kTileH;
+  L.ntx = (W + kTileW - 1) / kTileW;
+  L.my = (L.nty + 31) / 32;
+  L.mx = (L.ntx + 31) / 32;
+  const size_t tiles = static_cast<size_t>(B) * L.nty * L.ntx;
+  L.krows = tiles;
+  L.lists = 2 * tiles;
+  L.infos = L.lists + tiles * R;
+  L.koffs = L.infos + tiles * R;
+  L.masks = L.koffs + tiles * R;
+  L.lines = L.masks + static_cast<size_t>(B) * R * (L.my + L.mx);
+  L.words = L.lines + static_cast<size_t>(B) * R * (H + W) * P;
+  return L;
+}
+
+// (1) Per ROI (b R + r) and axis, the tiles along the axis that hold one of
+// its taps of nonzero weight (the index set of the forward's folded tap
+// tables: a bin's merged taps have positive weights), as bits.
+__device__ __forceinline__ void tile_masks(const float* __restrict__ boxes,
+                                           unsigned* __restrict__ masks,
+                                           int t, int H, int W, float scale,
+                                           int P, int ratio, int my,
+                                           int mx) {
+  const int roi = t >> 1, axis = t & 1;
+  float start, extent, raw;
+  axis_frame(boxes + static_cast<size_t>(roi) * 4, axis, scale, &start,
+             &extent, &raw);
+  const int dim = axis == 0 ? H : W;
+  unsigned* m = masks + static_cast<size_t>(roi) * (my + mx) +
+                (axis == 0 ? 0 : my);
+  for (int w = 0; w < (axis == 0 ? my : mx); ++w) m[w] = 0u;
+  const float inv = 1.0f / static_cast<float>(ratio);
+  const int S = P * ratio;
+  for (int i = 0; i < S; ++i) {
+    const Sample a = axis_sample(start, extent, i, S, dim);
+    const int tile = axis == 0 ? kTileH : kTileW;
+    const int tl = a.lo / tile, th = a.hi / tile;
+    if (__fmul_rn(a.w_lo, inv) != 0.0f) m[tl >> 5] |= 1u << (tl & 31);
+    if (__fmul_rn(a.w_hi, inv) != 0.0f) m[th >> 5] |= 1u << (th & 31);
   }
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    roi_align_bwd_fmap_kernel(const T* __restrict__ g,
-                              const float* __restrict__ boxes,
-                              float* __restrict__ scratch, int R, int H,
-                              int W, int C, float scale, int P, int ratio) {
-  __shared__ int s_idx[2][kMaxTaps];
-  __shared__ float s_w[2][kMaxTaps];
-  __shared__ int s_n[2][kMaxSamples];
-  const int roi = blockIdx.x;  // b * R + r
-  const int b = roi / R;
-  build_tables(boxes + static_cast<size_t>(roi) * 4, scale, P, ratio, H, W,
-               s_idx, s_w, s_n);
-  __syncthreads();
+// The first bin whose last sample's high tap reaches index a (both the
+// sample index and the taps only grow along the axis).
+__device__ __forceinline__ int first_bin_reaching(float start, float extent,
+                                                  int S, int dim, int P,
+                                                  int ratio, int a) {
+  int lo = 0, hi = P;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (axis_sample(start, extent, mid * ratio + ratio - 1, S, dim).hi < a)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
 
-  const int slots = 2 * ratio;
-  const int groups = C / V;
-  const int items = P * P * groups;
-  const T* gr = g + static_cast<size_t>(roi) * P * P * C;
-  float* dst = scratch + static_cast<size_t>(b) * H * W * C;
-  for (int item = threadIdx.x; item < items; item += kThreads) {
-    const int bin = item / groups;
-    const int c = (item - bin * groups) * V;
-    const int p = bin / P, q = bin - p * P;
-    float gv[V];
-    load_vec<T, V>(gr + static_cast<size_t>(bin) * C + c, gv);
-    const int ny = s_n[0][p], nx = s_n[1][q];
-    const int* yi = s_idx[0] + p * slots;
-    const float* yw = s_w[0] + p * slots;
-    const int* xi = s_idx[1] + q * slots;
-    const float* xw = s_w[1] + q * slots;
-    for (int a = 0; a < ny; ++a) {
-      float* row = dst + static_cast<size_t>(yi[a]) * W * C + c;
-      for (int e = 0; e < nx; ++e) {
-        const float w = yw[a] * xw[e];
-        float v[V];
+// (2) Per ROI, axis and map index idx along the axis, its line: the weight
+// of each of the P bins at idx (0 for most): per bin its samples' weights
+// at idx summed in sample order, low tap before high, zero weights dropped,
+// as add_tap in csrc/roi_align.cu folds a bin's taps.
+__device__ __forceinline__ void tile_lines(const float* __restrict__ boxes,
+                                           float* __restrict__ lines, int t,
+                                           int H, int W, float scale, int P,
+                                           int ratio) {
+  const int HW = H + W;
+  const int roi = t / HW;
+  const int axis = t - roi * HW < H ? 0 : 1;
+  const int idx = t - roi * HW - axis * H;
+  const int dim = axis == 0 ? H : W;
+  float start, extent, raw;
+  axis_frame(boxes + static_cast<size_t>(roi) * 4, axis, scale, &start,
+             &extent, &raw);
+  const float inv = 1.0f / static_cast<float>(ratio);
+  const int S = P * ratio;
+  const int first = first_bin_reaching(start, extent, S, dim, P, ratio, idx);
+  float* line = lines + static_cast<size_t>(t) * P;
+  bool past = false;  // samples only move on: no later tap reaches idx
+  for (int p = 0; p < P; ++p) {
+    float w = 0.0f;
+    for (int s = 0; p >= first && !past && s < ratio; ++s) {
+      const Sample a = axis_sample(start, extent, p * ratio + s, S, dim);
+      if (a.lo > idx) {
+        past = true;
+      } else {
+        if (a.lo == idx) w += __fmul_rn(a.w_lo, inv);
+        if (a.hi == idx) w += __fmul_rn(a.w_hi, inv);
+      }
+    }
+    line[p] = w;
+  }
+}
+
+// (1) and (2) in one launch: threads 0 .. 2 rois - 1 the masks, the rest
+// the lines.
+__global__ void tile_masks_lines_kernel(const float* __restrict__ boxes,
+                                        unsigned* __restrict__ masks,
+                                        float* __restrict__ lines, int rois,
+                                        int H, int W, float scale, int P,
+                                        int ratio, int my, int mx) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < 2 * rois)
+    tile_masks(boxes, masks, t, H, W, scale, P, ratio, my, mx);
+  else if (t - 2 * rois < rois * (H + W))
+    tile_lines(boxes, lines, t - 2 * rois, H, W, scale, P, ratio);
+}
+
+// (3) One block per (image, tile): the ROIs whose row mask holds the tile's
+// row and whose column mask holds its column, in ascending order; for each
+// the range of bins along each axis whose taps can reach the tile (first
+// bin whose last sample reaches its first row, up to the last bin whose
+// first sample has not passed its last), and its first k-row. Each warp
+// tests 32 ROIs (ballot) at a time; the warps' counts and k-rows are
+// prefix-summed in warp order, so the order is the ROIs'.
+constexpr int kListThreads = 256;
+__global__ void __launch_bounds__(kListThreads)
+    tile_lists_kernel(const float* __restrict__ boxes,
+                      const unsigned* __restrict__ masks,
+                      int* __restrict__ counts, int* __restrict__ krows,
+                      int* __restrict__ lists, int* __restrict__ infos,
+                      int* __restrict__ koffs, int R, int H, int W,
+                      float scale, int P, int ratio, int nty, int ntx,
+                      int my, int mx) {
+  constexpr int kWarpsL = kListThreads / 32;
+  __shared__ int s_n[kWarpsL], s_k[kWarpsL];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;  // b nt + t
+  const int nt = nty * ntx;
+  const int b = tile / nt;
+  const int ty = (tile - b * nt) / ntx, tx = (tile - b * nt) % ntx;
+  const int S = P * ratio;
+  const size_t base = static_cast<size_t>(tile) * R;
+  int n = 0, ktot = 0;  // before this pass of kListThreads ROIs
+  for (int r0 = 0; r0 < R; r0 += kListThreads) {
+    const int r = r0 + threadIdx.x;
+    bool in = false;
+    int info = 0, kb = 0;
+    if (r < R) {
+      const unsigned* m = masks + static_cast<size_t>(b * R + r) * (my + mx);
+      in = ((m[ty >> 5] >> (ty & 31)) & (m[my + (tx >> 5)] >> (tx & 31)) &
+            1u) != 0;
+    }
+    if (in) {
+      const float* bx = boxes + static_cast<size_t>(b * R + r) * 4;
+      int first[2], count[2];
+      for (int axis = 0; axis < 2; ++axis) {
+        float start, extent, raw;
+        axis_frame(bx, axis, scale, &start, &extent, &raw);
+        const int dim = axis == 0 ? H : W;
+        const int tile_cells = axis == 0 ? kTileH : kTileW;
+        const int a = (axis == 0 ? ty : tx) * tile_cells;
+        const int z = min(a + tile_cells, dim) - 1;
+        first[axis] = first_bin_reaching(start, extent, S, dim, P, ratio, a);
+        int lo = first[axis], hi = P;  // the first bin starting past z
+        while (lo < hi) {
+          const int mid = (lo + hi) / 2;
+          if (axis_sample(start, extent, mid * ratio, S, dim).lo <= z)
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        count[axis] = lo - first[axis];
+      }
+      info = first[0] | count[0] << 8 | first[1] << 16 | count[1] << 24;
+      kb = count[0] * count[1];
+    }
+    int incl = kb;
 #pragma unroll
-        for (int k = 0; k < V; ++k) v[k] = w * gv[k];
-        atomic_add_vec<V>(row + static_cast<size_t>(xi[e]) * C, v);
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, in);
+    if (lane == 31) {
+      s_n[warp] = __popc(ball);
+      s_k[warp] = incl;
+    }
+    __syncthreads();
+    int wn = n, wk = ktot;  // this warp's start
+    for (int w = 0; w < kWarpsL; ++w) {
+      if (w < warp) wn += s_n[w], wk += s_k[w];
+      n += s_n[w], ktot += s_k[w];
+    }
+    if (in) {
+      const int k = wn + __popc(ball & ((1u << lane) - 1u));
+      lists[base + k] = r;
+      infos[base + k] = info;
+      koffs[base + k] = wk + incl - kb;
+    }
+    __syncthreads();  // s_n, s_k are read before the next pass
+  }
+  if (threadIdx.x == 0) {
+    counts[tile] = n;
+    krows[tile] = ktot;
+  }
+}
+
+// (4a) The CUDA-core gather (f32 maps; bf16 maps whose C or alignment the
+// tensor-core route does not take): one block per (image, tile, chunk of
+// 32 V channels); warp w owns tile row w, a lane V channels of the row's
+// kTileW cells, and adds w_y w_x g[r, p, q, c .. c + V] into f32 registers
+// in (r, p, q) order over the bin ranges of the tile's list.
+template <typename T, int V>
+__global__ void __launch_bounds__(32 * kTileH)
+    fmap_gather_kernel(const T* __restrict__ g,
+                       const int* __restrict__ counts,
+                       const int* __restrict__ lists,
+                       const int* __restrict__ infos,
+                       const float* __restrict__ lines,
+                       T* __restrict__ grad, int R, int H, int W, int C,
+                       int P, int nty, int ntx, int chunks) {
+  const int tile = blockIdx.x / chunks;  // b nt + t: images outermost
+  const int chunk = blockIdx.x - tile * chunks;
+  const int nt = nty * ntx;
+  const int b = tile / nt;
+  const int y0 = (tile - b * nt) / ntx * kTileH;
+  const int x0 = (tile - b * nt) % ntx * kTileW;
+  const int lane = threadIdx.x & 31, y = y0 + (threadIdx.x >> 5);
+  const int c = (chunk * 32 + lane) * V;
+  // lanes past C read channel 0 and store nothing
+  const T* gb = g + static_cast<size_t>(b) * R * P * P * C + (c < C ? c : 0);
+  const size_t base = static_cast<size_t>(tile) * R;
+  const int n = y < H ? counts[tile] : 0;
+  const size_t HW = H + W;
+
+  float acc[kTileW][V];
+#pragma unroll
+  for (int lx = 0; lx < kTileW; ++lx)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[lx][v] = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const int r = __ldg(lists + base + k), info = __ldg(infos + base + k);
+    const int p0 = info & 255, np = (info >> 8) & 255;
+    const int q0 = (info >> 16) & 255, nq = info >> 24;
+    const float* lw = lines + (b * R + r) * HW * P;
+    const T* gr = gb + static_cast<size_t>(r) * P * P * C;
+    for (int p = p0; p < p0 + np; ++p) {
+      const float wy = __ldg(lw + y * P + p);
+      if (wy == 0.0f) continue;  // the whole warp
+      const T* gp = gr + static_cast<size_t>(p) * P * C;
+#pragma unroll
+      for (int lx = 0; lx < kTileW; ++lx) {
+        if (x0 + lx >= W) continue;
+        const float* wx = lw + (H + x0 + lx) * P;
+        for (int q = q0; q < q0 + nq; ++q) {
+          const float w = __ldg(wx + q);
+          if (w == 0.0f) continue;
+          float gv[V];
+          unpack<T, V>(load_raw<T, V>(gp + static_cast<size_t>(q) * C), gv);
+          const float wyx = wy * w;
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[lx][v] = fmaf(wyx, gv[v], acc[lx][v]);
+        }
       }
     }
   }
+  if (c >= C || y >= H) return;
+  T* out = grad + ((static_cast<size_t>(b) * H + y) * W + x0) * C + c;
+#pragma unroll
+  for (int lx = 0; lx < kTileW; ++lx)
+    if (x0 + lx < W)
+      store_vec<T, V>(out + static_cast<size_t>(lx) * C, acc[lx]);
 }
 
-__global__ void cast_bf16_kernel(const float* __restrict__ src,
-                                 __nv_bfloat16* __restrict__ dst, size_t n) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x)
-    dst[i] = __float2bfloat16(src[i]);
+// The tensor-core route: the tile's k-rows are its list's (ROI, bin p, bin
+// q) over each ROI's bin ranges, in (r, p, q) order; per k-row the tile's
+// cells' weights Wy[y][p] Wx[x][q] (a row of K, split into bf16 hi + lo)
+// and the bin's row of g. A block of 8 warps owns a chunk of kMmaChannels
+// channels, warp w kMTiles x 16 of them against all of the tile's cells:
+// D^T (16 x cells) += G^T (16 x k) K (k x cells).
+constexpr int kKRows = 64;          // k-rows staged at a time (a batch)
+constexpr int kMmaChannels = 128;   // 8 warps x kMTiles x 16
+constexpr int kMTiles = kMmaChannels / 128;
+constexpr int kNTiles = kCells / 8;  // mma n-tiles of 8 cells
+constexpr int kGPiecesPerRow = kMmaChannels / 8;
+constexpr int kGRowBytes = kMmaChannels * 2;
+constexpr int kKRowBytes = kCells * 2;
+constexpr int kStages = 3;          // batches of g in flight
+constexpr int kGStage = kKRows * kGRowBytes;  // bytes, one stage
+constexpr int kKBytes = kKRows * kKRowBytes;  // K, hi or lo
+constexpr int kMmaSmemFixed =
+    kStages * kGStage + 4 * kKBytes + kStages * kKRows * 16;
+constexpr int kMmaMaxR = 4096;  // ROIs an image the route stages (12 B each)
+// a thread's share of a batch: kGPieces 16-byte pieces of a G row; the
+// weights of one k-row for kGroupRows full tile rows
+constexpr int kThreadsPerGRow = kTileThreads / kKRows;
+constexpr int kGPieces = kGPiecesPerRow / kThreadsPerGRow;
+constexpr int kGroupRows = kTileH * kKRows / kTileThreads;
+// a unit of more than kHeavyBatches batches is split between the kSplit
+// blocks of a cluster
+constexpr int kHeavyBatches = 16;
+constexpr int kSplit = 8;
+static_assert(kCells % 16 == 0 && kCells % kSplit == 0 &&
+                  kTileThreads % kKRows == 0 &&
+                  kTileH * kKRows % kTileThreads == 0 &&
+                  kCells * kMmaChannels * 4 <= kStages * kGStage,
+              "tile, batch and channel chunk do not fit");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) where !pred.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr,
+                                              unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col).
+__device__ __forceinline__ void mma_k16(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte piece `piece` of row `row`, the pieces XOR-
+// swizzled so that ldmatrix's 8 consecutive rows hit 8 different 16-byte
+// bank groups.
+template <int kRowBytes>
+__device__ __forceinline__ int swz(int row, int piece) {
+  if constexpr (kRowBytes >= 128) {
+    return row * kRowBytes + ((piece ^ (row & 7)) << 4);
+  } else {
+    constexpr int kPieces = kRowBytes / 16, kPer = 128 / kRowBytes;
+    return row * kRowBytes + ((piece ^ ((row / kPer) & (kPieces - 1))) << 4);
+  }
+}
+
+// k-row k of the tile: (ROI, bin p, bin q), or roi -1 from kend on. `e`
+// is the caller's cursor into the staged first k-rows: the last entry at or
+// before its previous k, which only grows.
+__device__ __forceinline__ int4 k_row(int k, int kend, int n, int& e,
+                                      const int* s_koff, const int* s_roi,
+                                      const int* s_info) {
+  if (k >= kend) return make_int4(-1, 0, 0, 0);
+  while (e + 1 < n && s_koff[e + 1] <= k) ++e;
+  const int info = s_info[e], nq = info >> 24;
+  const int local = k - s_koff[e], pi = local / nq;
+  return make_int4(s_roi[e], (info & 255) + pi,
+                   ((info >> 16) & 255) + local - pi * nq, 0);
+}
+
+// Shared memory of a tensor-core gather block: kStages stages of g's rows,
+// two of K (hi, lo), kStages row maps, and the unit's list (first k-rows,
+// ROIs, bin ranges: R each).
+struct MmaSmem {
+  unsigned char* g;
+  unsigned char* kh;
+  unsigned char* kl;
+  int4* row;
+  int* koff;
+  int* roi;
+  int* info;
+};
+
+__device__ __forceinline__ MmaSmem mma_smem(uint4* base, int R) {
+  MmaSmem m;
+  m.g = reinterpret_cast<unsigned char*>(base);
+  m.kh = m.g + kStages * kGStage;  // [2][kKBytes]
+  m.kl = m.kh + 2 * kKBytes;        // [2][kKBytes]
+  m.row = reinterpret_cast<int4*>(m.kl + 2 * kKBytes);
+  m.koff = reinterpret_cast<int*>(m.row + kStages * kKRows);
+  m.roi = m.koff + R;
+  m.info = m.roi + R;
+  return m;
+}
+
+// Arguments of both tensor-core gather kernels.
+struct MmaArgs {
+  const __nv_bfloat16* g;
+  const int* counts;
+  const int* krows;
+  const int* lists;
+  const int* infos;
+  const int* koffs;
+  const float* lines;
+  __nv_bfloat16* grad;
+  int R, H, W, C, P, nty, ntx, chunks;
+};
+
+// The tensor-core gather of one unit (image, tile, chunk of kMmaChannels),
+// or of batches [b_lo, b_hi) of it into `acc`. Per batch of kKRows k-rows:
+// g's rows arrive by cp.async (kStages stages: the next two batches' in
+// flight during this one's products), the weights two batches on are loaded
+// into registers, K is built in shared memory (hi = bf16(w), lo = bf16(w -
+// hi): the products keep ~16 bits of each weight; two buffers, so one
+// barrier fewer), and each warp runs ldmatrix.trans and mma.sync, hi then
+// lo, k-step by k-step, into f32 accumulators: a cell's sums in k-row
+// order, each k-step's 16 products added by the tensor core.
+__device__ __forceinline__ void mma_unit(const MmaArgs& A, const MmaSmem& S,
+                                         int unit, int b_lo, int b_hi,
+                                         float (&acc)[kMTiles][kNTiles][4]) {
+  const int tile = unit / A.chunks;  // b nt + t
+  const int chunk = unit - tile * A.chunks;
+  const int nt = A.nty * A.ntx, R = A.R, P = A.P, C = A.C;
+  const int b = tile / nt;
+  const int y0 = (tile - b * nt) / A.ntx * kTileH;
+  const int x0 = (tile - b * nt) % A.ntx * kTileW;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c0 = chunk * kMmaChannels;
+  const int n = A.counts[tile], ktot = A.krows[tile];
+  const size_t base = static_cast<size_t>(tile) * R;
+  const size_t HW = A.H + A.W;
+  const __nv_bfloat16* gb = A.g + static_cast<size_t>(b) * R * P * P * C;
+  const int kbeg = b_lo * kKRows, kend = min(b_hi * kKRows, ktot);
+  for (int e = t; e < n; e += kTileThreads) {
+    S.koff[e] = __ldg(A.koffs + base + e);
+    S.roi[e] = __ldg(A.lists + base + e);
+    S.info[e] = __ldg(A.infos + base + e);
+  }
+#pragma unroll
+  for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[m][j][v] = 0.0f;
+  __syncthreads();
+
+  const int gr_row = t / kThreadsPerGRow, kr = t % kKRows;
+  const int grp = t / kKRows;  // tile rows grp kGroupRows ..
+  auto issue_g = [&](int stage, int4 row) {
+    const unsigned dst = smem_addr(S.g + stage * kGStage);
+    const int s0 = (t % kThreadsPerGRow) * kGPieces;
+    const __nv_bfloat16* src =
+        gb + ((static_cast<size_t>(max(row.x, 0)) * P + row.y) * P + row.z) *
+                 C + c0 + s0 * 8;
+#pragma unroll
+    for (int i = 0; i < kGPieces; ++i)
+      cp_async16(dst + swz<kGRowBytes>(gr_row, s0 + i), src + i * 8,
+                 row.x >= 0 && c0 + (s0 + i) * 8 < C);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // the weights of this batch's k-row kr (wy, wx) and of the next (wy2,
+  // wx2): loads two batches ahead of their use
+  float wy[kGroupRows], wx[kTileW], wy2[kGroupRows], wx2[kTileW];
+  auto load_w = [&](int4 row, float (&ly)[kGroupRows], float (&lx_)[kTileW]) {
+    const float* lw = A.lines + (b * R + max(row.x, 0)) * HW * P;
+#pragma unroll
+    for (int h = 0; h < kGroupRows; ++h) {
+      const int y = y0 + grp * kGroupRows + h;
+      ly[h] = row.x >= 0 && y < A.H ? __ldg(lw + y * P + row.y) : 0.0f;
+    }
+#pragma unroll
+    for (int lx = 0; lx < kTileW; ++lx)
+      lx_[lx] = row.x >= 0 && x0 + lx < A.W
+                    ? __ldg(lw + (A.H + x0 + lx) * P + row.z) : 0.0f;
+  };
+
+  const int batches = b_hi - b_lo;
+  // k-row kbeg + kKRows j + t's entry: a binary search once, then a cursor
+  int cur_e = 0;
+  if (t < kKRows && kbeg + t < kend) {
+    int lo = 0, hi = n - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (S.koff[mid] <= kbeg + t)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    cur_e = lo;
+  }
+  auto row_map = [&](int jb) {  // batch jb's row map into its buffer
+    if (t < kKRows)
+      S.row[(jb % kStages) * kKRows + t] =
+          k_row(kbeg + jb * kKRows + t, kend, n, cur_e, S.koff, S.roi,
+                S.info);
+  };
+  row_map(0);
+  row_map(1);
+  __syncthreads();
+  issue_g(0, S.row[gr_row]);
+  issue_g(1, S.row[kKRows + gr_row]);
+  load_w(S.row[kr], wy, wx);
+  load_w(S.row[kKRows + kr], wy2, wx2);
+  // ldmatrix rows of k-step 0 (k-step ks: 16 ks rows on, the same
+  // swizzle): G^T's for this warp's channels, K's for n-tile pairs
+  const int mj = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
+  int a_off[kMTiles], b_off[kNTiles / 2];
+#pragma unroll
+  for (int m = 0; m < kMTiles; ++m)
+    a_off[m] = swz<kGRowBytes>((mj >> 1) * 8 + mr,
+                               (warp * kMTiles + m) * 2 + (mj & 1));
+#pragma unroll
+  for (int jj = 0; jj < kNTiles / 2; ++jj)
+    b_off[jj] = swz<kKRowBytes>((mj & 1) * 8 + mr, 2 * jj + (mj >> 1));
+  for (int j = 0; j < batches; ++j) {
+    const int cur = j % kStages, far = (j + 2) % kStages;
+    unsigned char* kh_j = S.kh + (j & 1) * kKBytes;
+    unsigned char* kl_j = S.kl + (j & 1) * kKBytes;
+    // this batch's k-row kr of K, from the weights in registers
+#pragma unroll
+    for (int i = 0; i < kGroupRows * kTileW; i += 2) {
+      const int cell = grp * kGroupRows * kTileW + i;
+      const float w0 = wy[i / kTileW] * wx[i % kTileW];
+      const float w1 = wy[(i + 1) / kTileW] * wx[(i + 1) % kTileW];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(w0, w1);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          w0 - __low2float(hi), w1 - __high2float(hi));
+      const int off = swz<kKRowBytes>(kr, cell >> 3) + (cell & 7) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(kh_j + off) = hi;
+      *reinterpret_cast<__nv_bfloat162*>(kl_j + off) = lo;
+    }
+    row_map(j + 2);
+    __syncthreads();  // K and the row map two batches on are in place
+    issue_g(far, S.row[far * kKRows + gr_row]);
+    // wy, wx: consumed above; the next batch's (loaded an iteration ago)
+    // move in, and batch j + 2's loads start
+#pragma unroll
+    for (int h = 0; h < kGroupRows; ++h) wy[h] = wy2[h];
+#pragma unroll
+    for (int lx = 0; lx < kTileW; ++lx) wx[lx] = wx2[lx];
+    load_w(S.row[far * kKRows + kr], wy2, wx2);
+    asm volatile("cp.async.wait_group 2;\n" ::);  // this batch's g landed
+    __syncthreads();
+    const unsigned gs = smem_addr(S.g + cur * kGStage);
+    const unsigned kh = smem_addr(kh_j), kl = smem_addr(kl_j);
+    const int steps = (min(kKRows, kend - kbeg - j * kKRows) + 15) / 16;
+#pragma unroll
+    for (int ks = 0; ks < kKRows / 16; ++ks) {
+      if (ks >= steps) break;
+      unsigned a[kMTiles][4];
+#pragma unroll
+      for (int m = 0; m < kMTiles; ++m)
+        ldsm_x4_trans(gs + a_off[m] + ks * 16 * kGRowBytes, a[m]);
+#pragma unroll
+      for (int jj = 0; jj < kNTiles / 2; ++jj) {
+        const int off = b_off[jj] + ks * 16 * kKRowBytes;
+        unsigned bh[4], bl[4];
+        ldsm_x4_trans(kh + off, bh);
+        ldsm_x4_trans(kl + off, bl);
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m) {
+          mma_k16(acc[m][2 * jj], a[m], bh[0], bh[1]);
+          mma_k16(acc[m][2 * jj], a[m], bl[0], bl[1]);
+          mma_k16(acc[m][2 * jj + 1], a[m], bh[2], bh[3]);
+          mma_k16(acc[m][2 * jj + 1], a[m], bl[2], bl[3]);
+        }
+      }
+    }
+    // no barrier: the next batch writes the other K, and its first
+    // barrier comes after this one's products in every thread
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);  // empty groups only
+  __syncthreads();  // and every thread's: the stages are reused after
+}
+
+// Cell and channel (within the unit's chunk) of accumulator acc[m][j][v].
+__device__ __forceinline__ int acc_cell(int j, int v) {
+  return j * 8 + (threadIdx.x & 3) * 2 + (v & 1);
+}
+__device__ __forceinline__ int acc_channel(int m, int v) {
+  return ((threadIdx.x >> 5) * kMTiles + m) * 16 +
+         ((threadIdx.x & 31) >> 2) + (v >> 1) * 8;
+}
+
+// The block's accumulators into shared memory as f32 [cell][channel].
+__device__ __forceinline__ void put_partials(
+    float* s_part, const float (&acc)[kMTiles][kNTiles][4]) {
+#pragma unroll
+  for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        s_part[acc_cell(j, v) * kMmaChannels + acc_channel(m, v)] =
+            acc[m][j][v];
+}
+
+// 8 channels of the unit's cell `cell` (8 f32) into grad as one 16-byte
+// store, where the cell and channels lie in the map.
+__device__ __forceinline__ void store8(const MmaArgs& A, int unit, int cell,
+                                       int s, const float (&v)[8]) {
+  const int tile = unit / A.chunks, chunk = unit - tile * A.chunks;
+  const int nt = A.nty * A.ntx, b = tile / nt;
+  const int y = (tile - b * nt) / A.ntx * kTileH + cell / kTileW;
+  const int x = (tile - b * nt) % A.ntx * kTileW + cell % kTileW;
+  const int c = chunk * kMmaChannels + s * 8;
+  if (y >= A.H || x >= A.W || c >= A.C) return;
+  __nv_bfloat162 o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(
+      A.grad + ((static_cast<size_t>(b) * A.H + y) * A.W + x) * A.C + c) =
+      *reinterpret_cast<const uint4*>(o);
+}
+
+// (4b) The tensor-core gather (bf16 maps, C % 8 == 0, 16-byte aligned g),
+// for the units of at most kHeavyBatches batches: one block per (image,
+// tile, chunk of kMmaChannels), images outermost; the others' blocks leave.
+// The results go through shared memory (f32 [cell][channel]) to 16-byte
+// stores.
+__global__ void __launch_bounds__(kTileThreads, 3)
+    fmap_gather_mma_kernel(MmaArgs A) {
+  extern __shared__ uint4 s_dyn[];
+  const MmaSmem S = mma_smem(s_dyn, A.R);
+  const int unit = blockIdx.x;
+  const int nb = (A.krows[unit / A.chunks] + kKRows - 1) / kKRows;
+  if (nb > kHeavyBatches) return;
+  float acc[kMTiles][kNTiles][4];
+  mma_unit(A, S, unit, 0, nb, acc);
+  float* s_part = reinterpret_cast<float*>(S.g);
+  put_partials(s_part, acc);
+  __syncthreads();
+  for (int item = threadIdx.x; item < kCells * kGPiecesPerRow;
+       item += kTileThreads) {
+    const int cell = item / kGPiecesPerRow, s = item % kGPiecesPerRow;
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = s_part[cell * kMmaChannels + s * 8 + i];
+    store8(A, unit, cell, s, v);
+  }
+}
+
+// (4c) The same for the units of more than kHeavyBatches batches (a tile
+// that crowded proposals fill): a persistent grid of clusters of kSplit
+// blocks. Cluster c takes the heavy ones among units c, c + clusters, ...
+// (32 tested at a time, by ballot), in order; its blocks split a unit's
+// batches into kSplit equal runs and add their partial sums in block order
+// through distributed shared memory, each block then storing kCells /
+// kSplit cells. Launched on a side stream beside (4b).
+__global__ void __cluster_dims__(kSplit, 1, 1)
+    __launch_bounds__(kTileThreads, 3) fmap_gather_mma_heavy_kernel(
+        MmaArgs A, int units) {
+  namespace cg = cooperative_groups;
+  extern __shared__ uint4 s_dyn[];
+  const MmaSmem S = mma_smem(s_dyn, A.R);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int seg = blockIdx.x % kSplit;
+  const int clusters = gridDim.x / kSplit, c = blockIdx.x / kSplit;
+  const int lane = threadIdx.x & 31;
+  float* s_part = reinterpret_cast<float*>(S.g);
+  auto batches = [&](int u) {
+    return (__ldg(A.krows + u / A.chunks) + kKRows - 1) / kKRows;
+  };
+  for (int u0 = c; u0 < units; u0 += 32 * clusters) {
+    const int u = u0 + lane * clusters;
+    unsigned todo =
+        __ballot_sync(0xffffffffu, u < units && batches(u) > kHeavyBatches);
+    while (todo) {
+      const int unit = u0 + (__ffs(todo) - 1) * clusters;
+      todo &= todo - 1;
+      const int nb = batches(unit);
+      float acc[kMTiles][kNTiles][4];
+      mma_unit(A, S, unit, seg * nb / kSplit, (seg + 1) * nb / kSplit, acc);
+      put_partials(s_part, acc);
+      cluster.sync();
+      constexpr int kShare = kCells / kSplit;
+      for (int item = threadIdx.x; item < kShare * kGPiecesPerRow;
+           item += kTileThreads) {
+        const int cell = seg * kShare + item / kGPiecesPerRow;
+        const int s = item % kGPiecesPerRow;
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = 0.0f;
+        for (int r = 0; r < kSplit; ++r) {
+          const float4* part = reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(s_part, r) + cell * kMmaChannels +
+              s * 8);
+          const float4 p0 = part[0], p1 = part[1];
+          v[0] += p0.x, v[1] += p0.y, v[2] += p0.z, v[3] += p0.w;
+          v[4] += p1.x, v[5] += p1.y, v[6] += p1.z, v[7] += p1.w;
+        }
+        store8(A, unit, cell, s, v);
+      }
+      cluster.sync();  // the partials are read before the next unit
+    }
+  }
 }
 
 constexpr int kCellGroup = 16;  // cells reduced by one butterfly
@@ -434,32 +1053,109 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <typename T, int V>
+void launch_gather(const void* g, const int* ws, const Layout& L,
+                   void* grad_fmap, int B, int H, int W, int C, int R, int P,
+                   cudaStream_t s) {
+  const int chunks = (C + 32 * V - 1) / (32 * V);
+  fmap_gather_kernel<T, V><<<B * L.nty * L.ntx * chunks, 32 * kTileH, 0,
+                             s>>>(
+      static_cast<const T*>(g), ws, ws + L.lists, ws + L.infos,
+      reinterpret_cast<const float*>(ws + L.lines), static_cast<T*>(grad_fmap),
+      R, H, W, C, P, L.nty, L.ntx, chunks);
+}
+
+// Once a process: the tensor-core kernels' shared memory limit (above the
+// default 48 KB), a side stream and two events for the heavy units' launch,
+// and the card's SM count (returned), or -(CUDA error). One card, the
+// port's.
+cudaStream_t g_side;
+cudaEvent_t g_fork, g_join;
+int mma_setup() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaStreamCreateWithFlags(&g_side,
+                                         cudaStreamNonBlocking)) !=
+            cudaSuccess ||
+        (err = cudaEventCreateWithFlags(&g_fork, cudaEventDisableTiming)) !=
+            cudaSuccess ||
+        (err = cudaEventCreateWithFlags(&g_join, cudaEventDisableTiming)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             fmap_gather_mma_kernel,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kMmaSmemFixed + 12 * kMmaMaxR)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             fmap_gather_mma_heavy_kernel,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kMmaSmemFixed + 12 * kMmaMaxR)) != cudaSuccess)
+      return -static_cast<int>(err);
+    return n;
+  }();
+  return sms;
+}
+
 template <typename T>
-int launch_fmap(const void* g, const void* boxes, float* scratch,
-                void* grad_fmap, int B, int H, int W, int C, int R,
-                float scale, int P, int ratio, cudaStream_t s) {
-  const size_t n = static_cast<size_t>(B) * H * W * C;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, n * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const T* gp = static_cast<const T*>(g);
+int launch_fmap(const void* g, const void* boxes, void* workspace,
+                size_t workspace_bytes, void* grad_fmap, int B, int H, int W,
+                int C, int R, float scale, int P, int ratio, cudaStream_t s) {
+  const Layout L = fmap_layout(B, H, W, R, P);
+  if (workspace_bytes < L.words * sizeof(int))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int* ws = static_cast<int*>(workspace);
+  unsigned* masks = reinterpret_cast<unsigned*>(ws + L.masks);
+  float* lines = reinterpret_cast<float*>(ws + L.lines);
   const float* bx = static_cast<const float*>(boxes);
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(g);
+  cudaError_t err;
   if (R > 0) {
-    if (C % 4 == 0 && addr % (4 * sizeof(T)) == 0)
-      roi_align_bwd_fmap_kernel<T, 4><<<B * R, kThreads, 0, s>>>(
-          gp, bx, scratch, R, H, W, C, scale, P, ratio);
-    else
-      roi_align_bwd_fmap_kernel<T, 1><<<B * R, kThreads, 0, s>>>(
-          gp, bx, scratch, R, H, W, C, scale, P, ratio);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n = B * R * (2 + H + W);
+    tile_masks_lines_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+        bx, masks, lines, B * R, H, W, scale, P, ratio, L.my, L.mx);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
   }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int blocks = static_cast<int>(
-        (n + kThreads - 1) / kThreads < 4096 ? (n + kThreads - 1) / kThreads
-                                             : 4096);
-    cast_bf16_kernel<<<blocks, kThreads, 0, s>>>(
-        scratch, static_cast<__nv_bfloat16*>(grad_fmap), n);
+  const int tiles = B * L.nty * L.ntx;
+  tile_lists_kernel<<<tiles, kListThreads, 0, s>>>(
+      bx, masks, ws, ws + L.krows, ws + L.lists, ws + L.infos, ws + L.koffs,
+      R, H, W, scale, P, ratio, L.nty, L.ntx, L.my, L.mx);
+  if ((err = cudaGetLastError()) != cudaSuccess)
+    return static_cast<int>(err);
+  const size_t smem = kMmaSmemFixed + 3 * sizeof(int) * static_cast<size_t>(R);
+  if (std::is_same<T, __nv_bfloat16>::value && C % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(g) % 16 == 0 && R <= kMmaMaxR) {
+    const int chunks = (C + kMmaChannels - 1) / kMmaChannels;
+    const MmaArgs A{static_cast<const __nv_bfloat16*>(g), ws, ws + L.krows,
+                    ws + L.lists, ws + L.infos, ws + L.koffs, lines,
+                    static_cast<__nv_bfloat16*>(grad_fmap), R, H, W, C, P,
+                    L.nty, L.ntx, chunks};
+    const int units = tiles * chunks;
+    const int sms = mma_setup();
+    if (sms < 0) return -sms;
+    // the heavy units on a side stream, forked from and joined back into
+    // s, beside the light ones (the two write disjoint units): three
+    // clusters for every kSplit SMs (three blocks an SM)
+    const int clusters = sms / kSplit > 0 ? 3 * (sms / kSplit) : 1;
+    if ((err = cudaEventRecord(g_fork, s)) != cudaSuccess ||
+        (err = cudaStreamWaitEvent(g_side, g_fork, 0)) != cudaSuccess)
+      return static_cast<int>(err);
+    fmap_gather_mma_heavy_kernel<<<clusters * kSplit, kTileThreads, smem,
+                                   g_side>>>(A, units);
+    if ((err = cudaGetLastError()) != cudaSuccess ||
+        (err = cudaEventRecord(g_join, g_side)) != cudaSuccess)
+      return static_cast<int>(err);
+    fmap_gather_mma_kernel<<<units, kTileThreads, smem, s>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess ||
+        (err = cudaStreamWaitEvent(s, g_join, 0)) != cudaSuccess)
+      return static_cast<int>(err);
+  } else if (C % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(g) % (4 * sizeof(T)) == 0) {
+    launch_gather<T, 4>(g, ws, L, grad_fmap, B, H, W, C, R, P, s);
+  } else {
+    launch_gather<T, 1>(g, ws, L, grad_fmap, B, H, W, C, R, P, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -508,23 +1204,40 @@ const char* sgg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// grad_fmap (B, H, W, C) of roi_align from g (B, R, P, P, C); scratch is
-// B * H * W * C f32, zeroed here; for dtype 0 (float32) grad_fmap must be
-// scratch itself, for dtype 1 (bfloat16) the scratch is cast into it.
-int sgg_roi_align_bwd_fmap(const void* g, const void* boxes, float* scratch,
-                           void* grad_fmap, int B, int H, int W, int C, int R,
-                           float scale, int pooled, int ratio, int dtype,
-                           void* stream) {
+// K1-bwd-fmap's workspace for (B, H, W, R, pooled): out[0] and out[1] the
+// tile's rows and columns of map cells, out[2] and out[3] the tiles along y
+// and x, out[4] its bytes, out[5] and out[6] the word offsets of the tile
+// lists and of the ROI masks (the tiles' counts at word 0). Launches
+// nothing.
+int sgg_roi_align_bwd_fmap_layout(int B, int H, int W, int R, int pooled,
+                                  long long* out) {
+  const Layout L = fmap_layout(B, H, W, R, pooled);
+  out[0] = kTileH;
+  out[1] = kTileW;
+  out[2] = L.nty;
+  out[3] = L.ntx;
+  out[4] = static_cast<long long>(L.words * sizeof(int));
+  out[5] = static_cast<long long>(L.lists);
+  out[6] = static_cast<long long>(L.masks);
+  return 0;
+}
+
+// grad_fmap (B, H, W, C) in the map's type (dtype 0 float32, 1 bfloat16)
+// of roi_align from g (B, R, P, P, C); workspace: at least the bytes that
+// sgg_roi_align_bwd_fmap_layout gives, which need no clearing.
+int sgg_roi_align_bwd_fmap(const void* g, const void* boxes, void* workspace,
+                           size_t workspace_bytes, void* grad_fmap, int B,
+                           int H, int W, int C, int R, float scale,
+                           int pooled, int ratio, int dtype, void* stream) {
   if (bad_args(pooled, ratio)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && grad_fmap != scratch)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || C == 0 || H == 0 || W == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_fmap<__nv_bfloat16>(g, boxes, scratch, grad_fmap, B, H, W,
-                                      C, R, scale, pooled, ratio, s);
-  return launch_fmap<float>(g, boxes, scratch, grad_fmap, B, H, W, C, R,
-                            scale, pooled, ratio, s);
+    return launch_fmap<__nv_bfloat16>(g, boxes, workspace, workspace_bytes,
+                                      grad_fmap, B, H, W, C, R, scale, pooled,
+                                      ratio, s);
+  return launch_fmap<float>(g, boxes, workspace, workspace_bytes, grad_fmap,
+                            B, H, W, C, R, scale, pooled, ratio, s);
 }
 
 // grad_boxes (B, R, 4) f32 of roi_align from g (B, R, P, P, C) and fmap.

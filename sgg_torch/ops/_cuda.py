@@ -11,9 +11,11 @@ source is rebuilt. The build directory ``sgg_torch/build/`` is listed in
 Each C entry point takes device pointers, sizes and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch(es); ``CudaKernel.launch``
 raises if that is not 0 and otherwise counts the launch, in all and by
-route (the element type the wrapper launched it for). Several entry points
-may share one source (K1's two backward kernels): they share its library,
-built once.
+route (the element type or design the wrapper launched it for). Several
+entry points may share one source (K1's two backward kernels): they share
+its library, built once. A library may also export C functions that launch
+nothing (K1-bwd-fmap's workspace layout); ``CudaKernel.helper`` binds them,
+uncounted.
 
 Forward and backward kernels meet in ``torch.autograd.Function``s
 (``ops/roi_align.py``, ``ops/vgg_stem.py``). An input that no backward
@@ -68,6 +70,7 @@ class CudaKernel:
         self.routes: Counter = Counter()
         self.build_log = ""
         self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
 
     @property
@@ -124,8 +127,19 @@ class CudaKernel:
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 self._error_string = err
+                self._lib = lib
                 self._fn = fn
         return self._fn
+
+    def helper(self, symbol: str, argtypes: Sequence,
+               restype=ctypes.c_int):
+        """Another C function of this kernel's library, one that launches
+        nothing (a size or layout query); calls to it are not counted."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
 
     def reset_counts(self) -> None:
         self.launches = 0

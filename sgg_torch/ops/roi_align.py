@@ -17,13 +17,19 @@ backward computes what the JAX package differentiates: ``grad_fmap`` as
 ``roi_align_pallas``' custom VJP (``_bwd``), ``grad_boxes`` as XLA's
 autodiff of the separable ``sgg_tpu/ops/roi_align.py:roi_align`` (the JAX
 detector's train step differentiates through its proposals).
-``folded_axis_taps`` models the kernels' per-bin tap tables in numpy for
-the CPU tests; nothing on the main path calls it.
+K1-bwd-fmap is a gather that needs no atomics: per tile of map cells it
+lists the ROIs with a tap there, on the card, then sums each cell over its
+tile's list in a fixed order, on the tensor cores for a bf16 map
+(``csrc/roi_align_bwd.cu``); two launches give the same bits.
+``folded_axis_taps`` models the kernels' per-bin tap tables and
+``roi_tile_lists`` K1-bwd-fmap's tile lists, for the CPU tests; nothing on
+the main path calls either.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -38,12 +44,17 @@ KERNEL = CudaKernel(
     [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P])
 KERNEL_BWD_FMAP = CudaKernel(
     "roi_align_bwd.cu", "sgg_roi_align_bwd_fmap",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P])
+    [_P, _P, _P, ctypes.c_size_t, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+     _P])
 KERNEL_BWD_BOXES = CudaKernel(
     "roi_align_bwd.cu", "sgg_roi_align_bwd_boxes",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+FMAP_ROUTES = {torch.float32: "f32-gather", torch.bfloat16: "bf16-gather"}
+# K1-bwd-fmap's tiles: map rows x columns (kTileH, kTileW of
+# csrc/roi_align_bwd.cu; the card tests hold the two equal)
+FMAP_TILE = (4, 4)
 
 
 def _interp_weights(start: torch.Tensor, extent: torch.Tensor, dim: int,
@@ -110,6 +121,32 @@ def folded_axis_taps(start: float, extent: float, dim: int, pooled: int,
                     taps.append([index, w])
         table.append([(index, float(w)) for index, w in taps])
     return table
+
+
+def roi_tile_lists(boxes: torch.Tensor, fmap_hw: Tuple[int, int], *,
+                   spatial_scale: float, tile: Tuple[int, int] = FMAP_TILE,
+                   pooled: int = 7, ratio: int = 2) -> List[List[List[int]]]:
+    """Model of K1-bwd-fmap's tile lists: per image, per tile of ``tile``
+    (rows, columns) map cells (row-major, ragged at the right and bottom
+    edges), the ROIs in ascending order that have a tap of nonzero weight
+    in one of the tile's rows and one in its columns, as the kernel's
+    per-axis tile masks hold them (each sample's low and high tap where its
+    weight is not 0; ``w / ratio`` is 0 only where ``w`` is)."""
+    H, W = fmap_hw
+    x1, y1, roi_w, roi_h = _box_frames(boxes.detach().cpu(), spatial_scale)
+    hits = []
+    for start, extent, dim, tile in ((y1, roi_h, H, tile[0]),
+                                     (x1, roi_w, W, tile[1])):
+        lo, hi, _, _, w_lo, w_hi = _axis_samples(start, extent, dim, pooled,
+                                                 ratio)
+        n = -(-dim // tile)
+        hits.append(((F.one_hot(lo // tile, n) & (w_lo != 0)[..., None])
+                     | (F.one_hot(hi // tile, n) & (w_hi != 0)[..., None])
+                     ).any(-2))  # (B, R, tiles along the axis)
+    rows, cols = hits
+    return [[torch.nonzero(rows[b, :, ty] & cols[b, :, tx])[:, 0].tolist()
+             for ty in range(rows.shape[-1]) for tx in range(cols.shape[-1])]
+            for b in range(rows.shape[0])]
 
 
 def _box_frames(boxes: torch.Tensor, spatial_scale: float):
@@ -298,16 +335,53 @@ def _forward_kernel(fmap, boxes, scale, pooled, ratio) -> torch.Tensor:
     return out
 
 
-def _grad_fmap_kernel(g, boxes, fmap_shape, dtype, scale, pooled, ratio):
-    """K1-bwd-fmap: f32 atomics into scratch allocated here, then cast."""
+@functools.lru_cache(maxsize=64)
+def fmap_workspace_layout(B: int, H: int, W: int, R: int,
+                          pooled: int = 7) -> dict:
+    """K1-bwd-fmap's workspace as its library lays it out: the tile's rows
+    and columns of map cells, the tiles along y and x, its bytes, and the
+    int32 word offsets of the tiles' lists (R words a tile, the first
+    ``count`` used) and of the ROIs' tile masks; the tiles' counts are
+    words 0 .. tiles - 1."""
+    out = (ctypes.c_longlong * 7)()
+    KERNEL_BWD_FMAP.helper("sgg_roi_align_bwd_fmap_layout",
+                           [_I, _I, _I, _I, _I,
+                            ctypes.POINTER(ctypes.c_longlong)])(
+        B, H, W, R, pooled, out)
+    return dict(zip(("tile_h", "tile_w", "nty", "ntx", "bytes", "lists",
+                     "masks"), (int(v) for v in out)))
+
+
+def fmap_tile_lists(workspace: torch.Tensor, layout: dict, B: int,
+                    R: int) -> List[List[List[int]]]:
+    """K1-bwd-fmap's tile lists as its list pass left them in
+    ``workspace``, per image and tile: what ``roi_tile_lists`` models."""
+    ws = workspace.cpu()
+    nt = layout["nty"] * layout["ntx"]
+    counts = ws[:B * nt].tolist()
+    lists = ws[layout["lists"]:layout["lists"] + B * nt * R].view(B * nt, R)
+    return [[lists[b * nt + t, :counts[b * nt + t]].tolist()
+             for t in range(nt)] for b in range(B)]
+
+
+def _grad_fmap_kernel(g, boxes, fmap_shape, dtype, scale, pooled, ratio,
+                      workspace=None):
+    """K1-bwd-fmap: the tile lists built on the card into an int32
+    workspace (allocated here unless given, for a test to read; nothing in
+    it needs clearing), then the gather writes the gradient in ``dtype``;
+    the host waits for nothing."""
     B, H, W, C = fmap_shape
-    scratch = torch.empty((B, H, W, C), dtype=torch.float32, device=g.device)
-    grad = scratch if dtype == torch.float32 else torch.empty(
-        (B, H, W, C), dtype=dtype, device=g.device)
+    R = boxes.shape[1]
+    if workspace is None:
+        workspace = torch.empty(
+            -(-fmap_workspace_layout(B, H, W, R, pooled)["bytes"] // 4),
+            dtype=torch.int32, device=g.device)
+    grad = torch.empty((B, H, W, C), dtype=dtype, device=g.device)
     KERNEL_BWD_FMAP.launch(
-        g.data_ptr(), boxes.data_ptr(), scratch.data_ptr(), grad.data_ptr(),
-        B, H, W, C, boxes.shape[1], float(scale), pooled, ratio,
-        _DTYPES[dtype], _stream(g), route=ROUTES[dtype])
+        g.data_ptr(), boxes.data_ptr(), workspace.data_ptr(),
+        workspace.numel() * workspace.element_size(), grad.data_ptr(),
+        B, H, W, C, R, float(scale), pooled, ratio, _DTYPES[dtype],
+        _stream(g), route=FMAP_ROUTES[dtype])
     return grad
 
 

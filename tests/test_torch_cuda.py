@@ -32,9 +32,14 @@ def _roi_case(kind, C=200, seed=0):
     rng = np.random.RandomState(seed)
     B, H, W = 2, 9, 11
     fmap = rng.randn(B, H, W, C).astype(np.float32)
-    R = 70 if kind == "ragged" else 9
+    R = 70 if kind in ("ragged", "crowded") else 9
     boxes = rng.rand(B, R, 4).astype(np.float32) * 140
     boxes[..., 2:] += boxes[..., :2] + 10
+    if kind == "crowded":  # jittered around one point: one tile's list
+        centre = 88.0 + rng.uniform(-4, 4, (B, R, 2))
+        half = rng.uniform(2, 6, (B, R, 2))
+        boxes = np.concatenate([centre - half, centre + half],
+                               -1).astype(np.float32)
     if kind == "degenerate":
         boxes[:, :3] = 0.0
         boxes[:, 3] = [50.0, 60.0, 40.0, 20.0]
@@ -253,16 +258,19 @@ def _rel(got, want):
 
 # C = 200: 4 channels a thread (fmap) / a 16-byte chunk (boxes); 203:
 # single channels; 256: FPN's width
+BWD_KINDS = ["random", "ragged", "degenerate", "outside", "wholemap",
+             "on_grid", "crowded"]
+
+
 @pytest.mark.parametrize("C", [200, 203, 256])
-@pytest.mark.parametrize("kind", ["random", "ragged", "degenerate",
-                                  "outside", "wholemap", "on_grid"])
+@pytest.mark.parametrize("kind", BWD_KINDS)
 def test_roi_align_backward_kernels_match_plain(kind, C, dev):
     """K1-bwd-fmap and K1-bwd-boxes against their plain versions on the
-    same inputs, both summing in f32: within 1e-5 of the largest value for
-    the f32 map gradient (the kernel adds with atomics, in an order that
-    varies) and 1e-2 for the bf16 one (rounded to bf16 once, after the
-    sums); the box gradient within 1e-4 (its samples' differences of taps
-    cancel), and the same bits from a second launch."""
+    same inputs, both summing in f32 in their own orders: within 1e-5 of
+    the largest value for the f32 map gradient and 1e-2 for the bf16 one
+    (rounded to bf16 once, after the sums); the box gradient within 1e-4
+    (its samples' differences of taps cancel); and both kernels give the
+    same bits from a second launch."""
     fmap, boxes, g = (torch.from_numpy(a).to(dev)
                       for a in _bwd_case(kind, C))
     hw = fmap.shape[1:3]
@@ -274,13 +282,64 @@ def test_roi_align_backward_kernels_match_plain(kind, C, dev):
             gg, f, boxes, spatial_scale=1 / 16.0)
         got_f = troi._grad_fmap_kernel(gg, boxes, tuple(f.shape), dtype,
                                        1 / 16.0, 7, 2)
+        again_f = troi._grad_fmap_kernel(gg, boxes, tuple(f.shape), dtype,
+                                         1 / 16.0, 7, 2)
         got_b = troi._grad_boxes_kernel(gg, f, boxes, 1 / 16.0, 7, 2)
         again_b = troi._grad_boxes_kernel(gg, f, boxes, 1 / 16.0, 7, 2)
         torch.cuda.synchronize()
         assert got_f.dtype == dtype and got_b.dtype == torch.float32
+        assert torch.equal(got_f, again_f), (dtype, "fmap repeat")
         assert torch.equal(got_b, again_b), (dtype, "boxes repeat")
         assert _rel(got_f, want_f) <= tol, (dtype, "fmap")
         assert _rel(got_b, want_b) <= 1e-4, (dtype, "boxes")
+
+
+@pytest.mark.parametrize("kind", BWD_KINDS)
+def test_roi_align_backward_fmap_tile_lists_match_model(kind, dev):
+    """The kernel's tile lists are the CPU model's (``roi_tile_lists``,
+    held against brute force in ``test_torch_roi_tiles.py``), on a
+    workspace filled with garbage first: nothing in it needs clearing."""
+    _, boxes, g = (torch.from_numpy(a).to(dev) for a in _bwd_case(kind, 8))
+    B, R = boxes.shape[:2]
+    layout = troi.fmap_workspace_layout(B, 9, 11, R)
+    assert (layout["tile_h"], layout["tile_w"]) == troi.FMAP_TILE
+    ws = torch.full((-(-layout["bytes"] // 4),), -7, dtype=torch.int32,
+                    device=dev)
+    troi._grad_fmap_kernel(g, boxes, (B, 9, 11, 8), torch.float32,
+                           1 / 16.0, 7, 2, workspace=ws)
+    torch.cuda.synchronize()
+    assert troi.fmap_tile_lists(ws, layout, B, R) == troi.roi_tile_lists(
+        boxes, (9, 11), spatial_scale=1 / 16.0)
+
+
+def test_roi_align_backward_fmap_large_map(dev):
+    """K1-bwd-fmap over a 2 x 75 x 83 x 256 map at spatial scale 1/4 (19 x
+    21 tiles an image, the last row and column of them ragged), large and
+    small ROIs: the lists are the model's, both types within their limits
+    of the plain version, the same bits from two launches."""
+    rng = np.random.RandomState(5)
+    B, H, W, C, R = 2, 75, 83, 256, 40
+    xy = rng.uniform(-40, 280, (B, R, 2))
+    wh = rng.uniform(4, 360, (B, R, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(B, R, 7, 7, C).astype(np.float32)).to(dev)
+    layout = troi.fmap_workspace_layout(B, H, W, R)
+    assert (layout["nty"], layout["ntx"]) == (19, 21)
+    ws = torch.empty(-(-layout["bytes"] // 4), dtype=torch.int32, device=dev)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        gg = g.to(dtype)
+        want = troi.roi_align_backward_reference(gg, boxes, (H, W), dtype,
+                                                 spatial_scale=0.25)
+        got = troi._grad_fmap_kernel(gg, boxes, (B, H, W, C), dtype, 0.25,
+                                     7, 2, workspace=ws)
+        again = troi._grad_fmap_kernel(gg, boxes, (B, H, W, C), dtype, 0.25,
+                                       7, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), dtype
+        assert _rel(got, want) <= tol, dtype
+        assert troi.fmap_tile_lists(ws, layout, B, R) == troi.roi_tile_lists(
+            boxes, (H, W), spatial_scale=0.25)
 
 
 @pytest.mark.parametrize("hw", [(37, 29), (64, 70)])
@@ -460,8 +519,9 @@ def test_detector_train_step_does_not_wait_for_the_card(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert all(torch.isfinite(v).item() for v in metrics.values())
-    # K2-bwd on the tensor cores only
-    assert [dict(k.routes) for k in ks] == [{"bf16": 1}] * 4 + [
+    # K1-bwd-fmap's gather, K2-bwd on the tensor cores
+    assert [dict(k.routes) for k in ks] == [
+        {"bf16": 1}, {"bf16-gather": 1}, {"bf16": 1}, {"bf16": 1},
         {"bf16-mma": 1}]
 
 
