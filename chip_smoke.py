@@ -8,7 +8,7 @@ JAX. Phases, one or more lines each; any failure ends the run with a
 non-zero exit and without the result line:
 
 1. card facts: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the five CUDA kernels from the three sources in
+2. build the five CUDA kernels from the four sources in
    ``sgg_torch/csrc`` (one ``nvcc`` a source, in parallel);
 3. each kernel against its plain PyTorch version at the training path's
    shapes (batch 24: nodes R=40, unions R=256) and at the eval path's
@@ -96,13 +96,43 @@ non-zero exit and without the result line:
    more than the rate times their gradients' difference), with where the
    gap comes from: both devices' heads on the card's feature map, both
    trunks' backward from one map gradient, and the max-pool picks, ReLU
-   signs and RoIAlign sample taps that differ between the devices.
+   signs and RoIAlign sample taps that differ between the devices;
+9. ResNet50-FPN at full width under its own deadline (592 px, 256
+   channels, obj_dim 1024, 151 classes, 51 predicates, bf16 over f32
+   masters): ``pretrain`` with its default detector, ``FasterRCNNFPN(151)``
+   (batch 3, 18 images, 2 epochs = 12 steps), counted (K1, K1-bwd-fmap
+   and K1-bwd-boxes 4 times a step, once a pyramid level, on their bf16
+   routes; K2 never), finite losses, every parameter moved and no
+   BatchNorm statistic; a step under ``set_sync_debug_mode("error")``,
+   timed whole and by stage; K1 and both backward kernels at P2-P5's
+   shapes on the step's proposals (the gradient's rows zero outside each
+   level's ROIs, as ``multiscale_roi_align`` gives them) and K1 on the
+   relation head's 10 x 10 x 256 pool level, against their plain versions
+   under phase 3's and phase 8's limits, the backward kernels twice for
+   the same bits, with times and bounds; ``main -m sgdet -backbone
+   resnet50 -nepoch 0 -ckpt`` on the pretraining's payload and one
+   relation train step at batch 6 on that frozen detector (4 + 2 K1
+   launches), and the same CLI on a random FPN detector whose classifier
+   is scaled by ``CLS_SCALE``, so that detections reach the relation head
+   (4 K1 launches a detector pass, 2 a relation pass); one f32 FPN detector
+   step card against CPU (2 images, the
+   card's proposal slots and the same draws: losses within 1e-5 relative,
+   each part's gradient within ``FPN_GRAD_LIMIT`` in norm, a limit that
+   two faults on the card exceed: the top-down upsampling with torch's
+   ``nearest`` instead of JAX's rule, and RoIAlign's boxes detached); the
+   ``-backbone resnet50`` sgcls training at batch 24 (a warm-up and a
+   counted epoch, 2 K1 launches a step on the pool level, the trunk
+   bit-unchanged, a step's ms on the card) and its dual predcls/sgcls
+   evaluation, counted; and ``-edge_model raw_boxes`` on the VGG16 model,
+   one train step and one eval forward (2 K1 + 1 K2 each).
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
-``eval_shape``, the SGDet shapes' under ``sgdet``; the backward rows' at
-the pretraining shape; ``launches`` summed over the paths of phases 4, 5,
-7 and 8) and, last, the result line ``{"ok": true, "device": {...}}``.
+``eval_shape``, the SGDet shapes' under ``sgdet``, the FPN levels' and the
+pool level's under ``fpn``; the backward rows' at the pretraining shape,
+their FPN levels' under ``fpn``; ``launches`` summed over the paths of
+phases 4, 5, 7, 8 and 9) and, last, the result line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -194,7 +224,10 @@ def bound_ms(n_bytes: float, flops: float, peaks, bf16: bool):
 
 
 def rel_err(torch, got, want) -> float:
-    return float((got.float() - want).abs().max() / want.abs().max())
+    """Max abs error over ``want``'s largest magnitude; 0 where both are
+    all zero (an FPN level with no ROI of its own gets no gradient)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2172,6 +2205,751 @@ def phase_pretrain(torch, peaks, rows):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 9: ResNet50-FPN (relation model, SGDet, detector pretraining) and
+# edge_model="raw_boxes"
+
+# FPN pretraining: batch 3 (the reference's VG batch), 18 images, 2 epochs
+# (12 steps); the card-vs-CPU step's gradients, relative in norm by part,
+# are held at FPN_GRAD_LIMIT, which both faults exceed
+FPN_IMAGES, FPN_EPOCHS = 18, 2
+FPN_DEADLINE_S = 480
+FPN_GRAD_LIMIT = 2e-3
+FPN_LEVELS = (("p2", 4), ("p3", 8), ("p4", 16), ("p5", 32))
+# a step's launches of each kernel on the FPN paths: multiscale_roi_align
+# pools P2-P5 (4 K1 launches) and its backward takes both gradients there
+FPN_STEP = {"roi_align": 4, "roi_align_bwd_fmap": 4,
+            "roi_align_bwd_boxes": 4, "vgg_conv1": 0, "vgg_conv1_bwd": 0}
+FPN_ROUTES = {"roi_align": "bf16", "roi_align_bwd_fmap": "bf16-gather",
+              "roi_align_bwd_boxes": "bf16"}
+
+
+def _fpn_groups(named):
+    """Parameter names of the FPN detector by part."""
+    out = {}
+    for n in named:
+        head = n.split(".")[0]
+        part = (n.split(".")[1] if head == "backbone"
+                else head if head in ("rpn", "box_head") else "classifier")
+        out.setdefault(part, []).append(n)
+    return out
+
+
+def fpn_pretrain_run(torch, splits, ckdir):
+    """9a: ``pretrain`` with its default detector, the ResNet50-FPN one, at
+    full width, counted: K1 and both backward kernels 4 times a step on
+    their bf16 routes, K2 never; finite losses; every parameter moved
+    (the BatchNorms' scales and biases among them), their statistics
+    not."""
+    from sgg_torch.models.detector import FasterRCNNFPN, init_detector_weights
+    from sgg_torch.pretrain_detector import pretrain
+
+    init_det = init_detector_weights(FasterRCNNFPN(151), 0)
+    init = {n: p.detach().clone() for n, p in init_det.named_parameters()}
+    stats0 = {n: b.clone() for n, b in init_det.named_buffers()}
+    del init_det
+    steps = FPN_EPOCHS * (FPN_IMAGES // PRETRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (det, state), n, routes = _counted(torch, lambda: pretrain(
+        splits, num_epochs=FPN_EPOCHS, batch_size=PRETRAIN_BATCH,
+        save_dir=ckdir, steps_per_print=2, device="cuda"))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = dict(det.named_parameters())
+    groups = _fpn_groups(params)
+    moved = {g: sum(not torch.equal(params[k].detach().cpu(), init[k])
+                    for k in names) for g, names in groups.items()}
+    sizes = {g: len(names) for g, names in groups.items()}
+    stats_kept = all(torch.equal(b.cpu(), stats0[k])
+                     for k, b in det.named_buffers())
+    losses = [{k: round(v, 5) for k, v in h.items()} for h in state.history]
+    print(f"phase 9 FPN pretrain (pretrain(detector=None) = "
+          f"FasterRCNNFPN(151), {CANVAS} px, batch {PRETRAIN_BATCH}, "
+          f"{FPN_IMAGES} images, {FPN_EPOCHS} epochs, bf16 over f32 "
+          f"masters): {state.step} steps in {wall:.2f} s with set-up = "
+          f"{state.step * PRETRAIN_BATCH / wall:.2f} images/s, the last "
+          f"interval {PRETRAIN_BATCH / state.history[-1]['s_per_batch']:.2f}"
+          f" images/s (host included); peak device memory {peak:.2f} GiB; "
+          f"losses by interval {json.dumps(losses)}; launches "
+          f"{json.dumps(n)} by route {json.dumps(routes)}; parameters "
+          f"moved {json.dumps(moved)} of {json.dumps(sizes)}; BatchNorm "
+          f"statistics unchanged: {stats_kept}", flush=True)
+    check(type(det).__name__ == "FasterRCNNFPN", f"pretrained {type(det)}")
+    check(state.step == steps, f"{state.step} steps, want {steps}")
+    check(all(math.isfinite(v) for h in state.history for v in h.values()),
+          "non-finite FPN pretraining losses")
+    check(all(p.dtype == torch.float32 for p in params.values()),
+          "master weights are not float32")
+    check(moved == sizes, f"parameters that did not move: {moved} of "
+                          f"{sizes}")
+    check(stats_kept, "FPN pretraining changed BatchNorm statistics")
+    want = {k: steps * v for k, v in FPN_STEP.items()}
+    want_routes = {k: ({FPN_ROUTES[k]: want[k]} if want[k] else {})
+                   for k in want}
+    check(n == want and routes == want_routes,
+          f"FPN pretraining launched {n} by route {routes}; want {want} by "
+          f"route {want_routes}")
+    return det, n
+
+
+def fpn_step_profile(torch, det, splits):
+    """9b: one FPN pretraining step under ``set_sync_debug_mode("error")``,
+    whole steps by the host clock, a step by stage with CUDA events, the
+    profiler's kernels and the peak memory; returns the step's pyramid and
+    proposals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.models.detector import (balanced_draws, roi_head_losses,
+                                           rpn_losses)
+    from sgg_torch.pretrain_detector import (DetectorOptimizer,
+                                             make_detector_train_step)
+
+    batch = next(iter(BatchLoader(splits["train"], batch_size=PRETRAIN_BATCH,
+                                  max_nodes=64, max_edges=1,
+                                  seed=0))).to("cuda")
+    opt = DetectorOptimizer(det, lambda count: 5e-6)
+    step = make_detector_train_step(det, opt)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms.sort()
+    names = ("backbone_forward", "heads_forward", "losses", "backward",
+             "optimizer")
+    totals = dict.fromkeys(names, 0.0)
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    for it in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        opt.zero_grad()
+        ev[0].record()
+        pyramid = det.backbone(batch.images)
+        ev[1].record()
+        out = det(None, batch.im_hw, pyramid=pyramid, gt_boxes=batch.boxes,
+                  gt_mask=batch.node_mask)
+        ev[2].record()
+        losses = rpn_losses(
+            balanced_draws(gen, out["rpn_obj_logits"].shape, "cuda"),
+            out["anchors"], out["rpn_obj_logits"], out["rpn_deltas"],
+            batch.boxes, batch.node_mask)
+        losses.update(roi_head_losses(
+            balanced_draws(gen, out["prop_mask"].shape, "cuda"),
+            out["proposals"], out["prop_mask"], out["class_logits"],
+            out["box_deltas"], batch.boxes, batch.classes, batch.node_mask))
+        total = sum(losses.values())
+        ev[3].record()
+        total.backward()
+        ev[4].record()
+        opt.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        if it:
+            for i, k in enumerate(names):
+                totals[k] += ev[i].elapsed_time(ev[i + 1]) / iters
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del out, losses, total, pyramid
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch, gen)
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    med = step_ms[len(step_ms) // 2]
+    print(f"phase 9 FPN pretrain step (batch {PRETRAIN_BATCH}, {CANVAS} px, "
+          f"bf16) on a batch on the card: {med:.3f} ms median of 5 (min "
+          f"{step_ms[0]:.3f}, max {step_ms[-1]:.3f}) = "
+          f"{PRETRAIN_BATCH * 1e3 / med:.2f} images/s; by stage "
+          + json.dumps({k: round(v, 3) for k, v in totals.items()})
+          + f" ms; peak device memory {peak:.2f} GiB; no host sync under "
+          f"set_sync_debug_mode('error'); kernels "
+          + (f"{sum(per_kernel.values()):.3f} ms busy, top "
+             + json.dumps({k[:80]: round(v, 4) for k, v in top})
+             if per_kernel else "not measured (no device events)"),
+          flush=True)
+    with torch.no_grad():
+        pyramid = det.backbone(batch.images)
+        props = det(None, batch.im_hw, pyramid=pyramid, gt_boxes=batch.boxes,
+                    gt_mask=batch.node_mask)["proposals"]
+    return pyramid, props.contiguous()
+
+
+def fpn_kernels(torch, peaks, pyramid, props):
+    """9c: K1, K1-bwd-fmap and K1-bwd-boxes at each of P2-P5's shapes (the
+    step's 512 proposal slots an image, C = 256) as
+    ``multiscale_roi_align`` calls them, the gradient's rows zero outside
+    the level's own ROIs; and K1 on the relation head's stride-64 ``pool``
+    level at the sgcls training shape (batch 24, 10 x 10 x 256, nodes R=40
+    + unions R=256). Each against its plain version (f32 and bf16, the
+    limits of phases 3 and 8), both backward kernels twice for the same
+    bits, times on the bf16 routes beside the bounds (the backward kernels'
+    operations counted over the level's own ROIs, the only ones whose
+    gradient is not zero)."""
+    from sgg_torch.models.resnet import roi_level_assignment
+    from sgg_torch.ops import roi_align as K1
+    g_ = torch.Generator().manual_seed(11)
+    B, R = props.shape[:2]
+    C = pyramid["p2"].shape[-1]
+    levels = roi_level_assignment(props)
+    out = {"roi_align": {}, "roi_align_bwd_fmap": {},
+           "roi_align_bwd_boxes": {}}
+    n_boxes = props.numel() * 4
+    for lvl, (name, stride) in enumerate(FPN_LEVELS):
+        f16 = pyramid[name].contiguous()
+        H, W = f16.shape[1:3]
+        scale = 1.0 / stride
+        sel = levels == lvl
+        f32 = torch.randn(B, H, W, C, generator=g_).cuda()
+        g32 = torch.randn(B, R, 7, 7, C, generator=g_).cuda() \
+            * sel[..., None, None, None]
+        want = K1.roi_align_reference(f32, props, spatial_scale=scale)
+        err = float((K1.roi_align(f32, props, spatial_scale=scale)
+                     - want).abs().max())
+        rel = rel_err(torch, K1.roi_align(f32.bfloat16(), props,
+                                          spatial_scale=scale), want)
+        check(err <= 1e-5 and rel <= 2e-2,
+              f"roi_align at {name}: f32 max|err| {err}, bf16 rel {rel}")
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            f, g = f32.to(dtype), g32.to(dtype)
+            want_f = K1.roi_align_backward_reference(
+                g, props, (H, W), dtype, spatial_scale=scale)
+            want_b = K1.roi_align_boxes_grad_reference(g, f, props,
+                                                       spatial_scale=scale)
+            got = [(K1._grad_fmap_kernel(g, props, (B, H, W, C), dtype,
+                                         scale, 7, 2),
+                    K1._grad_boxes_kernel(g, f, props, scale, 7, 2))
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            check(torch.equal(got[0][0], got[1][0])
+                  and torch.equal(got[0][1], got[1][1]),
+                  f"{name}: two launches of the backward kernels on the "
+                  f"same inputs differ ({dtype})")
+            errs[dtype] = (
+                float((got[0][0].float() - want_f.float()).abs().max()),
+                rel_err(torch, got[0][0], want_f),
+                float((got[0][1] - want_b).abs().max()),
+                rel_err(torch, got[0][1], want_b))
+            del want_f, want_b, got
+        e32, e16 = errs[torch.float32], errs[torch.bfloat16]
+        check(e32[1] <= 1e-5 and e16[1] <= 1e-2,
+              f"roi_align_bwd_fmap at {name}: rel err f32 {e32[1]}, bf16 "
+              f"{e16[1]}")
+        check(e32[3] <= 1e-4 and e16[3] <= 1e-4,
+              f"roi_align_bwd_boxes at {name}: rel err f32 {e32[3]}, bf16 "
+              f"{e16[3]}")
+        g16 = g32.bfloat16()
+        n_out = B * R * 49 * C
+        fwd_bytes = f16.numel() * 2 + n_boxes + n_out * 2
+        bms, bby = bound_ms(fwd_bytes, n_out * 32, peaks, bf16=True)
+        shape = (f"{B}x{H}x{W}x{C} bf16 at 1/{stride}, {R} proposal slots "
+                 f"an image, {int(sel.sum())} of {B * R} on this level")
+        out["roi_align"][name] = dict(
+            max_abs_err=err, bf16_rel_err=rel,
+            ms=time_ms(lambda: K1.roi_align(f16, props, spatial_scale=scale)),
+            plain_ms=time_ms(lambda: K1.roi_align_reference(
+                f16, props, spatial_scale=scale), iters=3, warmup=1),
+            bound_ms=bms, bound_by=bby, library_ms=None, shape=shape)
+        ny, nx, dy, dx = _tap_counts(torch, props, H, W, scale)
+        m = sel.cpu().double()
+        fmap_ops = 2 * C * float((ny.sum(-1) * nx.sum(-1) * m).sum())
+        boxes_ops = 3 * C * float(((dy * nx.sum(-1) + dx * ny.sum(-1))
+                                   * m).sum())
+        for kname, fn, plain, n_bytes, ops, e in (
+                ("roi_align_bwd_fmap",
+                 lambda: K1._grad_fmap_kernel(g16, props, (B, H, W, C),
+                                              torch.bfloat16, scale, 7, 2),
+                 lambda: K1.roi_align_backward_reference(
+                     g16, props, (H, W), torch.bfloat16,
+                     spatial_scale=scale),
+                 g16.numel() * 2 + n_boxes + f16.numel() * 2, fmap_ops,
+                 (e32[0], e32[1], e16[1])),
+                ("roi_align_bwd_boxes",
+                 lambda: K1._grad_boxes_kernel(g16, f16, props, scale, 7, 2),
+                 lambda: K1.roi_align_boxes_grad_reference(
+                     g16, f16, props, spatial_scale=scale),
+                 g16.numel() * 2 + f16.numel() * 2 + 2 * n_boxes, boxes_ops,
+                 (e32[2], e32[3], e16[3]))):
+            bms, bby = bound_ms(n_bytes, ops, peaks, bf16=False)
+            out[kname][name] = dict(
+                max_abs_err=e[0], f32_rel_err=e[1], bf16_rel_err=e[2],
+                ms=time_ms(fn), plain_ms=time_ms(plain, iters=3, warmup=1),
+                bound_ms=bms, bound_by=bby, library_ms=None, shape=shape)
+        del f32, g32, g16, want
+        torch.cuda.empty_cache()
+
+    # the relation head: the pool level at the sgcls training shape
+    Bt, side = TRAIN_BATCH, pyramid["pool"].shape[1]
+    pool32 = torch.randn(Bt, side, side, C, generator=g_).cuda()
+    nodes = eval_boxes(g_, Bt, TRAIN_NODES, CANVAS).cuda()
+    unions = eval_boxes(g_, Bt, TRAIN_EDGES, CANVAS).cuda()
+    err, rel = 0.0, 0.0
+    for bx in (nodes, unions):
+        want = K1.roi_align_reference(pool32, bx, spatial_scale=1 / 64)
+        err = max(err, float((K1.roi_align(pool32, bx, spatial_scale=1 / 64)
+                              - want).abs().max()))
+        rel = max(rel, rel_err(torch, K1.roi_align(
+            pool32.bfloat16(), bx, spatial_scale=1 / 64), want))
+    check(err <= 1e-5 and rel <= 2e-2,
+          f"roi_align on the pool level: f32 max|err| {err}, bf16 rel {rel}")
+    p16 = pool32.bfloat16()
+    n_out = Bt * (TRAIN_NODES + TRAIN_EDGES) * 49 * C
+    n_bytes = 2 * p16.numel() * 2 + (nodes.numel() + unions.numel()) * 4 \
+        + n_out * 2
+    bms, bby = bound_ms(n_bytes, n_out * 32, peaks, bf16=True)
+    out["roi_align"]["pool_relation"] = dict(
+        max_abs_err=err, bf16_rel_err=rel,
+        ms=time_ms(lambda: [K1.roi_align(p16, x, spatial_scale=1 / 64)
+                            for x in (nodes, unions)]),
+        plain_ms=time_ms(lambda: [K1.roi_align_reference(
+            p16, x, spatial_scale=1 / 64) for x in (nodes, unions)]),
+        bound_ms=bms, bound_by=bby, library_ms=None,
+        shape=f"{Bt}x{side}x{side}x{C} bf16 at 1/64; nodes R={TRAIN_NODES}"
+              f" + unions R={TRAIN_EDGES} (one forward's two launches)")
+    del pool32, p16
+    torch.cuda.empty_cache()
+    for kname, row in out.items():
+        for shape, m in row.items():
+            extra = (f", f32 rel {m['f32_rel_err']:.3g}"
+                     if "f32_rel_err" in m else "")
+            print(f"phase 9 {kname} ({shape}): {m['ms']:.4f} ms, bound "
+                  f"{m['bound_ms']:.4f} ms ({m['bound_by']}), plain "
+                  f"{m['plain_ms']:.4f} ms; max|err| f32 "
+                  f"{m['max_abs_err']:.3g}{extra}, bf16 rel "
+                  f"{m['bf16_rel_err']:.3g} [{m['shape']}]", flush=True)
+    return out
+
+
+def fpn_card_vs_cpu(torch, splits):
+    """9d: one f32 FPN detector step at full width, 2 images, on the card
+    and on the CPU from the same weights, on the card's proposal slots and
+    the same draws: losses within 1e-5 relative, each part's gradient
+    (``p.grad``) within ``FPN_GRAD_LIMIT`` in norm. Two faults on the card
+    calibrate the limit, and both must exceed it: the FPN's top-down
+    upsampling with torch's ``nearest`` (not JAX's rule) and RoIAlign's
+    boxes detached."""
+    import copy
+
+    import torch.nn.functional as F
+
+    import sgg_torch.models.detector as D
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.models.detector import (FasterRCNNFPN, balanced_draws,
+                                           init_detector_weights)
+    from sgg_torch.pretrain_detector import (DetectorOptimizer,
+                                             detector_losses)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 1)
+    init = init_detector_weights(FasterRCNNFPN(151), 1)
+    parts = _fpn_groups(dict(init.named_parameters()))
+    batch = next(iter(BatchLoader(splits["train"], batch_size=2,
+                                  max_nodes=64, max_edges=1,
+                                  shuffle=False)))
+    batches = {"cuda": batch.to("cuda"), "cpu": batch.to("cpu")}
+    card = copy.deepcopy(init).cuda()
+    with torch.no_grad():
+        out = card(batches["cuda"].images, batches["cuda"].im_hw,
+                   gt_boxes=batches["cuda"].boxes,
+                   gt_mask=batches["cuda"].node_mask)
+    index = (out["proposal_index"], out["rpn_prop_mask"])
+    gen = torch.Generator().manual_seed(4)
+    draws = {"rpn": balanced_draws(gen, out["rpn_obj_logits"].shape, "cpu"),
+             "roi": balanced_draws(gen, out["prop_mask"].shape, "cpu")}
+    del out
+
+    def run(det, d):
+        opt = DetectorOptimizer(det, lambda count: LR_CHECK)
+        opt.zero_grad()
+        losses, _ = detector_losses(
+            det, batches[d],
+            draws={k: tuple(u.to(d) for u in v) for k, v in draws.items()},
+            proposal_index=tuple(t.to(d) for t in index))
+        sum(losses.values()).backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 .detach().cpu().clone() for n, p in det.named_parameters()}
+        if d == "cuda":
+            torch.cuda.synchronize()
+        return {k: v.detach().cpu() for k, v in losses.items()}, grads
+
+    t0 = time.perf_counter()
+    l_card, g_card = run(card, "cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = run(copy.deepcopy(init), "cpu")
+    t_cpu = time.perf_counter() - t0
+    loss_err = {k: float((l_card[k] - v).abs() / v.abs().clamp(min=1e-12))
+                for k, v in l_cpu.items()}
+    grad_err = _part_err(torch, g_card, g_cpu, parts)
+    del card
+    faults = {}
+    interpolate, msra = F.interpolate, D.multiscale_roi_align
+    try:
+        F.interpolate = lambda x, size=None, mode=None, **k: interpolate(
+            x, size=size, mode="nearest")
+        faults["upsample nearest"] = run(copy.deepcopy(init).cuda(), "cuda")
+    finally:
+        F.interpolate = interpolate
+    try:
+        D.multiscale_roi_align = lambda maps, boxes, *a, **k: msra(
+            maps, boxes.detach(), *a, **k)
+        faults["boxes detached"] = run(copy.deepcopy(init).cuda(), "cuda")
+    finally:
+        D.multiscale_roi_align = msra
+    fault_err = {name: {"losses": max(
+        float((fl[k] - v).abs() / v.abs().clamp(min=1e-12))
+        for k, v in l_cpu.items()), **_part_err(torch, fg, g_cpu, parts)}
+        for name, (fl, fg) in faults.items()}
+    torch.cuda.empty_cache()
+    print(f"phase 9 FPN pretrain step card vs CPU (f32, 2 images, full "
+          f"width, the card's proposal slots and the same draws): losses "
+          f"rel err {json.dumps(loss_err)}; gradients rel err in norm by "
+          f"part {json.dumps(grad_err)} (limit {FPN_GRAD_LIMIT:g}); the "
+          f"faults on the card read {json.dumps(fault_err)}; card "
+          f"{t_card:.2f} s, CPU {t_cpu:.2f} s", flush=True)
+    check(all(v <= 1e-5 for v in loss_err.values()),
+          f"card vs CPU FPN losses differ: {loss_err}")
+    check(all(v <= FPN_GRAD_LIMIT for v in grad_err.values()),
+          f"card vs CPU FPN gradients differ: {grad_err}")
+    for name, e in fault_err.items():
+        check(max(v for k, v in e.items() if k != "losses")
+              > FPN_GRAD_LIMIT,
+              f"the gradient check does not see the fault '{name}': {e}")
+
+
+def fpn_relation(torch, splits):
+    """9e: ``-backbone resnet50`` sgcls training at the main command's
+    shape (``main.py -m sgcls -loss dnorm -b 24``; obj_dim 1024, relation
+    features from the stride-64 pool level), a warm-up epoch then a counted
+    one; a step's time on a batch on the card under the sync check; then
+    the dual predcls/sgcls evaluation, counted."""
+    from sgg_torch.config import Config
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.eval.driver import val_epoch
+    from sgg_torch.train.trainer import Trainer
+
+    config = Config(mode="sgcls", loss="dnorm", batch_size=TRAIN_BATCH,
+                    max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                    compute_dtype="bfloat16", device="cuda",
+                    print_interval=2, num_workers=4, backbone="resnet50")
+    trainer = Trainer(config, splits)
+    model = trainer.model
+    steps = trainer.steps_per_epoch
+    check(model.stride == 64 and model.roi_fmap.fc6.in_features == 49 * 256
+          and model.roi_fmap.fc7.out_features == 1024,
+          "the resnet50 relation model is not the stride-64, 256-channel, "
+          "1024-d one")
+    trunk0 = _snapshot(model, lambda n: n.startswith("trunk."))
+    trainer.train_epoch(0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, n_epoch, routes = _counted(torch, lambda: trainer.train_epoch(1))
+    loop_s = time.perf_counter() - t0
+    batch = next(iter(BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
+                                  max_nodes=TRAIN_NODES,
+                                  max_edges=TRAIN_EDGES,
+                                  seed=config.seed))).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms.sort()
+    med = step_ms[len(step_ms) // 2]
+    with torch.no_grad():
+        trunk_ms = time_ms(lambda: model.trunk.pool(batch.images), iters=5,
+                           warmup=1)
+    changed = [n for n, t in _snapshot(model, trunk0.__contains__).items()
+               if not torch.equal(t, trunk0[n])]
+    print(f"phase 9 resnet50 sgcls train_epoch (-backbone resnet50 -loss "
+          f"dnorm -b {TRAIN_BATCH}): {steps} steps in {loop_s:.3f} s = "
+          f"{steps * TRAIN_BATCH / loop_s:.2f} train images/s (host "
+          f"included); one step on a batch on the card {med:.3f} ms median "
+          f"of 5 (min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}), the "
+          f"trunk's pool level alone {trunk_ms:.3f} ms; no host sync under "
+          f"set_sync_debug_mode('error'); losses {json.dumps(losses)}; "
+          f"launches {json.dumps(n_epoch)} by route {json.dumps(routes)}; "
+          f"trunk bit-unchanged: {not changed}", flush=True)
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"non-finite resnet50 losses {losses}")
+    check(not changed, f"the resnet50 trunk changed: {changed[:5]}")
+    want = {"roi_align": 2 * steps, "vgg_conv1": 0, **NO_BACKWARD}
+    check(n_epoch == want and routes["roi_align"] == {"bf16": 2 * steps},
+          f"resnet50 train launched {n_epoch} by route {routes}; want "
+          f"{want}, bf16")
+    test = splits["test_alls"]
+    res, n_eval, routes = _counted(torch, lambda: val_epoch(
+        model, test, config, "test_alls", verbose=False, device="cuda"))
+    thr, cnt = res["_throughput"], res.get("_counters", {})
+    forwards = cnt.get("eval_ladder_batches", 0) \
+        + cnt.get("eval_dedup_fallback", 0)
+    rates = {m: round(thr[m]["images"] / thr[m]["seconds"], 2) for m in thr}
+    recalls = {k: v for k, v in res.items() if "R@" in k}
+    print(f"phase 9 resnet50 eval (predcls + sgcls, {len(test)} images): "
+          f"images/s {json.dumps(rates)} (host evaluator included); "
+          f"counters {json.dumps(cnt)}; launches {json.dumps(n_eval)} by "
+          f"route {json.dumps(routes)}", flush=True)
+    check(recalls and all(math.isfinite(v) for v in recalls.values()),
+          "resnet50 recalls missing or not finite")
+    check(n_eval == {"roi_align": 2 * forwards, "vgg_conv1": 0,
+                     **NO_BACKWARD} and forwards > 0,
+          f"resnet50 eval launched {n_eval} for {forwards} forwards")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return {"resnet50_train_epoch": n_epoch, "resnet50_eval": n_eval}
+
+
+def fpn_sgdet(torch, ckdir):
+    """9f: ``python -m sgg_torch.main -m sgdet -backbone resnet50 -nepoch
+    0 -ckpt <dir>`` on the payload FPN pretraining wrote, counted (a
+    detector barely trained may put no class above the 0.01 retry floor:
+    the CLI then stops with "evaluated zero images", read as zero
+    detections); then one relation train step at batch 6 on that frozen
+    detector, counted: 4 K1 launches for its proposals, 2 for the relation
+    head's nodes and unions on the pool level."""
+    from sgg_torch import main as cli
+    from sgg_torch.config import Config
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.models.detector import FasterRCNNFPN
+    from sgg_torch.train.checkpoint import load_detector
+    from sgg_torch.train.trainer import Trainer
+
+    argv = ["-m", "sgdet", "-backbone", "resnet50", "-nepoch", "0", "-ckpt",
+            ckdir, "-split", "synthetic", "-val_size", "16", "-nwork", "4"]
+
+    def evaluate():
+        try:
+            return cli.main(argv)
+        except RuntimeError as e:
+            if "evaluated zero images" not in str(e):
+                raise
+            return None
+
+    t0 = time.perf_counter()
+    res, n, routes = _counted(torch, evaluate)
+    wall = time.perf_counter() - t0
+    if res is None:
+        what = ("the CLI stopped at a split that evaluated zero images (no "
+                "class above the 0.01 retry floor)")
+    else:
+        ap, n_img, n_det = _det_ap(res["_detections"])
+        thr = res["_throughput"]
+        images = sum(t["sgdet"]["images"] for t in thr.values())
+        secs = sum(t["sgdet"]["seconds"] for t in thr.values())
+        what = (f"{n_img} images, {n_det} detections, {images / secs:.2f} "
+                f"images/s in the eval loops; DetectionEvaluator "
+                f"{json.dumps(ap)}")
+    print(f"phase 9 sgdet eval on the FPN detector (main -m sgdet -backbone "
+          f"resnet50 -nepoch 0 -ckpt <pretraining's dir>): {what} in "
+          f"{wall:.1f} s; launches {json.dumps(n)} by route "
+          f"{json.dumps(routes)}", flush=True)
+    check(n["roi_align"] > 0 and n["roi_align"] % 2 == 0
+          and n["vgg_conv1"] == 0 and all(n[k] == 0 for k in NO_BACKWARD),
+          f"FPN sgdet eval launched {n}")
+    n_scaled = fpn_sgdet_scaled(torch, argv)
+
+    splits = synthetic_splits(num_train=SGDET_TRAIN_BATCH, num_eval=2)
+    config = Config(mode="sgdet", loss="dnorm", batch_size=SGDET_TRAIN_BATCH,
+                    compute_dtype="bfloat16", device="cuda",
+                    backbone="resnet50", num_workers=2)
+    payload, _ = load_detector(ckdir)
+    trainer = Trainer(config, splits, detector=FasterRCNNFPN(151),
+                      det_state=payload)
+    batch = next(iter(BatchLoader(splits["train"],
+                                  batch_size=SGDET_TRAIN_BATCH,
+                                  max_nodes=config.max_nodes,
+                                  max_edges=config.max_edges,
+                                  seed=config.seed))).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    trainer.train_step(batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, n_step, routes = _counted(torch, lambda: trainer.train_step(batch, gen))
+    step_ms = (time.perf_counter() - t0) * 1e3
+    metrics = {k: float(v) for k, v in m.items()}
+    print(f"phase 9 sgdet train step on the FPN detector (batch "
+          f"{SGDET_TRAIN_BATCH}, bf16): {step_ms:.3f} ms with the count's "
+          f"read; metrics {json.dumps(metrics)}; launches "
+          f"{json.dumps(n_step)} by route {json.dumps(routes)}", flush=True)
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"non-finite FPN sgdet metrics {metrics}")
+    check(n_step == {"roi_align": 6, "vgg_conv1": 0, **NO_BACKWARD}
+          and routes["roi_align"] == {"bf16": 6},
+          f"FPN sgdet train step launched {n_step} by route {routes}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return {"fpn_sgdet_eval": n, "fpn_sgdet_eval_scaled": n_scaled,
+            "fpn_sgdet_train_step": n_step}
+
+
+def fpn_sgdet_scaled(torch, argv):
+    """9f: the same CLI on a seeded random ``FasterRCNNFPN(151)`` whose
+    classifier's weights are scaled by ``CLS_SCALE`` (as phase 7's VGG
+    detector), so that detections reach the relation head and the
+    evaluator: K1 4 times a detector pass (P2-P5) and twice a relation
+    pass (nodes and unions on the pool level), counted against the retry
+    counters; at least half the images evaluated; finite recalls."""
+    import shutil
+    import tempfile
+
+    from sgg_torch import main as cli
+    from sgg_torch.models.detector import FasterRCNNFPN, init_detector_weights
+    from sgg_torch.train.checkpoint import save_detector
+
+    det = init_detector_weights(FasterRCNNFPN(151), 0)
+    with torch.no_grad():
+        det.cls_score.weight.mul_(CLS_SCALE)
+    ckdir = tempfile.mkdtemp(prefix="sgg_fpn_scaled_")
+    try:
+        save_detector(ckdir, det)
+        del det
+        args = list(argv)
+        args[args.index("-ckpt") + 1] = ckdir
+        t0 = time.perf_counter()
+        res, n, routes = _counted(torch, lambda: cli.main(args))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir)
+    thr, cnt, dets = res["_throughput"], res["_counters"], res["_detections"]
+    images = sum(t["sgdet"]["images"] for t in thr.values())
+    secs = sum(t["sgdet"]["seconds"] for t in thr.values())
+    n_det = [d for v in dets.values() for d in v["n_det"]]
+    batches = sum(c.get("sgdet_batches", 0) for c in cnt.values())
+    redetect = sum(c.get("sgdet_nms_unconverged", 0)
+                   + c.get("sgdet_nms_cand_overflow", 0)
+                   for c in cnt.values())
+    recalls = {k: v for k, v in res.items()
+               if k.startswith("sgdet/test_alls_R@")}
+    ap, n_img, n_total = _det_ap(dets)
+    print(f"phase 9 sgdet eval on a random FPN detector, classifier x"
+          f"{CLS_SCALE:g} (main -m sgdet -backbone resnet50 -nepoch 0): "
+          f"{images} of {len(n_det)} images reached the evaluator, "
+          f"{images / secs:.2f} images/s in the eval loops ({wall:.1f} s "
+          f"with model building); detections an image min {min(n_det)} "
+          f"median {sorted(n_det)[len(n_det) // 2]} max {max(n_det)}; "
+          f"counters {json.dumps(cnt)}; DetectionEvaluator over {n_img} "
+          f"images, {n_total} detections {json.dumps(ap)}; launches "
+          f"{json.dumps(n)} by route {json.dumps(routes)}", flush=True)
+    check(images >= 0.5 * len(n_det),
+          f"only {images} of {len(n_det)} images reached the evaluator")
+    check(recalls and all(math.isfinite(v) for v in recalls.values()),
+          f"recalls missing or not finite: {recalls}")
+    want = {"roi_align": 4 * (batches + redetect) + 2 * batches,
+            "vgg_conv1": 0, **NO_BACKWARD}
+    check(n == want and set(routes["roi_align"]) == {"bf16"},
+          f"FPN sgdet eval launched {n} by route {routes}; {batches} "
+          f"batches with {redetect} re-detections want {want}")
+    return n
+
+
+def raw_boxes_paths(torch, splits):
+    """9g: ``-edge_model raw_boxes`` on the VGG16 model: one sgcls train
+    step at the training shape and one eval forward of 16 images, counted
+    (2 K1 + 1 K2 each), finite."""
+    from sgg_torch.config import Config
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.train.state import Optimizer
+    from sgg_torch.train.step import make_eval_step, make_train_step
+    from sgg_torch.train.trainer import build_model
+
+    config = Config(mode="sgcls", loss="dnorm", batch_size=TRAIN_BATCH,
+                    max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                    compute_dtype="bfloat16", device="cuda",
+                    edge_model="raw_boxes")
+    model = build_model(config, splits["train"], device="cuda", seed=0)
+    check(model.union_feats.edge_model == "raw_boxes",
+          "the model does not rasterize raw boxes")
+    step = make_train_step(model, config, Optimizer(config, model))
+    batch = next(iter(BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
+                                  max_nodes=TRAIN_NODES,
+                                  max_edges=TRAIN_EDGES,
+                                  seed=0))).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step(batch, gen)  # warm-up
+    m, n_train, r_train = _counted(torch, lambda: step(batch, gen))
+    metrics = {k: float(v) for k, v in m.items()}
+    test = next(iter(BatchLoader(splits["test_alls"], batch_size=16,
+                                 max_nodes=64, max_edges=config.max_edges,
+                                 shuffle=False, drop_last=False)))
+    evaluate = make_eval_step(model, mode="sgcls", max_pairs=512,
+                              device="cuda")
+    out, n_eval, r_eval = _counted(torch, lambda: evaluate(test))
+    finite = bool(torch.isfinite(out["rel_dists"]).all()
+                  and torch.isfinite(out["obj_logits"]).all())
+    print(f"phase 9 raw_boxes (-edge_model raw_boxes, VGG16, bf16): train "
+          f"step metrics {json.dumps(metrics)}, launches "
+          f"{json.dumps(n_train)} by route {json.dumps(r_train)}; eval "
+          f"forward of 16 images finite: {finite}, launches "
+          f"{json.dumps(n_eval)} by route {json.dumps(r_eval)}", flush=True)
+    want = {"roi_align": 2, "vgg_conv1": 1, **NO_BACKWARD}
+    check(all(math.isfinite(v) for v in metrics.values()) and finite,
+          f"raw_boxes: non-finite outputs {metrics}")
+    check(n_train == want and n_eval == want,
+          f"raw_boxes launched {n_train} (train) and {n_eval} (eval); want "
+          f"{want}")
+    del model, batch, out
+    torch.cuda.empty_cache()
+    return {"raw_boxes_train_step": n_train, "raw_boxes_eval": n_eval}
+
+
+def phase_resnet(torch, peaks, rows, splits):
+    """Phase 9: ResNet50-FPN at full width (FPN pretraining, its kernels
+    at the pyramid's shapes, a card-vs-CPU step, the resnet50 relation
+    model, SGDet on the FPN detector) and the raw_boxes edge model."""
+    import shutil
+    import tempfile
+
+    from sgg_torch.data.synthetic import synthetic_splits
+
+    det_splits = synthetic_splits(num_train=FPN_IMAGES, num_eval=4)
+    ckdir = tempfile.mkdtemp(prefix="sgg_fpn_")
+    paths = {}
+    try:
+        det, paths["fpn_pretrain"] = fpn_pretrain_run(torch, det_splits,
+                                                      ckdir)
+        pyramid, props = fpn_step_profile(torch, det, det_splits)
+        del det
+        torch.cuda.empty_cache()
+        for name, row in fpn_kernels(torch, peaks, pyramid, props).items():
+            rows[name]["fpn"] = row
+        del pyramid, props
+        torch.cuda.empty_cache()
+        paths.update(fpn_sgdet(torch, ckdir))
+    finally:
+        shutil.rmtree(ckdir)
+    fpn_card_vs_cpu(torch, det_splits)
+    paths.update(fpn_relation(torch, splits))
+    paths.update(raw_boxes_paths(torch, splits))
+    return paths
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
         fail("sgg_torch/ not found beside chip_smoke.py; run from a checkout")
@@ -2198,6 +2976,8 @@ def main() -> None:
             paths.update(phase_sgdet(torch, peaks, rows))
         with Deadline(PRETRAIN_DEADLINE_S, "phase 8"):
             paths.update(phase_pretrain(torch, peaks, rows))
+        with Deadline(FPN_DEADLINE_S, "phase 9"):
+            paths.update(phase_resnet(torch, peaks, rows, splits))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -1,6 +1,9 @@
-"""Weights from the JAX package: a ``RelModelIMP`` flax variables tree
-(``{"params", "batch_stats"}``, leaves as numpy) -> the port's
-``state_dict``.
+"""Weights from the JAX package: a flax variables tree (``{"params",
+"batch_stats"}``, leaves as numpy) of ``RelModelIMP`` (either backbone),
+``FasterRCNNVGG``, ``FasterRCNNFPN`` or ``ResNet50FPN`` -> the port's
+``state_dict``. The port's module names are the flax ones (the ResNet's
+``body.layer{s}_{b}.conv1``, ``bn_down``, ``fpn.lateral_c4`` ...), so
+most paths carry over as they are.
 
 * Dense kernels ``(in, out)`` are transposed to ``(out, in)``. ``fc6``
   keeps the JAX package's HWC flatten order, which the port's ``RoiHead``
@@ -66,7 +69,7 @@ def _convert_leaf(collection: str, path: Tuple[str, ...], leaf: np.ndarray):
 
 
 def variables_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``RelModelIMP`` variables (numpy leaves) -> port state_dict."""
+    """Flax variables (numpy leaves) -> port state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):

@@ -13,7 +13,7 @@ batches' copies to the device in flight while a step runs.
 The port's datasets so far are file-less (synthetic): their "image" is a
 constant canvas, and a resize of a constant is that constant, so no image
 library is needed. Decoding image files raises ``NotImplementedError``; it
-comes with the dataset parsers (ROADMAP Queue A, after item 9).
+comes with the dataset parsers (ROADMAP Queue A).
 """
 
 from __future__ import annotations

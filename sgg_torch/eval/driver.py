@@ -77,7 +77,7 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
               detector=None, device="cuda") -> Dict[str, float]:
     """Evaluate one split of ``model`` (a ``RelModelIMP``) on ``device``
     (the card unless the caller asks for the CPU). In mode sgdet pass the
-    frozen ``detector`` (a ``FasterRCNNVGG``).
+    frozen ``detector`` (a ``FasterRCNNVGG`` or ``FasterRCNNFPN``).
 
     Returns a flat results dict ``{eval_m}/{name}_R@K_{GC|NOGC}`` etc., as
     the JAX package's ``val_epoch``. Non-scalar extras: ``_counters`` (the

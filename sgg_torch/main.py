@@ -4,14 +4,15 @@
     python -m sgg_torch.main -m sgdet -nepoch 0 -ckpt <dir> -split synthetic
 
 Same flags as the JAX package's ``main.py`` (``sgg_torch.config``). Runs on
-the card unless ``-device cpu`` is given. Mode sgdet loads the frozen
-detector from ``-ckpt`` (a ``train/checkpoint.py`` detector directory, as
+the card unless ``-device cpu`` is given. ``-backbone`` picks the VGG16 or
+the ResNet50-FPN model. Mode sgdet loads the frozen detector of that
+backbone (``FasterRCNNVGG`` or ``FasterRCNNFPN``) from ``-ckpt`` (a
+``train/checkpoint.py`` detector directory, as
 ``sgg_torch.pretrain_detector`` writes) and trains the relation head on its
 detections; ``-nepoch 0`` only evaluates (the test sweep). ``-split
 synthetic`` is the only split so far: the VG, GQA and VTransE parsers and
 image decoding need libraries the card's machine lacks, and those splits
-raise ``NotImplementedError``; so does ``-backbone resnet50`` (the
-ResNet50-FPN slice).
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,15 +51,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if config.mode == "sgdet":
         # sgdet refuses to start without a pretrained detector (reference
         # pytorch_misc.py:210-211)
-        if config.backbone != "vgg16":
-            raise NotImplementedError(
-                f"-backbone {config.backbone}: the ResNet50-FPN detector "
-                f"comes with the ResNet50-FPN slice; use vgg16")
         if not config.ckpt:
             raise ValueError("-m sgdet needs -ckpt <pretrained detector dir>")
-        from sgg_torch.models.detector import FasterRCNNVGG
+        from sgg_torch.models.detector import FasterRCNNFPN, FasterRCNNVGG
         det_state, epoch = load_detector(config.ckpt)
-        detector = FasterRCNNVGG(num_classes=splits["train"].num_classes)
+        cls = FasterRCNNVGG if config.backbone == "vgg16" else FasterRCNNFPN
+        detector = cls(num_classes=splits["train"].num_classes)
         print(f"loaded detector checkpoint from epoch {epoch}")
     results = Trainer(config, splits, detector=detector,
                       det_state=det_state).fit()

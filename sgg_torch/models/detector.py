@@ -18,8 +18,15 @@ the RPN and RoI-head losses below (``sgg_tpu/models/detector.py:407-530``,
 torchvision's RPN and RoIHeads semantics) assign and sample targets with
 fixed shapes. As in the JAX package, the graph runs through the proposal
 boxes (RoIAlign and the RoI-head box targets are differentiable in them),
-so the RoI-head losses reach the RPN. ``FasterRCNNFPN`` comes with the
-ResNet50-FPN slice.
+so the RoI-head losses reach the RPN.
+
+``FasterRCNNFPN`` is the ResNet50-FPN detector of ``sgg_tpu/models/
+detector.py:266-401`` (the reference's ``maskrcnn_resnet50_fpn`` without
+its mask head): one anchor size a pyramid level, an RPN shared over the
+five levels, each level's top-k on its raw logits, a 2048-candidate cap,
+NMS that keeps the levels apart, MultiScaleRoIAlign over P2-P5 (four K1
+launches) and a 1024-d box head; its ``fmap`` is the stride-64 ``pool``
+level, which the relation head pools from.
 """
 
 from __future__ import annotations
@@ -31,9 +38,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sgg_torch.constants import POOL_SIZE, STRIDE, VGG_OBJ_DIM
+from sgg_torch.constants import (POOL_SIZE, RESNET_OBJ_DIM, STRIDE,
+                                  VGG_OBJ_DIM)
 from sgg_torch.models.backbone import RoiHead, VGG16Trunk
 from sgg_torch.models.relhead import FMAP_CHANNELS, init_weights
+from sgg_torch.models.resnet import (FPN_CHANNELS, LEVELS, STRIDES,
+                                     ResNet50FPN, multiscale_roi_align,
+                                     set_compute_dtype)
 from sgg_torch.ops.boxes import box_iou, clip_boxes
 from sgg_torch.ops.nms import decode_boxes, encode_boxes, nms
 from sgg_torch.ops.roi_align import roi_align
@@ -193,28 +204,23 @@ def postprocess_detections(class_logits, box_deltas, proposals, prop_mask,
             "n_candidates": n_cand, "nms_converged": conv}
 
 
-class FasterRCNNVGG(nn.Module):
-    """Single-scale VGG16 Faster R-CNN with padded outputs.
+class _FasterRCNN(nn.Module):
+    """What the two detectors share: their settings, the TwoMLPHead box
+    head (fc6-relu-fc7-relu, no dropout) and the float32 classifier after
+    the backbone and the RPN, the compute type, and everything from the
+    RPN's proposals on (``_detect``). ``nms_method``/``nms_candidates`` are
+    the defaults that a call may override (the retry wrapper escalates
+    them per call, on one instance)."""
 
-    Module names follow the flax ones (``trunk.conv.{i}``, ``rpn.conv``,
-    ``rpn.cls_logits``, ``rpn.bbox_pred``, ``box_head.fc6``/``fc7``,
-    ``cls_score``, ``bbox_pred``), so ``convert.variables_from_jax`` maps a
-    JAX ``FasterRCNNVGG``'s variables onto its ``state_dict``.
-    ``nms_method``/``nms_candidates`` are the defaults that a call may
-    override (the retry wrapper escalates them per call, on one instance).
-    """
-
-    def __init__(self, num_classes: int, pool_size: int = POOL_SIZE,
-                 stride: int = STRIDE, obj_dim: int = VGG_OBJ_DIM,
-                 score_thresh: float = 0.2, nms_thresh: float = 0.5,
-                 detections_per_img: int = 50, rpn_pre_nms_top_n: int = 1000,
-                 rpn_post_nms_top_n: int = 512, rpn_nms_thresh: float = 0.7,
-                 nms_candidates: int = 1024, nms_method: str = "rounds",
-                 nms_rounds: int = 16):
+    def __init__(self, num_classes: int, backbone: Tuple[str, nn.Module],
+                 rpn: nn.Module, channels: int, pool_size: int, obj_dim: int,
+                 score_thresh: float, nms_thresh: float,
+                 detections_per_img: int, rpn_pre_nms_top_n: int,
+                 rpn_post_nms_top_n: int, rpn_nms_thresh: float,
+                 nms_candidates: int, nms_method: str, nms_rounds: int):
         super().__init__()
         self.num_classes = num_classes
         self.pool_size = pool_size
-        self.stride = stride
         self.score_thresh = score_thresh
         self.nms_thresh = nms_thresh
         self.detections_per_img = detections_per_img
@@ -224,32 +230,83 @@ class FasterRCNNVGG(nn.Module):
         self.nms_candidates = nms_candidates
         self.nms_method = nms_method
         self.nms_rounds = nms_rounds
-        A = len(ANCHOR_SIZES) * len(ANCHOR_RATIOS)
-        self.trunk = VGG16Trunk()
-        self.rpn = RPNHead(FMAP_CHANNELS, A)
-        # torchvision TwoMLPHead: fc6-relu-fc7-relu, no dropout
-        self.box_head = RoiHead(pool_size * pool_size * FMAP_CHANNELS,
-                                obj_dim, with_final_relu=True)
+        self.add_module(*backbone)
+        self.rpn = rpn
+        self.box_head = RoiHead(pool_size * pool_size * channels, obj_dim,
+                                with_final_relu=True)
         self.box_head.drop.p = 0.0
         # float32 whatever the compute type, as in the JAX package
         self.cls_score = nn.Linear(obj_dim, num_classes)
         self.bbox_pred = nn.Linear(obj_dim, num_classes * 4)
         self._anchors: Dict = {}
 
-    def to_compute_dtype(self, dtype: torch.dtype) -> "FasterRCNNVGG":
-        """Compute the trunk, RPN and box head in ``dtype`` (K2 and K1 take
-        their ``dtype`` routes) over float32 master weights cast at use, as
-        flax's ``dtype=`` layers do, so that the detector can train. A
-        detector with no parameter that requires a gradient (frozen, as on
-        the SGDet paths) stores those three in ``dtype`` instead: the same
-        numbers without the casts. ``cls_score`` and ``bbox_pred`` stay
-        float32."""
+    def to_compute_dtype(self, dtype: torch.dtype) -> "_FasterRCNN":
+        """Compute the backbone, RPN and box head in ``dtype`` (K2 and K1
+        take their ``dtype`` routes) over float32 master weights cast at
+        use, as flax's ``dtype=`` layers do, so that the detector can
+        train. A detector with no parameter that requires a gradient
+        (frozen, as on the SGDet paths) stores their convs and dense layers
+        in ``dtype`` instead: the same numbers without the casts (a
+        ResNet's BatchNorms stay float32, as flax keeps them).
+        ``cls_score`` and ``bbox_pred`` stay float32."""
         frozen = not any(p.requires_grad for p in self.parameters())
-        for mod in (self.trunk, self.rpn, self.box_head):
-            if frozen:
-                mod.to(dtype)
-            mod.compute_dtype = dtype
+        for name, mod in self.named_children():
+            if name not in ("cls_score", "bbox_pred"):
+                set_compute_dtype(mod, dtype, store=frozen)
         return self
+
+    def _detect(self, pool, proposals, rpn_mask, rpn_conv, index, im_hw, *,
+                gt_boxes, gt_mask, score_thresh, nms_candidates, method):
+        """From the RPN's proposals on: the GT boxes appended (training),
+        ``pool(proposals)`` (RoIAlign) through the box head and the
+        classifier, the detections; the outputs that do not depend on the
+        backbone."""
+        prop_mask = rpn_mask
+        if gt_boxes is not None:
+            proposals, prop_mask = append_gt_proposals(
+                proposals, rpn_mask, gt_boxes.float(), gt_mask)
+        feats = self.box_head(pool(proposals.contiguous())).float()
+        class_logits = self.cls_score(feats)
+        box_deltas = self.bbox_pred(feats)
+        dets = postprocess_detections(
+            class_logits.detach(), box_deltas.detach(), proposals.detach(),
+            prop_mask, im_hw,
+            score_thresh=(self.score_thresh if score_thresh is None
+                          else score_thresh),
+            nms_thresh=self.nms_thresh,
+            detections_per_img=self.detections_per_img,
+            nms_candidates=nms_candidates or self.nms_candidates,
+            nms_method=method, nms_rounds=self.nms_rounds)
+        dets["nms_converged"] = dets["nms_converged"] & rpn_conv
+        dets.update({"proposals": proposals, "prop_mask": prop_mask,
+                     "class_logits": class_logits, "box_deltas": box_deltas,
+                     "proposal_index": index, "rpn_prop_mask": rpn_mask})
+        return dets
+
+
+class FasterRCNNVGG(_FasterRCNN):
+    """Single-scale VGG16 Faster R-CNN with padded outputs.
+
+    Module names follow the flax ones (``trunk.conv.{i}``, ``rpn.conv``,
+    ``rpn.cls_logits``, ``rpn.bbox_pred``, ``box_head.fc6``/``fc7``,
+    ``cls_score``, ``bbox_pred``), so ``convert.variables_from_jax`` maps a
+    JAX ``FasterRCNNVGG``'s variables onto its ``state_dict``.
+    """
+
+    def __init__(self, num_classes: int, pool_size: int = POOL_SIZE,
+                 stride: int = STRIDE, obj_dim: int = VGG_OBJ_DIM,
+                 score_thresh: float = 0.2, nms_thresh: float = 0.5,
+                 detections_per_img: int = 50, rpn_pre_nms_top_n: int = 1000,
+                 rpn_post_nms_top_n: int = 512, rpn_nms_thresh: float = 0.7,
+                 nms_candidates: int = 1024, nms_method: str = "rounds",
+                 nms_rounds: int = 16):
+        A = len(ANCHOR_SIZES) * len(ANCHOR_RATIOS)
+        super().__init__(
+            num_classes, ("trunk", VGG16Trunk()), RPNHead(FMAP_CHANNELS, A),
+            FMAP_CHANNELS, pool_size, obj_dim, score_thresh, nms_thresh,
+            detections_per_img, rpn_pre_nms_top_n, rpn_post_nms_top_n,
+            rpn_nms_thresh, nms_candidates, nms_method, nms_rounds)
+        self.stride = stride
 
     def anchors(self, fh: int, fw: int, device) -> torch.Tensor:
         """``make_anchors`` on ``device``, copied there once per map size
@@ -302,42 +359,151 @@ class FasterRCNNVGG(nn.Module):
                                                       rpn_deltas), im_hw),
                               index)
             rpn_conv = torch.ones_like(rpn_mask[:, 0])
-        prop_mask = rpn_mask
-        if gt_boxes is not None:
-            proposals, prop_mask = append_gt_proposals(
-                proposals, rpn_mask, gt_boxes.float(), gt_mask)
-
-        pooled = roi_align(fmap, proposals.contiguous(),
-                           spatial_scale=1.0 / self.stride,
-                           pooled=self.pool_size)
-        feats = self.box_head(pooled).float()
-        class_logits = self.cls_score(feats)
-        box_deltas = self.bbox_pred(feats)
-
-        dets = postprocess_detections(
-            class_logits.detach(), box_deltas.detach(), proposals.detach(),
-            prop_mask, im_hw,
-            score_thresh=(self.score_thresh if score_thresh is None
-                          else score_thresh),
-            nms_thresh=self.nms_thresh,
-            detections_per_img=self.detections_per_img,
-            nms_candidates=nms_candidates or self.nms_candidates,
-            nms_method=method, nms_rounds=self.nms_rounds)
-        dets["nms_converged"] = dets["nms_converged"] & rpn_conv
-        dets.update({
-            "fmap": fmap, "proposals": proposals, "prop_mask": prop_mask,
-            "rpn_obj_logits": obj_logits, "rpn_deltas": rpn_deltas,
-            "class_logits": class_logits, "box_deltas": box_deltas,
-            "anchors": anchors, "proposal_index": index,
-            "rpn_prop_mask": rpn_mask,
-        })
+        dets = self._detect(
+            lambda p: roi_align(fmap, p, spatial_scale=1.0 / self.stride,
+                                pooled=self.pool_size),
+            proposals, rpn_mask, rpn_conv, index, im_hw, gt_boxes=gt_boxes,
+            gt_mask=gt_mask, score_thresh=score_thresh,
+            nms_candidates=nms_candidates, method=method)
+        dets.update({"fmap": fmap, "rpn_obj_logits": obj_logits,
+                     "rpn_deltas": rpn_deltas, "anchors": anchors})
         return dets
 
 
-def init_detector_weights(model: FasterRCNNVGG, seed: int) -> FasterRCNNVGG:
+def fpn_proposals(obj_logits, boxes, counts, im_hw, *, pre_nms_top_n: int,
+                  post_nms_top_n: int, nms_candidates: int,
+                  nms_thresh: float = 0.7, nms_method: str = "sequential",
+                  nms_rounds: int = 16):
+    """The FPN RPN's proposals (``FasterRCNNFPN.__call__`` of the JAX
+    package): per level the top ``pre_nms_top_n`` of its raw logits (no
+    validity mask), the top ``nms_candidates`` of those over all levels
+    among the boxes wider and taller than 1e-3, then NMS with the levels
+    kept apart by a coordinate offset of the (float) level index times
+    ``max(h, w) + 1000``.
+
+    obj_logits (B, K) and boxes (B, K, 4) (decoded, clipped) over the
+    levels in order, ``counts`` the anchors of each level. Returns
+    (proposals (B, P, 4) with the graph to ``boxes``, mask (B, P),
+    nms_converged (B,), the anchor index of each proposal slot (B, P)).
+    The selection reads detached values."""
+    obj, det_boxes = obj_logits.detach(), boxes.detach()
+    cand, cand_s, cand_lvl, start = [], [], [], 0
+    for lvl, n in enumerate(counts):
+        s, i = _top_sorted(obj[:, start:start + n], min(pre_nms_top_n, n))
+        cand.append(i + start)
+        cand_s.append(s)
+        cand_lvl.append(torch.full_like(s, float(lvl)))
+        start += n
+    cand, cand_s, cand_lvl = (torch.cat(x, 1)
+                              for x in (cand, cand_s, cand_lvl))
+    cb = _take(det_boxes, cand)
+    valid = ((cb[..., 2] - cb[..., 0]) > 1e-3) & (
+        (cb[..., 3] - cb[..., 1]) > 1e-3)
+    cs, ci = _top_sorted(torch.where(valid, cand_s, float("-inf")),
+                         min(nms_candidates, cand.shape[1]))
+    offset = _take(cand_lvl, ci)[..., None] * (
+        im_hw.max(dim=1).values + 1000.0)[:, None, None]
+    idx, mask, conv = nms(_take(cb, ci) + offset, cs, cs > float("-inf"),
+                          nms_thresh, post_nms_top_n, method=nms_method,
+                          rounds=nms_rounds, with_converged=True)
+    keep = _take(_take(cand, ci), idx)
+    return _take(boxes, keep), mask, conv, keep
+
+
+class FasterRCNNFPN(_FasterRCNN):
+    """ResNet50-FPN Faster R-CNN with padded outputs.
+
+    Module names follow the flax ones (``backbone.body``/``backbone.fpn``,
+    ``rpn``, ``box_head``, ``cls_score``, ``bbox_pred``), so
+    ``convert.variables_from_jax`` maps a JAX ``FasterRCNNFPN``'s
+    variables onto its ``state_dict``. The backbone's BatchNorms use their
+    running statistics (``models/resnet.py``).
+    """
+
+    SIZES = ANCHOR_SIZES  # one anchor size a level, P2 to pool
+
+    def __init__(self, num_classes: int, pool_size: int = POOL_SIZE,
+                 obj_dim: int = RESNET_OBJ_DIM, score_thresh: float = 0.2,
+                 nms_thresh: float = 0.5, detections_per_img: int = 50,
+                 rpn_pre_nms_top_n: int = 1000,
+                 rpn_post_nms_top_n: int = 512, rpn_nms_thresh: float = 0.7,
+                 nms_candidates: int = 1024, rpn_nms_candidates: int = 2048,
+                 nms_method: str = "rounds", nms_rounds: int = 16):
+        super().__init__(
+            num_classes, ("backbone", ResNet50FPN()),
+            RPNHead(FPN_CHANNELS, len(ANCHOR_RATIOS)), FPN_CHANNELS,
+            pool_size, obj_dim, score_thresh, nms_thresh, detections_per_img,
+            rpn_pre_nms_top_n,  # a level
+            rpn_post_nms_top_n, rpn_nms_thresh, nms_candidates, nms_method,
+            nms_rounds)
+        self.rpn_nms_candidates = rpn_nms_candidates
+
+    def anchors(self, sizes, device):
+        """Every level's ``make_anchors`` (one size by the three ratios)
+        concatenated (K, 4) on ``device``, copied there once per pyramid
+        shape, and the anchors a level."""
+        key = (tuple(sizes), str(device))
+        if key not in self._anchors:
+            per = [make_anchors(fh, fw, stride, sizes=(size,))
+                   for (fh, fw), stride, size in zip(sizes, STRIDES,
+                                                     self.SIZES)]
+            self._anchors[key] = (torch.from_numpy(np.concatenate(per)).to(
+                device), [len(a) for a in per])
+        return self._anchors[key]
+
+    def forward(self, images, im_hw, *, pyramid=None,
+                score_thresh: Optional[float] = None,
+                nms_method: Optional[str] = None,
+                nms_candidates: Optional[int] = None,
+                gt_boxes=None, gt_mask=None,
+                proposal_index=None) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) (or ``pyramid``, the backbone's output);
+        im_hw (B, 2). ``gt_boxes``/``gt_mask`` and ``proposal_index`` (an
+        index into the concatenated anchors) as in ``FasterRCNNVGG``.
+
+        Returns ``FasterRCNNVGG``'s keys, ``fmap`` being the ``pool`` level
+        (B, h, w, 256), with ``pyramid``; ``anchors``, ``rpn_obj_logits``
+        and ``rpn_deltas`` are the levels' concatenated."""
+        method = nms_method or self.nms_method
+        if pyramid is None:
+            pyramid = self.backbone(images)
+        maps = [pyramid[lvl] for lvl in LEVELS]
+        anchors, counts = self.anchors([m.shape[1:3] for m in maps],
+                                       maps[0].device)
+        im_hw = im_hw.float()
+        heads = [self.rpn(m) for m in maps]
+        obj_logits = torch.cat([o for o, _ in heads], 1)
+        rpn_deltas = torch.cat([d for _, d in heads], 1)
+        boxes = clip_boxes(decode_boxes(anchors[None], rpn_deltas), im_hw)
+        if proposal_index is None:
+            proposals, rpn_mask, rpn_conv, index = fpn_proposals(
+                obj_logits, boxes, counts, im_hw,
+                pre_nms_top_n=self.rpn_pre_nms_top_n,
+                post_nms_top_n=self.rpn_post_nms_top_n,
+                nms_candidates=self.rpn_nms_candidates,
+                nms_thresh=self.rpn_nms_thresh, nms_method=method,
+                nms_rounds=self.nms_rounds)
+        else:
+            index, rpn_mask = proposal_index
+            proposals = _take(boxes, index)
+            rpn_conv = torch.ones_like(rpn_mask[:, 0])
+        dets = self._detect(
+            lambda p: multiscale_roi_align(maps[:4], p, STRIDES[:4],
+                                           pooled=self.pool_size),
+            proposals, rpn_mask, rpn_conv, index, im_hw, gt_boxes=gt_boxes,
+            gt_mask=gt_mask, score_thresh=score_thresh,
+            nms_candidates=nms_candidates, method=method)
+        dets.update({"fmap": pyramid["pool"], "pyramid": pyramid,
+                     "rpn_obj_logits": obj_logits, "rpn_deltas": rpn_deltas,
+                     "anchors": anchors})
+        return dets
+
+
+def init_detector_weights(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights with the initializers of ``init_weights``
-    (He normal convs, lecun normal dense layers, zero biases), drawn on the
-    CPU from one generator."""
+    (He normal convs, lecun normal for the ResNet's and the dense layers,
+    zero biases, identity BatchNorms), drawn on the CPU from one
+    generator."""
     return init_weights(model, seed)
 
 

@@ -16,7 +16,11 @@ In mode ``sgdet`` the model has no trunk of its own: the frozen detector's
 feature map feeds it (``models/sgdet.py``), as the JAX package initializes
 its SGDet relation model feature-map first.
 
-Only the ``vgg16`` backbone is ported; ``resnet50`` raises.
+Two backbones, as in the JAX package: ``vgg16`` (the VGG16 trunk's
+stride-16, 512-channel map, obj_dim 4096) and ``resnet50`` (the
+ResNet50-FPN's stride-64 ``pool`` level, 256 channels, obj_dim 1024 as the
+caller sets it, both RoI heads torchvision TwoMLPHeads with no dropout:
+reference ``rel_model_base.py:58-81,239``).
 """
 
 from __future__ import annotations
@@ -32,12 +36,17 @@ import torch.nn.functional as F
 from sgg_torch.constants import POOL_SIZE, STRIDE, VGG_OBJ_DIM
 from sgg_torch.models.backbone import RoiHead, VGG16Trunk, linear_in
 from sgg_torch.models.frequency_bias import FrequencyBias
+from sgg_torch.models.resnet import (FPN_CHANNELS, STRIDES, ResNet50FPN,
+                                     set_compute_dtype)
 from sgg_torch.models.union_features import UnionBoxFeats
 from sgg_torch.ops.boxes import gather_boxes, union_boxes
 from sgg_torch.ops.roi_align import roi_align
 from sgg_torch.train.assign import unordered_union_index
 
-FMAP_CHANNELS = 512
+FMAP_CHANNELS = 512  # the VGG16 trunk's
+# per backbone: the feature map's channels and stride
+BACKBONES = {"vgg16": (FMAP_CHANNELS, STRIDE),
+             "resnet50": (FPN_CHANNELS, STRIDES[-1])}  # the pool level
 
 
 def _take_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -164,23 +173,32 @@ class RelModelIMP(nn.Module):
                  backbone: str = "vgg16", edge_model: str = "motifs",
                  freq_table: Optional[np.ndarray] = None):
         super().__init__()
-        if backbone != "vgg16":
-            raise NotImplementedError(
-                f"backbone={backbone!r} is not ported yet; use 'vgg16'")
+        if backbone not in BACKBONES:
+            raise ValueError(f"backbone {backbone!r} not in "
+                             f"{tuple(BACKBONES)}")
         self.num_classes = num_classes
         self.num_predicates = num_predicates
         self.mode = mode
         self.use_bias = use_bias
         self.test_bias = test_bias
+        self.backbone = backbone
         self.pool_size = POOL_SIZE
-        in_dim = POOL_SIZE * POOL_SIZE * FMAP_CHANNELS
+        channels, self.stride = BACKBONES[backbone]
+        in_dim = POOL_SIZE * POOL_SIZE * channels
+        trunk = VGG16Trunk if backbone == "vgg16" else ResNet50FPN
         self.trunk = (None if mode == "sgdet"
-                      else VGG16Trunk().requires_grad_(False))
-        self.union_feats = UnionBoxFeats(dim=FMAP_CHANNELS,
+                      else trunk().requires_grad_(False))
+        self.union_feats = UnionBoxFeats(dim=channels,
                                          pooling_size=POOL_SIZE,
                                          edge_model=edge_model)
+        # vgg16: fc6-relu-drop-fc7-relu-drop for nodes, fc6-relu-drop-fc7
+        # for edges (rel_model_base.py:310-321); resnet50: both
+        # torchvision TwoMLPHeads, final ReLU and no dropout (:78-80)
+        resnet = backbone == "resnet50"
         self.roi_fmap_obj = RoiHead(in_dim, obj_dim, with_final_relu=True)
-        self.roi_fmap = RoiHead(in_dim, obj_dim, with_final_relu=False)
+        self.roi_fmap = RoiHead(in_dim, obj_dim, with_final_relu=resnet)
+        if resnet:
+            self.roi_fmap_obj.drop.p = self.roi_fmap.drop.p = 0.0
         self.imp = IMPHead(obj_dim, num_classes, num_predicates,
                            hidden_dim=hidden_dim, mp_iter=mp_iter)
         if use_bias:
@@ -194,23 +212,24 @@ class RelModelIMP(nn.Module):
         ``obj_fc``/``rel_fc`` and the frequency table stay float32, as in
         the JAX package."""
         if self.trunk is not None:
-            self.trunk.to(dtype)
-        for mod in self.modules():
-            if hasattr(mod, "compute_dtype"):
-                mod.compute_dtype = dtype
+            set_compute_dtype(self.trunk, dtype, store=True)
+        set_compute_dtype(self, dtype, store=False)
         return self
 
     def forward(self, images, boxes, classes, pairs, pair_mask, *,
-                fmap=None, mode: Optional[str] = None,
+                fmap=None, im_hw=None, mode: Optional[str] = None,
                 dedup_unions: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """Forward pass over a padded batch; train mode (``self.training``)
         draws dropout masks from ``generator``.
 
-        images (B, H, W, 3) or None when ``fmap`` (B, h, w, 512) is given;
+        images (B, H, W, 3) or None when ``fmap`` (the backbone's map: (B,
+        h, w, 512) at stride 16, or (B, h, w, 256) at stride 64) is given;
         boxes (B, N, 4) image pixels; classes (B, N); pairs (B, E, 2);
-        pair_mask (B, E). ``dedup_unions`` pools union boxes once per
+        pair_mask (B, E); ``im_hw`` (B, 2), each image's (height, width),
+        which ``edge_model="raw_boxes"`` needs. ``dedup_unions`` pools union
+        boxes once per
         unordered pair at half the edge budget; the output then carries
         ``dedup_ok`` (per image; False means callers must re-run without
         dedup).
@@ -224,9 +243,10 @@ class RelModelIMP(nn.Module):
                 raise ValueError("an sgdet model has no trunk: pass the "
                                  "detector's fmap")
             with torch.no_grad():  # frozen detector (:125-131)
-                fmap = self.trunk(images)
+                fmap = (self.trunk(images) if self.backbone == "vgg16"
+                        else self.trunk.pool(images))
         boxes = boxes.float().contiguous()
-        scale = 1.0 / STRIDE
+        scale = 1.0 / self.stride
 
         node_pool = roi_align(fmap, boxes, spatial_scale=scale,
                               pooled=self.pool_size)
@@ -243,7 +263,7 @@ class RelModelIMP(nn.Module):
 
         pair_boxes = torch.cat([gather_boxes(boxes, pairs[..., 0]),
                                 gather_boxes(boxes, pairs[..., 1])], dim=-1)
-        rects = self.union_feats(pair_boxes)  # (B, E, h, w, C)
+        rects = self.union_feats(pair_boxes, im_hw)  # (B, E, h, w, C)
         edge_split = dedup_unions and rects.shape[2] == 1 \
             and rects.shape[3] == 1
         node_feat = self.roi_fmap_obj(node_pool, generator=generator)
@@ -289,21 +309,27 @@ class RelModelIMP(nn.Module):
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded random weights with the JAX package's initializers: lecun
-    normal for dense layers, He normal for convs (the VGG trunk keeps its
+    """Seeded random weights: lecun normal for dense layers and for the
+    ResNet50-FPN's convs (the JAX package's initializer; its frozen
+    BatchNorms do not rescale, and lecun keeps the residual sums in
+    range), He normal for the other convs (the VGG trunk keeps its
     activations at unit scale), zero biases, torch GRU uniform, identity
-    BatchNorm statistics. Drawn on the CPU from one ``torch.Generator``,
-    so the same seed gives the same weights on any device."""
+    BatchNorms. Drawn on the CPU from one ``torch.Generator``, so the same
+    seed gives the same weights on any device."""
     g = torch.Generator().manual_seed(seed)
+    lecun = {id(m) for r in model.modules() if isinstance(r, ResNet50FPN)
+             for m in r.modules()}
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d)):
                 fan_in = mod.weight[0].numel()
-                gain = 2.0 if isinstance(mod, nn.Conv2d) else 1.0
+                gain = 2.0 if isinstance(mod, nn.Conv2d) \
+                    and id(mod) not in lecun else 1.0
                 std = math.sqrt(gain / fan_in)
                 mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
                                  * std)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, GRUCell):
                 k = 1.0 / math.sqrt(mod.hidden_size)
                 for p in mod.parameters():

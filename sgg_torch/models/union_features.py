@@ -11,8 +11,14 @@ Conv strides follow the reference's runtime behaviour: its ``conv_layer``
 lambda names its stride parameter ``stide`` but passes the module's
 feature-map stride (16), so both convs run at stride 16 and the 27x27
 rects collapse to one 1x1 feature broadcast over the 7x7 pools (the JAX
-package's default ``conv_strides=(16, 16)``). Only ``edge_model="motifs"`` is ported; the
-``raw_boxes`` rasterizer needs ``grid_sample`` and comes later.
+package's default ``conv_strides=(16, 16)``).
+
+Two rasterizers, as in the JAX package: ``edge_model="motifs"`` draws
+each box in its union's frame (``ops/rects.py``); ``"raw_boxes"`` paints
+each box in the whole image's [0, 1] frame (reference
+``draw_union_boxes_grid``, ``get_union_boxes.py:105-116``): ``grid_sample``
+of a constant image, which separates into per-axis coverage sums
+(``ops/grid_sample.py``), so it needs each image's (height, width).
 
 Both BatchNorms follow flax's ``nn.BatchNorm`` (``BatchNorm`` below), not
 torch's: in train mode they normalize with the biased batch variance and
@@ -22,12 +28,18 @@ move their running statistics toward it at momentum 0.01
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from sgg_torch.constants import BATCHNORM_MOMENTUM
+from sgg_torch.ops.boxes import scale_boxes_01
+from sgg_torch.ops.grid_sample import box01_extents, paint_weights
 from sgg_torch.ops.rects import draw_union_rects
+
+EDGE_MODELS = ("motifs", "raw_boxes")
 
 
 def conv2d_in(layer: nn.Conv2d, x: torch.Tensor,
@@ -96,10 +108,10 @@ class UnionBoxFeats(nn.Module):
     def __init__(self, dim: int = 512, pooling_size: int = 7,
                  edge_model: str = "motifs"):
         super().__init__()
-        if edge_model != "motifs":
-            raise NotImplementedError(
-                f"edge_model={edge_model!r} is not ported yet (needs "
-                f"grid_sample); use 'motifs'")
+        if edge_model not in EDGE_MODELS:
+            raise ValueError(f"edge_model {edge_model!r} not in "
+                             f"{EDGE_MODELS}")
+        self.edge_model = edge_model
         self.pooling_size = pooling_size
         self.dim = dim
         self.compute_dtype = torch.float32
@@ -108,14 +120,29 @@ class UnionBoxFeats(nn.Module):
         self.conv2 = nn.Conv2d(dim // 2, dim, 3, stride=16, padding=1)
         self.bn2 = BatchNorm(dim)
 
-    def forward(self, pair_boxes: torch.Tensor) -> torch.Tensor:
-        """pair_boxes: (B, E, 8) subject+object boxes in image pixels.
+    def forward(self, pair_boxes: torch.Tensor,
+                im_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """pair_boxes: (B, E, 8) subject+object boxes in image pixels;
+        ``im_hw`` (B, 2), each image's (height, width), which
+        ``raw_boxes`` needs.
 
         Returns (B, E, h, w, dim); h = w = 1 under the reference strides.
         """
         P = self.pooling_size * 4 - 1  # 27 (get_union_boxes.py:67)
-        rects = draw_union_rects(pair_boxes, P) - 0.5  # (B, E, 2, P, P)
-        B, E = rects.shape[:2]
+        B, E = pair_boxes.shape[:2]
+        if self.edge_model == "raw_boxes":
+            if im_hw is None:
+                raise ValueError("edge_model='raw_boxes' needs each image's "
+                                 "(height, width): pass im_hw")
+            boxes01 = scale_boxes_01(pair_boxes.reshape(B, E * 2, 4),
+                                     im_hw.float())
+            x0, y0, ww, hh = box01_extents(boxes01)
+            vy = paint_weights(y0, hh, P, P).sum(-1)  # (B, 2E, P)
+            vx = paint_weights(x0, ww, P, P).sum(-1)
+            masks = vy[..., :, None] * vx[..., None, :]
+            rects = masks.reshape(B, E, 2, P, P) - 0.5
+        else:
+            rects = draw_union_rects(pair_boxes, P) - 0.5  # (B, E, 2, P, P)
         x = rects.reshape(B * E, 2, P, P)
         dt = self.compute_dtype
         x = self.bn1(F.relu(conv2d_in(self.conv1, x, dt)))

@@ -55,3 +55,12 @@ def clip_boxes(boxes: torch.Tensor, im_hw: torch.Tensor) -> torch.Tensor:
                         torch.minimum(y1.clamp(min=0.0), h),
                         torch.minimum(x2.clamp(min=0.0), w),
                         torch.minimum(y2.clamp(min=0.0), h)], dim=-1)
+
+
+def scale_boxes_01(boxes: torch.Tensor, im_hw: torch.Tensor) -> torch.Tensor:
+    """Pixel boxes (..., N, 4) scaled to [0, 1] by each image's (height,
+    width) ``im_hw`` (..., 2) (reference ``get_scaled_boxes``,
+    ``rel_model_base.py:263-274``)."""
+    h = im_hw[..., None, 0:1]
+    w = im_hw[..., None, 1:2]
+    return boxes / torch.cat([w, h, w, h], dim=-1)

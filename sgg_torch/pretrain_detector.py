@@ -1,20 +1,25 @@
-"""Detector pretraining: train the VGG16 Faster R-CNN on a split's objects.
+"""Detector pretraining: train a Faster R-CNN on a split's objects.
 
 Counterpart of the JAX package's ``pretrain_detector.py`` (reference
 ``pretrain_detector.py`` with the torchvision engine,
 ``detector/engine.py``): the sum of the RPN objectness and box losses and
 the RoI-head classifier and box losses, every detector parameter trained
-(the VGG trunk included, through the backward kernels of K2 and K1), SGD
-at lr 0.005 with momentum 0.9 and coupled L2 5e-4, a linear warmup over
-the first epoch's steps, the rate times 0.1 every 3 epochs, and a
-detector payload per epoch that ``python -m sgg_torch.main -m sgdet
--ckpt <dir>`` loads. Runs on the card unless the caller passes the CPU::
+(the backbone included: for the VGG16 detector through the backward
+kernels of K2 and K1, for the ResNet50-FPN one through K1's at four
+pyramid levels and the BatchNorms' scales and biases, never their
+statistics), SGD at lr 0.005 with momentum 0.9 and coupled L2 5e-4, a
+linear warmup over the first epoch's steps, the rate times 0.1 every 3
+epochs, and a detector payload per epoch that ``python -m sgg_torch.main
+-m sgdet -ckpt <dir>`` loads (with ``-backbone resnet50`` for the FPN
+detector). Runs on the card unless the caller passes the CPU::
 
     python -m sgg_torch.pretrain_detector synthetic - <out_dir> 2 3
 
-``detector=None`` (the JAX package's ResNet50-FPN default) and the
-``vg``/``gqa`` datasets raise ``NotImplementedError``: they come with the
-ResNet50-FPN slice and the dataset parsers (ROADMAP Queue A).
+``pretrain`` trains ``FasterRCNNFPN`` unless given another detector, as
+the JAX package's does (the reference pretrains only the FPN detector);
+the VGG16 one is ``pretrain(..., detector=FasterRCNNVGG(...))``. The
+``vg``/``gqa`` datasets raise ``NotImplementedError`` until the dataset
+parsers are ported.
 """
 
 from __future__ import annotations
@@ -199,8 +204,9 @@ def pretrain(splits, *, num_epochs: int = 10, batch_size: int = 3,
              lr: float = LR, save_dir: Optional[str] = None,
              max_nodes: int = 64, detector=None, with_images: bool = True,
              steps_per_print: int = 50, device=None):
-    """Pretrain ``detector`` (a ``FasterRCNNVGG``) on ``splits["train"]``;
-    returns ``(detector, PretrainState)``.
+    """Pretrain ``detector`` on ``splits["train"]``; returns ``(detector,
+    PretrainState)``. With no ``detector``, a ``FasterRCNNFPN`` of the
+    split's classes computing in bfloat16, the JAX package's default.
 
     The detector is moved to ``device`` (the card unless the caller asks
     for the CPU) and keeps its compute type (``to_compute_dtype``, over
@@ -212,13 +218,12 @@ def pretrain(splits, *, num_epochs: int = 10, batch_size: int = 3,
     raises ``FloatingPointError``. With
     ``save_dir``, each epoch writes a payload (``step``, ``params``,
     ``batch_stats``, ``opt_state``, ``epoch``)."""
-    if detector is None:
-        raise NotImplementedError(
-            "pretrain(detector=None) builds the JAX package's default, the "
-            "ResNet50-FPN detector, which is not ported to sgg_torch yet "
-            "(ROADMAP Queue A3); pass detector=FasterRCNNVGG(...)")
     dev = resolve_device("cuda" if device is None else device)
     train_data = splits["train"]
+    if detector is None:
+        from sgg_torch.models.detector import FasterRCNNFPN
+        detector = FasterRCNNFPN(train_data.num_classes).to_compute_dtype(
+            torch.bfloat16)
     detector = init_detector_weights(detector, 0).to(dev).eval()
     loader = BatchLoader(train_data, batch_size=batch_size,
                          max_nodes=max_nodes, max_edges=1,
@@ -272,10 +277,10 @@ def pretrain(splits, *, num_epochs: int = 10, batch_size: int = 3,
 def main(argv: Optional[Sequence[str]] = None):
     """CLI: ``python -m sgg_torch.pretrain_detector {vg,gqa,synthetic}
     DATA_DIR OUT_DIR [EPOCHS=10] [BATCH=3|2] [NUM_VAL_IM=5000] [LR=0.005]
-    [-device cpu]``, the JAX package's arguments. ``synthetic`` trains the
-    VGG16 detector (bfloat16 compute over float32 master weights) on a
-    64-image synthetic split with the VG-Stanford vocabulary; DATA_DIR and
-    NUM_VAL_IM are then unused."""
+    [-device cpu]``, the JAX package's arguments. ``synthetic`` trains
+    ``pretrain``'s default, the ResNet50-FPN detector (bfloat16 compute
+    over float32 master weights), on a 64-image synthetic split with the
+    VG-Stanford vocabulary; DATA_DIR and NUM_VAL_IM are then unused."""
     p = argparse.ArgumentParser(prog="python -m sgg_torch.pretrain_detector")
     p.add_argument("dataset", choices=("vg", "gqa", "synthetic"))
     p.add_argument("data_dir")
@@ -288,18 +293,13 @@ def main(argv: Optional[Sequence[str]] = None):
     args = p.parse_args(argv)
     if args.dataset != "synthetic":
         raise NotImplementedError(
-            f"{args.dataset}: the dataset parsers are not ported to "
-            f"sgg_torch yet (ROADMAP Queue A4); use synthetic")
+            f"{args.dataset}: the dataset parsers (VG, GQA) are not ported "
+            f"to sgg_torch yet; use synthetic")
     from sgg_torch.data.synthetic import synthetic_splits
-    from sgg_torch.models.detector import FasterRCNNVGG
 
-    splits = synthetic_splits()
-    det = FasterRCNNVGG(num_classes=splits["train"].num_classes)
-    det.to_compute_dtype(torch.bfloat16)
-    return pretrain(splits, num_epochs=args.epochs,
+    return pretrain(synthetic_splits(), num_epochs=args.epochs,
                     batch_size=args.batch or 3, lr=args.lr,
-                    save_dir=args.out_dir, detector=det,
-                    device=args.device)
+                    save_dir=args.out_dir, device=args.device)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ the caller's template and reports the rest, as the reference's
 
 A detector directory (what ``-ckpt`` names in mode sgdet) has the same
 layout: ``vgrel-<epoch>.pth`` holding ``{"params", "batch_stats"}`` of a
-``FasterRCNNVGG``, keyed by ``state_dict`` name.
+``FasterRCNNVGG`` or ``FasterRCNNFPN``, keyed by ``state_dict`` name.
 """
 
 from __future__ import annotations

@@ -55,7 +55,7 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
         pairs, rel_labels = sampled[..., :2], sampled[..., 2]
         optimizer.zero_grad()
         out = model(batch.images, batch.boxes, batch.classes, pairs,
-                    pair_mask, generator=generator)
+                    pair_mask, im_hw=batch.im_hw, generator=generator)
         losses = {}
         losses.update(node_losses(out["obj_logits"], batch.classes,
                                   batch.node_mask))
@@ -94,7 +94,8 @@ def make_eval_step(model, mode: str = None, max_pairs: int = None,
         if max_pairs is not None and max_pairs < pairs.shape[1]:
             pairs, pair_mask, _ = compact_pairs(pairs, pair_mask, max_pairs)
         out = model(batch.images, batch.boxes, batch.classes, pairs,
-                    pair_mask, mode=mode, dedup_unions=dedup)
+                    pair_mask, im_hw=batch.im_hw, mode=mode,
+                    dedup_unions=dedup)
         out["pairs"] = pairs
         out["pair_mask"] = pair_mask
         out["rel_dists"] = torch.softmax(out["rel_logits"], dim=-1)

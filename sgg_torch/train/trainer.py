@@ -14,9 +14,8 @@ reach the step in the config's ``image_format`` (uint8 canvases are
 normalized on the device), float canvases in bfloat16 when the model
 computes in it, their copies to the device issued ahead on a stream of
 their own while the previous steps run (``device_prefetch``). Not ported yet, each raising
-``NotImplementedError`` with the ROADMAP Queue A item that brings it: the
-feature cache (10), the GAN (14) and multi-device training (15); the
-ResNet50-FPN detector comes with its own slice.
+``NotImplementedError`` that names it: the feature cache, GAN training and
+multi-device training.
 """
 
 from __future__ import annotations
@@ -80,16 +79,17 @@ def build_model(config: Config, train_data: SGGDataset, *,
 VAL_EVERY = 5
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to sgg_torch yet "
-                               f"(ROADMAP Queue A {item})")
+                               f"(ROADMAP Queue A)")
 
 
 class Trainer:
     """Owns the model, the optimizer, the train step and the epoch, val
     and test loops, on ``config.device``.
 
-    Mode sgdet needs ``detector`` (a ``FasterRCNNVGG``); ``det_state``, a
+    Mode sgdet needs ``detector`` (a ``FasterRCNNVGG`` or
+    ``FasterRCNNFPN``, of the config's backbone); ``det_state``, a
     detector payload (``checkpoint.load_detector``), is loaded into it
     with ``strict=True``. The detector is frozen and is not part of the
     run's checkpoints: they hold the relation model and its optimizer."""
@@ -100,11 +100,11 @@ class Trainer:
         if config.mode == "sgdet" and detector is None:
             raise ValueError("sgdet training needs a (pretrained) detector")
         if config.feature_cache:
-            raise _not_ported("the feature cache", "item 10")
+            raise _not_ported("the feature cache")
         if config.gan:
-            raise _not_ported("GAN training", "item 14")
+            raise _not_ported("GAN training")
         if config.num_devices > 1:
-            raise _not_ported("multi-device training", "item 15")
+            raise _not_ported("multi-device training")
         self.config = config
         self.splits = splits
         self.train_data = splits["train"]

@@ -711,3 +711,145 @@ def test_device_prefetch_on_the_card_keeps_order_and_content(dev):
         n += 1
     assert n == len(host)
     assert torch.isfinite(x).all()
+
+
+# -- the ResNet50-FPN shapes -------------------------------------------------
+
+# (side, stride) of P2-P5 and pool at 592 px
+FPN_LEVELS = [(148, 4), (74, 8), (37, 16), (19, 32), (10, 64)]
+
+
+def _fpn_boxes(rng, B, R):
+    """Proposal-like boxes from 4 to 600 px (every FPN level's range),
+    partly outside the 592 px canvas."""
+    xy = rng.uniform(-20, 560, (B, R, 2))
+    wh = np.exp(rng.uniform(np.log(4), np.log(600), (B, R, 2)))
+    return np.concatenate([xy, xy + wh], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("side,stride", FPN_LEVELS)
+def test_roi_align_kernels_at_fpn_level_shapes(side, stride, dev):
+    """K1, K1-bwd-fmap and K1-bwd-boxes on a 2 x side x side x 256 map at
+    scale 1/stride, as ``multiscale_roi_align`` calls them: 512 ROIs, the
+    gradient's rows zero outside the level's own quarter (pool, 1/64: the
+    relation head's map, every row). Forward f32 within 1e-5, bf16 within
+    2e-2 of the largest; backward as ``test_roi_align_backward_kernels_
+    match_plain``; the same bits from two launches."""
+    from sgg_torch.models.resnet import roi_level_assignment
+    rng = np.random.RandomState(side)
+    B, R, C = 2, 512, 256
+    fmap = torch.from_numpy(rng.randn(B, side, side, C).astype(
+        np.float32)).to(dev)
+    boxes = torch.from_numpy(_fpn_boxes(rng, B, R)).to(dev)
+    g = torch.from_numpy(rng.randn(B, R, 7, 7, C).astype(np.float32)).to(dev)
+    if stride < 64:
+        sel = roi_level_assignment(boxes) == FPN_LEVELS.index((side, stride))
+        g = g * sel[..., None, None, None]
+    scale = 1.0 / stride
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        f, gg = fmap.to(dtype), g.to(dtype)
+        want = troi.roi_align_reference(fmap, boxes, spatial_scale=scale)
+        got = troi.roi_align(f, boxes, spatial_scale=scale)
+        want_f = troi.roi_align_backward_reference(
+            gg, boxes, (side, side), dtype, spatial_scale=scale)
+        want_b = troi.roi_align_boxes_grad_reference(gg, f, boxes,
+                                                     spatial_scale=scale)
+        got_f = [troi._grad_fmap_kernel(gg, boxes, tuple(f.shape), dtype,
+                                        scale, 7, 2) for _ in range(2)]
+        got_b = [troi._grad_boxes_kernel(gg, f, boxes, scale, 7, 2)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= (1e-5 if dtype == torch.float32
+                                   else 2e-2), dtype
+        assert torch.equal(*got_f) and torch.equal(*got_b), dtype
+        assert _rel(got_f[0], want_f) <= tol, (dtype, "fmap")
+        assert _rel(got_b[0], want_b) <= 1e-4, (dtype, "boxes")
+
+
+def test_resnet50_fpn_card_matches_cpu(dev):
+    """``ResNet50FPN`` (f32, TF32 off) on the card against the CPU, every
+    level within 1e-4 of its largest value, on a 144 px canvas whose top
+    levels upsample inexactly; the ``pool`` level alone equal to the full
+    pyramid's; bf16 finite."""
+    from sgg_torch.models.relhead import init_weights
+    from sgg_torch.models.resnet import ResNet50FPN
+    net = init_weights(ResNet50FPN(), 0).eval()
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        2, 144, 144, 3).astype(np.float32))
+    with torch.no_grad():
+        want = net(x)
+        net.to(dev)
+        got = net(x.to(dev))
+        pool = net.pool(x.to(dev))
+        for m in net.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.bfloat16
+        half = net(x.to(dev))
+    for k, w in want.items():
+        assert _rel(got[k].cpu(), w) <= 1e-4, k
+        assert half[k].dtype == torch.bfloat16
+        assert bool(torch.isfinite(half[k]).all()), k
+    assert torch.equal(pool, got["pool"])
+
+
+def _tiny_fpn(device):
+    from sgg_torch.models.detector import (FasterRCNNFPN,
+                                           init_detector_weights)
+    return init_detector_weights(FasterRCNNFPN(
+        9, obj_dim=48, rpn_pre_nms_top_n=64, rpn_post_nms_top_n=24,
+        detections_per_img=8), 0).to(device)
+
+
+def test_fpn_detector_train_step_card_matches_cpu_and_does_not_wait(dev):
+    """One f32 FPN detector step on the card and on the CPU from the same
+    weights, on the card's proposal slots and the same draws: losses within
+    1e-5 relative, BatchNorm statistics untouched; then bf16 steps under
+    ``set_sync_debug_mode("error")``, each launching K1 and both of its
+    backward kernels four times (P2-P5) on their bf16 routes."""
+    from sgg_torch.models.detector import balanced_draws
+    from sgg_torch.pretrain_detector import (DetectorOptimizer,
+                                             detector_losses,
+                                             make_detector_train_step)
+    batch = _sgdet_batch()
+    with torch.no_grad():
+        out = _tiny_fpn(dev)(
+            torch.from_numpy(batch.images).to(dev),
+            torch.from_numpy(batch.im_hw).to(dev),
+            gt_boxes=torch.from_numpy(batch.boxes).to(dev),
+            gt_mask=torch.from_numpy(batch.node_mask).to(dev))
+    index = (out["proposal_index"], out["rpn_prop_mask"])
+    gen = torch.Generator().manual_seed(0)
+    draws = {"rpn": balanced_draws(gen, out["rpn_obj_logits"].shape, "cpu"),
+             "roi": balanced_draws(gen, out["prop_mask"].shape, "cpu")}
+    losses = {}
+    for d in ("cpu", dev):
+        det = _tiny_fpn(d)
+        losses[str(d)], _ = detector_losses(
+            det, batch.to(d),
+            draws={k: tuple(u.to(d) for u in v) for k, v in draws.items()},
+            proposal_index=tuple(t.to(d) for t in index))
+    for k, want in losses["cpu"].items():
+        torch.testing.assert_close(losses["cuda"][k].cpu(), want.detach(),
+                                   atol=0, rtol=1e-5)
+
+    det = _tiny_fpn(dev).to_compute_dtype(torch.bfloat16)
+    stats = {k: b.clone() for k, b in det.named_buffers()}
+    step = make_detector_train_step(det, DetectorOptimizer(
+        det, lambda count: 0.005))
+    bd = batch.to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    step(bd, g)
+    torch.cuda.synchronize()
+    ks = (troi.KERNEL, troi.KERNEL_BWD_FMAP, troi.KERNEL_BWD_BOXES)
+    for k in ks:
+        k.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(bd, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.isfinite(v).item() for v in metrics.values())
+    assert [dict(k.routes) for k in ks] == [
+        {"bf16": 4}, {"bf16-gather": 4}, {"bf16": 4}]
+    for k, b in det.named_buffers():
+        assert torch.equal(b, stats[k]), k

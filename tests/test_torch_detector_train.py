@@ -23,7 +23,9 @@ from sgg_tpu.train.state import TrainState
 from sgg_torch import pretrain_detector as tpre
 from sgg_torch.convert import variables_from_jax
 from sgg_torch.data.graph_batch import GraphBatch
+from sgg_torch.data.synthetic import synthetic_splits
 from sgg_torch.models import detector as tdet
+from test_torch_resnet_fpn import one_thread  # noqa: F401
 
 C, IMG, B, N = 9, 96, 2, 6
 TINY = dict(rpn_pre_nms_top_n=32, rpn_post_nms_top_n=16,
@@ -362,7 +364,6 @@ def test_classifier_loss_reaches_the_rpn_through_the_proposals():
 # -- the loop, its payloads and its refusals --------------------------------
 
 def _splits(n=8):
-    from sgg_torch.data.synthetic import synthetic_splits
     return synthetic_splits(num_train=n, num_eval=2, num_classes=C,
                             num_predicates=5, max_objects=5, image_size=96)
 
@@ -398,9 +399,19 @@ def test_pretrain_writes_payloads_that_sgdet_loads(tmp_path):
     assert len(moved) == len(list(fresh.parameters()))
 
 
-def test_pretrain_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A3"):
-        tpre.pretrain({"train": None}, detector=None, device="cpu")
+def test_pretrain_refuses_what_is_not_ported(monkeypatch, one_thread):
+    """The real datasets raise; ``detector=None``, refused until the FPN
+    detector was ported, now trains it (tiny heads, 64 px)."""
+    from sgg_torch import constants
+    monkeypatch.setattr(tdet, "FasterRCNNFPN", functools.partial(
+        tdet.FasterRCNNFPN, **TINY))
+    monkeypatch.setattr(constants, "IM_SCALE", 64)
+    splits = synthetic_splits(num_train=2, num_eval=1, num_classes=C,
+                              num_predicates=5, max_objects=4,
+                              image_size=64)
+    det, state = tpre.pretrain(splits, num_epochs=1, batch_size=2,
+                               max_nodes=8, detector=None, device="cpu")
+    assert type(det).__name__ == "FasterRCNNFPN" and state.step == 1
     for ds in ("vg", "gqa"):
-        with pytest.raises(NotImplementedError, match="Queue A4"):
+        with pytest.raises(NotImplementedError, match="dataset parsers"):
             tpre.main([ds, "data", "out"])

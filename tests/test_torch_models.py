@@ -121,6 +121,68 @@ def test_union_feats(models):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
+def _raw_boxes(tm):
+    """``tm`` with its rects branch switched to ``raw_boxes`` (the same
+    weights: only the rasterizer differs); restore ``motifs`` after."""
+    tm.union_feats.edge_model = "raw_boxes"
+    return tm
+
+
+HW = np.asarray([[IMG, IMG], [48.0, IMG - 8.0]], np.float32)
+
+
+def test_union_feats_raw_boxes(models):
+    _, v, tm = models
+    _, boxes, _, _, _ = _graph(seed=4)
+    pb = np.concatenate([boxes[:, [0, 1, 2, 3]], boxes[:, [4, 3, 2, 1]]], -1)
+    pb[0, 1, 4:] = [10.0, 12.0, 10.0, 30.0]  # a zero-width object box
+    want = JUnion(dim=512, edge_model="raw_boxes", dtype=jnp.float32).apply(
+        {"params": v["params"]["union_feats"],
+         "batch_stats": v["batch_stats"]["union_feats"]}, jnp.asarray(pb),
+        im_hw=jnp.asarray(HW))
+    try:
+        got = _raw_boxes(tm).union_feats(_t(pb), _t(HW))
+        with pytest.raises(ValueError, match="im_hw"):
+            tm.union_feats(_t(pb))
+    finally:
+        tm.union_feats.edge_model = "motifs"
+    assert got.shape == want.shape == (2, 4, 1, 1, 512)
+    motifs = tm.union_feats(_t(pb)).detach().numpy()
+    assert np.abs(motifs - np.asarray(want)).max() > 1e-2  # not the same
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode,dedup", [("sgcls", True), ("predcls", False)])
+def test_full_model_raw_boxes(models, mode, dedup):
+    jm, v, tm = models
+    images, boxes, classes, pairs, pm = _graph(seed=9)
+    want = jm.clone(edge_model="raw_boxes").apply(
+        v, *map(jnp.asarray, (images, boxes, classes, pairs, pm)),
+        im_hw=jnp.asarray(HW), mode=mode, dedup_unions=dedup)
+    try:
+        with torch.no_grad():
+            got = _raw_boxes(tm)(_t(images), _t(boxes), _t(classes).long(),
+                                 _t(pairs).long(), _t(pm), im_hw=_t(HW),
+                                 mode=mode, dedup_unions=dedup)
+    finally:
+        tm.union_feats.edge_model = "motifs"
+    for k in ("obj_logits", "rel_logits", "obj_scores"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   err_msg=k, **TOL)
+
+
+def test_sgdet_raw_boxes_needs_im_hw():
+    """The SGDet path passes no image sizes, as in the JAX package (whose
+    ``raw_boxes`` asserts on them): the port says what is missing."""
+    tm = RelModelIMP(num_classes=C, num_predicates=R, mode="sgdet",
+                     hidden_dim=HID, obj_dim=OBJ, edge_model="raw_boxes")
+    _, boxes, classes, pairs, pm = _graph()
+    with pytest.raises(ValueError, match="raw_boxes.*im_hw"):
+        tm(None, _t(boxes), _t(classes).long(), _t(pairs).long(), _t(pm),
+           fmap=torch.zeros(2, 4, 4, 512))
+
+
 def test_gru_cell(models):
     _, v, tm = models
     rng = np.random.RandomState(5)

@@ -68,6 +68,7 @@ from sgg_torch.train.rel_assign import select_rel_assignments
 from sgg_torch.train.state import Optimizer
 from sgg_torch.utils import counters
 from test_torch_models import random_variables
+from test_torch_resnet_fpn import one_thread  # noqa: F401
 from test_torch_train_step import _no_flax_dropout, assert_state_close
 
 C, R, IMG, B, D = 8, 5, 96, 2, 8
@@ -424,15 +425,18 @@ def test_val_epoch_sgdet_matches_jax(models, small_canvas):
 
 
 def test_cli_sgdet_evaluates_a_saved_detector(tmp_path, monkeypatch,
-                                              small_canvas):
+                                              small_canvas, one_thread):
     tiny_det = functools.partial(FasterRCNNVGG, **DET_KW)
     monkeypatch.setattr(detector_mod, "FasterRCNNVGG", tiny_det)
+    tiny_fpn = functools.partial(detector_mod.FasterRCNNFPN, **DET_KW)
+    monkeypatch.setattr(detector_mod, "FasterRCNNFPN", tiny_fpn)
 
     def tiny_model(config, train_data, *, device="cuda", seed=0):
         return init_weights(RelModelIMP(
             num_classes=train_data.num_classes,
             num_predicates=train_data.num_predicates, mode="sgdet",
-            hidden_dim=16, obj_dim=32), seed).to(device).eval()
+            hidden_dim=16, obj_dim=32, backbone=config.backbone),
+            seed).to(device).eval()
 
     monkeypatch.setattr(trainer_mod, "build_model", tiny_model)
     det_dir = str(tmp_path / "det")
@@ -450,8 +454,22 @@ def test_cli_sgdet_evaluates_a_saved_detector(tmp_path, monkeypatch,
     assert written == {k: v for k, v in results.items()
                        if not k.startswith("_")}
     assert all(v == v for v in written.values())
-    with pytest.raises(NotImplementedError, match="ResNet50-FPN"):
-        cli.main(argv + ["-ckpt", det_dir, "-backbone", "resnet50"])
+    # -backbone resnet50: the FPN detector's payload, its stride-64 map
+    # feeding the relation head (the classifier scaled, as chip_smoke's
+    # CLS_SCALE, so that a score clears the 0.01 retry floor)
+    fpn = detector_mod.init_detector_weights(tiny_fpn(151), 0)
+    with torch.no_grad():
+        fpn.cls_score.weight.mul_(24.0)
+    fpn_dir = str(tmp_path / "fpn")
+    ckpt.save_detector(fpn_dir, fpn)
+    results = cli.main(argv + ["-nepoch", "0", "-ckpt", fpn_dir,
+                               "-backbone", "resnet50"])
+    assert "sgdet/test_alls_R@100_NOGC" in results
+    assert sum(len(b) for v in results["_detections"].values()
+               for b in v["boxes"]) > 0
+    with pytest.raises(RuntimeError, match="Missing key"):
+        cli.main(argv + ["-nepoch", "0", "-ckpt", det_dir, "-backbone",
+                         "resnet50"])  # a VGG payload is no FPN's
     with pytest.raises(ValueError, match="-ckpt"):
         cli.main(argv)
     with pytest.raises(FileNotFoundError):
