@@ -124,14 +124,34 @@ non-zero exit and without the result line:
    counted epoch, 2 K1 launches a step on the pool level, the trunk
    bit-unchanged, a step's ms on the card) and its dual predcls/sgcls
    evaluation, counted; and ``-edge_model raw_boxes`` on the VGG16 model,
-   one train step and one eval forward (2 K1 + 1 K2 each).
+   one train step and one eval forward (2 K1 + 1 K2 each);
+10. real inputs under its own deadline: torchvision-format reference
+   checkpoints drawn from a seeded generator at full width (a VGG16
+   ``FasterRCNN`` with its classifier's weights times ``CLS_SCALE``, a
+   ``vgrel.pth`` relation model with its frequency bias, a
+   ``maskrcnn_resnet50_fpn`` backbone), saved and imported by ``python -m
+   sgg_torch.import_reference_ckpt`` in-process, every mapped tensor
+   bitwise equal to its source after the layout change, the skipped names
+   printed; ``main -m sgdet -nepoch 0 -ckpt <imported detector>`` on the
+   card on the synthetic split with its images written as JPEGs (a shape
+   at each box; decoded with PIL), counted as phase 7 (CLI eval images/s
+   beside the batches re-detected with sequential NMS); one sgcls eval
+   forward of the imported relation model on two of those JPEGs and one
+   forward of a ``FasterRCNNFPN`` on the imported backbone on random
+   images, card against CPU in f32 (phase 6's 1e-3 and
+   phase 7's 1e-3 of the size); and the data packages: with ``h5py`` and
+   PIL, ``main -split stanford`` on a VG fixture tree (two train steps and
+   the eval); without either, ``sgg_torch.data.visual_genome`` imports and
+   ``-split stanford`` raises ``ImportError`` naming what is missing before
+   any work on the card; with PIL, ``main -split gqa -backbone resnet50``
+   (JSON scene graphs, JPEGs decoded) on a GQA fixture tree on the card.
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
 ``eval_shape``, the SGDet shapes' under ``sgdet``, the FPN levels' and the
 pool level's under ``fpn``; the backward rows' at the pretraining shape,
 their FPN levels' under ``fpn``; ``launches`` summed over the paths of
-phases 4, 5, 7, 8 and 9) and, last, the result line ``{"ok": true,
+phases 4, 5, 7, 8, 9 and 10) and, last, the result line ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -2950,6 +2970,350 @@ def phase_resnet(torch, peaks, rows, splits):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 10: real inputs (the reference checkpoints' import, the dataset
+# parsers and image decoding where h5py and PIL are installed)
+
+REAL_DEADLINE_S = 300
+REAL_EVAL_SIZE = 24
+
+
+def _check_imported(torch, kind, model, sd):
+    """Every tensor of ``sd`` that the import's map reads sits in ``model``
+    bit for bit after its layout change (fc6: the CHW -> HWC permutation of
+    its input axis); returns their count."""
+    from sgg_torch.train.checkpoint import reference_flat_updates
+    state = model.state_dict()
+    flat = reference_flat_updates(kind, sd)
+    for name, want in flat.items():
+        check(torch.equal(state[name], want),
+              f"import {kind}: {name} is not its source bit for bit")
+    return len(flat)
+
+
+def import_reference(torch, kind, sd, tmp, wrap=False):
+    """10a: ``sd`` saved as a reference ``.pth`` (``{"state_dict": sd}``
+    with ``wrap``, as a vgrel.pth) and imported by ``python -m
+    sgg_torch.import_reference_ckpt <kind>`` in-process; checked bitwise;
+    the skipped names printed. Returns (imported model, payload dir)."""
+    from sgg_torch import import_reference_ckpt as tool
+    pth, out_dir = os.path.join(tmp, f"{kind}.pth"), os.path.join(tmp, kind)
+    torch.save({"state_dict": sd} if wrap else sd, pth)
+    t0 = time.perf_counter()
+    res = tool.main([kind, pth, out_dir])
+    secs = time.perf_counter() - t0
+    os.remove(pth)
+    n = _check_imported(torch, kind, res["model"], sd)
+    stats = res["stats"]
+    print(f"phase 10 import {kind}: {len(sd)} reference tensors, {n} "
+          f"bitwise equal to their sources after the layout change, in "
+          f"{secs:.1f} s; skipped: {len(stats['missing'])} names kept their "
+          f"initial values {json.dumps(stats['missing'])}, "
+          f"{len(stats['unused'])} checkpoint tensors without a home "
+          f"{json.dumps(stats['unused'])}", flush=True)
+    check(not stats["unused"], f"import {kind}: tensors without a home")
+    return res["model"], out_dir
+
+
+def _jpeg_splits(splits, root):
+    """``splits`` with every image a JPEG under ``root``, written by the
+    port's fixture writer: smooth random background and a class-coded
+    shape at each box. The synthetic splits are file-less and feed blank
+    canvases, on which a random RPN scores every interior anchor alike."""
+    import dataclasses
+
+    import numpy as np
+
+    from sgg_torch.data.fixtures import _write_jpeg
+    rng = np.random.RandomState(10)
+    out = {}
+    for name, ds in splits.items():
+        files = []
+        for i, (boxes, classes) in enumerate(zip(ds.gt_boxes,
+                                                 ds.gt_classes)):
+            files.append(f"{name}_{i}.jpg")
+            _write_jpeg(os.path.join(root, files[-1]), rng, CANVAS, CANVAS,
+                        boxes, classes)
+        out[name] = dataclasses.replace(ds, filenames=files,
+                                        images_dir=root)
+    return out
+
+
+def imported_sgdet_cli(torch, ckdir, tmp):
+    """10b: ``main -m sgdet -nepoch 0 -ckpt <imported dir> -split
+    synthetic`` on the card, its splits' images written as JPEGs under
+    ``tmp`` and decoded by the loader, counted: K1 and K2 launch as in
+    phase 7."""
+    from sgg_torch import main as cli
+    argv = ["-m", "sgdet", "-nepoch", "0", "-ckpt", ckdir, "-split",
+            "synthetic", "-val_size", str(REAL_EVAL_SIZE), "-nwork", "4"]
+    real_load = cli.load_splits
+    cli.load_splits = lambda config: _jpeg_splits(real_load(config), tmp)
+    t0 = time.perf_counter()
+    try:
+        res, n, routes = _counted(torch, lambda: cli.main(argv))
+    finally:
+        cli.load_splits = real_load
+    wall = time.perf_counter() - t0
+    thr, cnt, dets = res["_throughput"], res["_counters"], res["_detections"]
+    images = sum(t["sgdet"]["images"] for t in thr.values())
+    secs = sum(t["sgdet"]["seconds"] for t in thr.values())
+    n_det = [d for v in dets.values() for d in v["n_det"]]
+    batches = sum(c.get("sgdet_batches", 0) for c in cnt.values())
+    redetect = sum(c.get("sgdet_nms_unconverged", 0)
+                   + c.get("sgdet_nms_cand_overflow", 0)
+                   for c in cnt.values())
+    recalls = {k: v for k, v in res.items()
+               if k.startswith("sgdet/test_alls_R@")}
+    print(f"phase 10 sgdet eval on the imported VGG16 detector, classifier "
+          f"x{CLS_SCALE:g} (main -m sgdet -nepoch 0 -ckpt <imported>): "
+          f"{images} of {len(n_det)} JPEG images reached the evaluator, "
+          f"{images / secs:.2f} CLI eval images/s in the eval loops with "
+          f"{redetect} of {batches} batches re-detected with sequential NMS "
+          f"({wall:.1f} s with JPEG writing and model building); "
+          f"detections an image min "
+          f"{min(n_det)} max {max(n_det)}; counters {json.dumps(cnt)}; "
+          f"launches {json.dumps(n)} by route {json.dumps(routes)}",
+          flush=True)
+    check(images >= 0.5 * len(n_det),
+          f"only {images} of {len(n_det)} images reached the evaluator")
+    check(recalls and all(math.isfinite(v) for v in recalls.values()),
+          f"recalls missing or not finite: {recalls}")
+    want = {"vgg_conv1": batches + redetect,
+            "roi_align": batches + redetect + 2 * batches, **NO_BACKWARD}
+    check(n == want and n["roi_align"] > 0 and n["vgg_conv1"] > 0,
+          f"imported sgdet eval launched {n}; {batches} batches with "
+          f"{redetect} re-detections want {want}")
+    return n
+
+
+def imported_relmodel_card_vs_cpu(torch, model, tmp):
+    """10c: one sgcls eval forward of the imported relation model (f32, 2
+    JPEG images decoded under ``tmp``, full width), card against CPU under
+    phase 6's limit."""
+    import copy
+
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.train.step import make_eval_step
+
+    test = _jpeg_splits({"rel": synthetic_splits(num_eval=2)["test_alls"]},
+                        tmp)["rel"]
+    batch = next(iter(BatchLoader(test, batch_size=2, max_nodes=64,
+                                  max_edges=576, shuffle=False,
+                                  drop_last=False)))
+    card = copy.deepcopy(model).cuda().eval()
+    got, n, routes = _counted(torch, lambda: make_eval_step(
+        card, mode="sgcls", max_pairs=512, device="cuda")(batch))
+    want = make_eval_step(model.eval(), mode="sgcls", max_pairs=512,
+                          device="cpu")(batch)
+    errs = {k: float((got[k].cpu() - want[k]).abs().max())
+            for k in ("obj_logits", "rel_dists")}
+    print(f"phase 10 imported relation model, sgcls eval forward card vs "
+          f"CPU (f32, 2 JPEG images, full width, frequency bias): "
+          f"max|err| "
+          f"{json.dumps(errs)}; launches {json.dumps(n)} by route "
+          f"{json.dumps(routes)}", flush=True)
+    check(all(math.isfinite(v) and v <= 1e-3 for v in errs.values()),
+          f"imported relation model: card vs CPU outputs differ: {errs}")
+    check(n["roi_align"] == 2 and n["vgg_conv1"] == 1,
+          f"imported relation model launched {n}")
+    del card
+    torch.cuda.empty_cache()
+    return n
+
+
+def imported_fpn_card_vs_cpu(torch, fpn_dir):
+    """10c: a ``FasterRCNNFPN(151)`` whose backbone is the imported
+    payload (loaded strictly), one f32 forward of 2 images at full width,
+    card against CPU, the CPU held on the card's proposals: the pyramid,
+    RPN and box-head outputs within 1e-3 of their size (phase 7's limit)."""
+    import copy
+
+    from sgg_torch.models.detector import FasterRCNNFPN, init_detector_weights
+    from sgg_torch.train.checkpoint import restore_payload
+
+    payload, _ = restore_payload(fpn_dir)
+    det = init_detector_weights(FasterRCNNFPN(151), 0).eval()
+    det.backbone.load_state_dict({**payload["params"],
+                                  **payload["batch_stats"]}, strict=True)
+    card = copy.deepcopy(det).cuda().eval()
+    g = torch.Generator().manual_seed(4)
+    images = torch.randn(2, CANVAS, CANVAS, 3, generator=g)
+    im_hw = torch.tensor([[CANVAS, CANVAS], [0.75 * CANVAS, CANVAS]],
+                         dtype=torch.float32)
+    with torch.no_grad():
+        got, n, routes = _counted(torch, lambda: card(images.cuda(),
+                                                      im_hw.cuda()))
+        got = {k: (v.cpu() if torch.is_tensor(v) else
+                   {lv: x.cpu() for lv, x in v.items()})
+               for k, v in got.items()}
+        want = det(images, im_hw, proposal_index=(got["proposal_index"],
+                                                  got["rpn_prop_mask"]))
+    errs = {f"pyramid {lv}": rel_err(torch, got["pyramid"][lv],
+                                     want["pyramid"][lv])
+            for lv in want["pyramid"]}
+    errs.update({k: rel_err(torch, got[k], want[k])
+                 for k in ("rpn_obj_logits", "rpn_deltas", "class_logits",
+                           "box_deltas")})
+    print(f"phase 10 detector on the imported ResNet50-FPN backbone, forward "
+          f"card vs CPU (f32, 2 images, full width; the CPU on the card's "
+          f"proposals): rel err {json.dumps(errs)}; detections "
+          f"{got['mask'].sum(1).tolist()}; launches {json.dumps(n)} by route "
+          f"{json.dumps(routes)}", flush=True)
+    check(all(math.isfinite(v) and v <= 1e-3 for v in errs.values()),
+          f"imported FPN detector: card vs CPU outputs differ: {errs}")
+    check(n["roi_align"] == 4, f"imported FPN detector launched {n}")
+    del card
+    torch.cuda.empty_cache()
+    return n
+
+
+def _fixture_run(torch, tree, name, argv):
+    """``main`` on a fixture tree on the card, counted; its recalls
+    finite."""
+    from sgg_torch import main as cli
+    t0 = time.perf_counter()
+    res, n, routes = _counted(torch, lambda: cli.main(
+        argv + ["-data", tree, "-b", "3", "-nepoch", "1", "-val_size", "2",
+                "-p", "1", "-nwork", "2", "-save_dir",
+                os.path.join(tree, f"run_{name}")]))
+    recalls = {k: v for k, v in res.items()
+               if k.startswith("sgcls/test_alls_R@")}
+    thr = res["_throughput"]["test_alls"]["sgcls"]
+    print(f"phase 10 {' '.join(argv)} on a {name} fixture tree (JPEGs "
+          f"decoded with PIL; 2 train steps and the eval, "
+          f"{time.perf_counter() - t0:.1f} s; sgcls test_alls "
+          f"{thr['images'] / thr['seconds']:.2f} images/s): recalls "
+          f"{json.dumps(recalls)}; launches {json.dumps(n)} by route "
+          f"{json.dumps(routes)}", flush=True)
+    check(recalls and all(math.isfinite(v) for v in recalls.values()),
+          f"{name} fixture: recalls {recalls}")
+    check(n["roi_align"] > 0 and NO_BACKWARD.items() <= n.items(),
+          f"{name} fixture launched {n}")
+    return n
+
+
+def real_data_packages(torch):
+    """10d: with h5py and PIL, ``main -split stanford`` on a VG fixture
+    tree on the card (two train steps and the eval); without either, the
+    parsers still import, and ``-split stanford`` raises ImportError naming
+    what is missing before any work on the card. With PIL, ``-split gqa``
+    (JSON scene graphs, no h5py) on a GQA fixture tree on the card."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import sgg_torch.data.visual_genome  # noqa: F401  (needs neither)
+    from sgg_torch import main as cli
+    from sgg_torch.data import fixtures
+    from sgg_torch.train import trainer as trainer_mod
+
+    have = {}
+    for name in ("h5py", "PIL"):
+        try:
+            importlib.import_module(name)
+            have[name] = True
+        except ImportError:
+            have[name] = False
+    print(f"phase 10 data packages: {json.dumps(have)}", flush=True)
+    tree = tempfile.mkdtemp(prefix="sgg_data_")
+    paths = {}
+    try:
+        if all(have.values()):
+            fixtures.write_vg_fixture(tree, n_train=8, n_test=4)
+            old = os.environ.get("SGG_CHECK_SIZES")
+            os.environ["SGG_CHECK_SIZES"] = "0"
+            try:
+                paths["stanford_fixture"] = _fixture_run(
+                    torch, tree, "VG", ["-m", "sgcls", "-split", "stanford"])
+            finally:
+                if old is None:
+                    del os.environ["SGG_CHECK_SIZES"]
+                else:
+                    os.environ["SGG_CHECK_SIZES"] = old
+        else:
+            built = []
+            real_trainer = trainer_mod.Trainer
+            trainer_mod.Trainer = lambda *a, **k: built.append(a)
+            allocs = torch.cuda.memory_stats().get(
+                "allocation.all.allocated", 0)
+            try:
+                cli.main(["-split", "stanford", "-data", tree])
+                raise RuntimeError("-split stanford ran without h5py or PIL")
+            except ImportError as e:
+                msg = str(e)
+            finally:
+                trainer_mod.Trainer = real_trainer
+            missing = [k for k, v in have.items() if not v]
+            after = torch.cuda.memory_stats().get(
+                "allocation.all.allocated", 0)
+            print(f"phase 10 -split stanford without {missing}: ImportError "
+                  f"{msg!r}; trainer built {len(built)} times, card "
+                  f"allocations {after - allocs}", flush=True)
+            check(all(m in msg for m in missing),
+                  f"the ImportError does not name {missing}: {msg!r}")
+            check(not built and after == allocs,
+                  "-split stanford worked on the card before it raised")
+        if have["PIL"]:
+            fixtures.write_gqa_fixture(tree, n_train=8, n_val=4)
+            paths["gqa_fixture"] = _fixture_run(
+                torch, tree, "GQA", ["-m", "sgcls", "-split", "gqa",
+                                     "-backbone", "resnet50"])
+        return paths
+    finally:
+        shutil.rmtree(tree)
+
+
+def phase_real_inputs(torch):
+    """Phase 10: torchvision-format reference checkpoints (seeded) built,
+    saved and imported in-process (a VGG16 FasterRCNN, a vgrel.pth
+    relation model, a maskrcnn_resnet50_fpn backbone); SGDet on the
+    imported detector through the CLI; the imported relation model and
+    FPN detector card against CPU; the data packages' branch."""
+    import shutil
+    import tempfile
+
+    from sgg_torch import import_reference_ckpt as tool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(10)
+    tmp = tempfile.mkdtemp(prefix="sgg_import_")
+    paths = {}
+    try:
+        sd = tool.reference_state_dict(
+            "detector", tool.build_model("detector", 151), g)
+        # a random 151-way classifier scores near 1/151, under every
+        # threshold: scaled as phase 7's, detections clear them
+        sd["roi_heads.box_predictor.cls_score.weight"] *= CLS_SCALE
+        _, det_dir = import_reference(torch, "detector", sd, tmp)
+        del sd
+        paths["import_sgdet_eval"] = imported_sgdet_cli(torch, det_dir,
+                                                        tmp)
+        sd = tool.reference_state_dict(
+            "relmodel", tool.build_model("relmodel", 151, use_bias=True), g)
+        rel, _ = import_reference(torch, "relmodel", sd, tmp, wrap=True)
+        del sd
+        paths["import_relmodel_eval"] = imported_relmodel_card_vs_cpu(
+            torch, rel, tmp)
+        del rel
+        sd = tool.reference_state_dict(
+            "resnet_fpn", tool.build_model("resnet_fpn"), g)
+        _, fpn_dir = import_reference(torch, "resnet_fpn", sd, tmp)
+        del sd
+        paths["import_fpn_forward"] = imported_fpn_card_vs_cpu(torch,
+                                                               fpn_dir)
+    finally:
+        shutil.rmtree(tmp)
+    paths.update(real_data_packages(torch))
+    print(f"phase 10 real inputs in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
         fail("sgg_torch/ not found beside chip_smoke.py; run from a checkout")
@@ -2978,6 +3342,8 @@ def main() -> None:
             paths.update(phase_pretrain(torch, peaks, rows))
         with Deadline(FPN_DEADLINE_S, "phase 9"):
             paths.update(phase_resnet(torch, peaks, rows, splits))
+        with Deadline(REAL_DEADLINE_S, "phase 10"):
+            paths.update(phase_real_inputs(torch))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -29,6 +29,9 @@ class GraphBatch:
       rels: (B, E, 3) ``(subj_local, obj_local, predicate)``.
       rel_mask: (B, E) bool validity.
       im_scale_org: optional (B,) model-frame -> original-pixel factor.
+      fmaps: optional (B, h, w, C) trunk feature maps from the frozen-trunk
+        feature cache (``data/feature_cache.py``); batches that carry them
+        have no images and the trunk does not run.
     """
 
     images: Optional[np.ndarray]
@@ -39,6 +42,7 @@ class GraphBatch:
     rels: np.ndarray
     rel_mask: np.ndarray
     im_scale_org: Optional[np.ndarray] = None
+    fmaps: Optional[torch.Tensor] = None
 
     @property
     def batch_size(self) -> int:
@@ -78,7 +82,8 @@ class GraphBatch:
             node_mask=place(self.node_mask, torch.bool),
             rels=place(self.rels, torch.int64),
             rel_mask=place(self.rel_mask, torch.bool),
-            im_scale_org=place(self.im_scale_org))
+            im_scale_org=place(self.im_scale_org),
+            fmaps=place(self.fmaps))
 
 
 def pack_graph_batch(boxes, classes, node_offsets, rels, rel_offsets,

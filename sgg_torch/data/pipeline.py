@@ -1,25 +1,30 @@
-"""Host input pipeline: canvas → normalize → pad → pack → prefetch.
+"""Host input pipeline: decode → resize → normalize → pad → pack → prefetch.
 
 Counterpart of ``sgg_tpu/data/pipeline.py`` (reference
-``dataloaders/visual_genome.py:377-455,691-739``): SquarePad to IM_SCALE,
-box scaling/clipping/flip, duplicate relation sampling, and fixed-shape
-padded batch packing. Two canvas formats, as in the JAX package:
-``float32`` (normalized on the host, zero padding) and ``uint8`` (raw
-bytes padded with the ImageNet mean rounded to uint8, normalized on the
-device by the trunk: a quarter of the bytes to copy). Batches are
+``dataloaders/visual_genome.py:377-455,691-739``): per-image PIL decode,
+SquarePad to IM_SCALE after a bilinear resize, box scaling/clipping/flip,
+duplicate relation sampling, and fixed-shape padded batch packing. Two
+canvas formats, as in the JAX package: ``float32`` (normalized on the
+host, zero padding) and ``uint8`` (raw bytes padded with the ImageNet mean
+rounded to uint8, normalized on the device by the trunk: a quarter of the
+bytes to copy). With a frozen-trunk feature cache (``data/feature_cache.py``)
+the batches carry the stored trunk maps instead of canvases. Batches are
 assembled by worker threads and queued; ``device_prefetch`` keeps the next
 batches' copies to the device in flight while a step runs.
 
-The port's datasets so far are file-less (synthetic): their "image" is a
-constant canvas, and a resize of a constant is that constant, so no image
-library is needed. Decoding image files raises ``NotImplementedError``; it
-comes with the dataset parsers (ROADMAP Queue A).
+PIL (and ``h5py``, for the cache) is imported where a file is decoded or
+read. File-less datasets (``-split synthetic``) need neither: their image
+is a blank canvas, whose resize is itself. The JAX package's native
+one-pass resize (``sgg_tpu/native/image_prep.cpp``) is not ported: the
+uint8 route always takes PIL's, which the JAX package also takes without
+its native library.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -35,8 +40,19 @@ from sgg_torch.data.graph_batch import GraphBatch, pack_ragged
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
-_NO_DECODE = ("decoding image files is not ported yet (it comes with the "
-              "dataset parsers); use a file-less dataset")
+
+def load_image(path: str) -> np.ndarray:
+    """Decode an image file to float32 RGB in [0, 1]."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.float32) / 255.0
+
+
+def load_image_u8(path: str) -> np.ndarray:
+    """Decode an image file to uint8 RGB."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
 
 
 def content_size(orig_h: int, orig_w: int, im_scale: int = IM_SCALE):
@@ -50,9 +66,12 @@ def content_size(orig_h: int, orig_w: int, im_scale: int = IM_SCALE):
 def prepare_boxes(boxes: np.ndarray, rels: np.ndarray, box_coordinates: str,
                   is_train: bool, rng: np.random.RandomState,
                   ch: int, cw: int, s: float, im_scale: int = IM_SCALE,
-                  filter_duplicates: bool = True):
-    """Box scale/clip/flip + duplicate-rel sampling. RNG call order matches
-    the JAX package: flip draw first, then duplicate filtering."""
+                  filter_duplicates: bool = True,
+                  force_flip: Optional[bool] = None):
+    """Box scale/clip/flip + duplicate-rel sampling (the non-image half of
+    ``prepare_example``, shared with the feature-cache path). RNG call
+    order matches the JAX package: flip draw first, then duplicate
+    filtering. ``force_flip`` pins the flip; None draws it in training."""
     boxes = boxes.astype(np.float32).copy()
     if box_coordinates == "box_scale":
         boxes *= im_scale / BOX_SCALE
@@ -61,7 +80,8 @@ def prepare_boxes(boxes: np.ndarray, rels: np.ndarray, box_coordinates: str,
     boxes[:, 0::2] = boxes[:, 0::2].clip(0, cw)
     boxes[:, 1::2] = boxes[:, 1::2].clip(0, ch)
 
-    flipped = is_train and rng.rand() > 0.5
+    flipped = (is_train and rng.rand() > 0.5) if force_flip is None \
+        else bool(force_flip)
     if flipped:
         x1 = cw - boxes[:, 2].copy()
         x2 = cw - boxes[:, 0].copy()
@@ -72,36 +92,43 @@ def prepare_boxes(boxes: np.ndarray, rels: np.ndarray, box_coordinates: str,
     return boxes, rels, flipped
 
 
-def _resized_constant(image: np.ndarray, ch: int, cw: int) -> np.ndarray:
-    """The (ch, cw, 3) float32 [0, 1] resize of a constant image, through
-    the same uint8 round trip as the JAX package's PIL path."""
-    c = image.reshape(-1)[0]
-    if not np.all(image == c):
-        raise NotImplementedError(_NO_DECODE)
-    u8 = (np.uint8(c) if image.dtype == np.uint8
-          else np.asarray(image.reshape(-1)[:1] * 255).astype(np.uint8)[0])
-    return np.full((ch, cw, 3), u8, np.float32) / 255.0
+def _resized(image: np.ndarray, ch: int, cw: int) -> np.ndarray:
+    """The (ch, cw, 3) float32 [0, 1] bilinear resize of an image through
+    uint8, as the JAX package's PIL path (``Image.BILINEAR``, which
+    antialiases when it shrinks). A blank image resizes to zeros without
+    PIL."""
+    if not image.any():
+        return np.zeros((ch, cw, 3), np.float32)
+    from PIL import Image
+    u8 = image if image.dtype == np.uint8 else (image * 255).astype(np.uint8)
+    img = np.asarray(Image.fromarray(u8).resize((cw, ch), Image.BILINEAR),
+                     np.float32)
+    return img / 255.0
 
 
 def prepare_example(image: np.ndarray, boxes: np.ndarray, rels: np.ndarray,
                     box_coordinates: str, is_train: bool,
                     rng: np.random.RandomState, im_scale: int = IM_SCALE,
-                    filter_duplicates: bool = True, uint8: bool = False):
+                    filter_duplicates: bool = True, uint8: bool = False,
+                    force_flip: Optional[bool] = None):
     """One example: resize+normalize+pad image, scale+clip+flip boxes.
 
     Returns (padded image (S, S, 3), boxes in padded-frame pixels, rels,
     (content_h, content_w)). The canvas is float32, normalized, padded
     with 0.0; with ``uint8=True`` it is raw uint8, padded with the ImageNet
     mean rounded to uint8, and normalized on the device
-    (``sgg_tpu/data/pipeline.py:prepare_example``). Only constant images
-    are taken (see the module docstring).
+    (``sgg_tpu/data/pipeline.py:prepare_example``). ``force_flip`` pins the
+    horizontal flip (the feature cache renders both orientations).
     """
     h, w = image.shape[:2]
     ch, cw, s = content_size(h, w, im_scale)
     boxes, rels, flipped = prepare_boxes(
         boxes, rels, box_coordinates, is_train, rng, ch, cw, s,
-        im_scale=im_scale, filter_duplicates=filter_duplicates)
-    img = _resized_constant(image, ch, cw)  # a flip leaves it unchanged
+        im_scale=im_scale, filter_duplicates=filter_duplicates,
+        force_flip=force_flip)
+    img = _resized(image, ch, cw)
+    if flipped:
+        img = img[:, ::-1]
     if uint8:
         canvas = np.empty((im_scale, im_scale, 3), np.uint8)
         canvas[:] = (IMAGENET_MEAN * 255).astype(np.uint8)
@@ -111,6 +138,21 @@ def prepare_example(image: np.ndarray, boxes: np.ndarray, rels: np.ndarray,
         canvas = np.zeros((im_scale, im_scale, 3), np.float32)
         canvas[:ch, :cw] = img
     return canvas, boxes, rels, (ch, cw)
+
+
+def load_source_image(dataset, idx: int, image_format: str,
+                      with_images: bool = True) -> np.ndarray:
+    """The raw image of a dataset example: the decoded file when the
+    dataset has filenames (and the run wants images), else a blank canvas
+    spanning the boxes' extent (file-less datasets, ``with_images=False``).
+    Shared by ``BatchLoader`` and the feature-cache extractor, so both see
+    the same pixels."""
+    if with_images and dataset.filenames:
+        path = os.path.join(dataset.images_dir, dataset.filenames[idx])
+        return (load_image_u8(path) if image_format == "uint8"
+                else load_image(path))
+    ext = max(float(dataset.gt_boxes[idx].max()), 1.0)
+    return np.zeros((int(ext), int(ext), 3), np.float32)
 
 
 _COPY_STREAMS: dict = {}
@@ -182,10 +224,17 @@ class BatchLoader:
                  drop_last: Optional[bool] = None, num_workers: int = 4,
                  prefetch: int = 2, seed: int = 0,
                  with_images: bool = True, im_scale: int = IM_SCALE,
-                 image_format: str = "float32"):
+                 image_format: str = "float32", feature_cache=None,
+                 cache_orientations: Optional[int] = None):
         """``image_format``: ``float32`` canvases normalized on the host,
         or ``uint8`` canvases normalized on the device (4x fewer bytes to
-        copy)."""
+        copy).
+
+        ``feature_cache``: a complete ``FeatureCache`` (or its path) of
+        this dataset at ``im_scale``; batches then carry its trunk maps as
+        ``fmaps`` and no images. ``cache_orientations`` is the run's
+        setting: 1 pins the flip off in training even when the file stores
+        both orientations; None defers to the file."""
         if image_format not in ("float32", "uint8"):
             raise ValueError(f"image_format {image_format!r}: float32 or "
                              f"uint8")
@@ -202,6 +251,23 @@ class BatchLoader:
         self.seed = seed
         self.with_images = with_images
         self.im_scale = im_scale
+        self.feature_cache = None
+        if feature_cache is not None:
+            from sgg_torch.data.feature_cache import FeatureCache
+            cache = (feature_cache if isinstance(feature_cache, FeatureCache)
+                     else FeatureCache(feature_cache))
+            if cache.num_images != len(dataset):
+                raise ValueError(f"feature cache {cache.path} holds "
+                                 f"{cache.num_images} images, the dataset "
+                                 f"{len(dataset)}")
+            if cache.im_scale != im_scale:
+                raise ValueError(f"feature cache {cache.path} was extracted "
+                                 f"at {cache.im_scale} px, not {im_scale}")
+            if not cache.complete():
+                raise ValueError(f"feature cache {cache.path} is "
+                                 f"incomplete: extract it again")
+            self.feature_cache = cache
+        self.cache_orientations = cache_orientations
         self._epoch = 0
 
     def __len__(self):
@@ -210,11 +276,11 @@ class BatchLoader:
             -(-n // self.batch_size)
 
     def _make_example(self, idx: int, rng: np.random.RandomState):
-        if self.with_images and self.ds.filenames:
-            raise NotImplementedError(_NO_DECODE)
-        # file-less operation: a blank canvas with the boxes' extent
-        ext = max(float(self.ds.gt_boxes[idx].max()), 1.0)
-        img = np.zeros((int(ext), int(ext), 3), np.float32)
+        if self.feature_cache is not None:
+            return self._make_example_cached(idx, rng)
+        img = load_source_image(self.ds, idx, self.image_format,
+                                with_images=self.with_images)
+        # model frame -> original pixels (reference rel_model_base.py:237-240)
         scale_org = max(img.shape[:2]) / self.im_scale
         return prepare_example(
             img, self.ds.gt_boxes[idx], self.ds.relationships[idx],
@@ -222,6 +288,24 @@ class BatchLoader:
             im_scale=self.im_scale,
             filter_duplicates=self.ds.filter_duplicates,
             uint8=self.image_format == "uint8") + (scale_org,)
+
+    def _make_example_cached(self, idx: int, rng: np.random.RandomState):
+        """The cached trunk map of the drawn orientation, with the boxes,
+        relations and flip of ``_make_example``. With one orientation in
+        use (the run's ``cache_orientations``, else the file's), training
+        does not flip."""
+        oh, ow = self.feature_cache.orig_hw(idx)
+        ch, cw, s = content_size(oh, ow, self.im_scale)
+        n_eff = min(self.feature_cache.n_orient,
+                    self.cache_orientations or self.feature_cache.n_orient)
+        force = False if (self.ds.is_train and n_eff == 1) else None
+        boxes, rels, flipped = prepare_boxes(
+            self.ds.gt_boxes[idx], self.ds.relationships[idx],
+            self.ds.box_coordinates, self.ds.is_train, rng, ch, cw, s,
+            im_scale=self.im_scale,
+            filter_duplicates=self.ds.filter_duplicates, force_flip=force)
+        fmap = self.feature_cache.read(idx, flipped)
+        return fmap, boxes, rels, (ch, cw), max(oh, ow) / self.im_scale
 
     def _example_rng(self, epoch: int, idx: int) -> np.random.RandomState:
         """Per-example RNG keyed on (seed, epoch, image index)."""
@@ -233,14 +317,18 @@ class BatchLoader:
             examples = list(pool.map(
                 lambda i: self._make_example(i, self._example_rng(epoch, i)),
                 indices))
-        return pack_ragged(
+        cached = self.feature_cache is not None
+        batch = pack_ragged(
             [e[1] for e in examples],
             [self.ds.gt_classes[i] for i in indices],
             [e[2] for e in examples],
             max_nodes=self.max_nodes, max_edges=self.max_edges,
-            images=np.stack([e[0] for e in examples]),
+            images=None if cached else np.stack([e[0] for e in examples]),
             im_hw=np.asarray([e[3] for e in examples], np.float32),
             im_scale_org=np.asarray([e[4] for e in examples], np.float32))
+        if cached:
+            batch.fmaps = torch.stack([e[0] for e in examples])
+        return batch
 
     def __iter__(self) -> Iterator[GraphBatch]:
         order = np.arange(len(self.ds))

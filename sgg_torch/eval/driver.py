@@ -74,7 +74,8 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
               eval_batch_size: Optional[int] = None,
               with_images: bool = True, collect_entries: bool = False,
               log_fn=None, verbose: bool = True, pair_ladder=None,
-              detector=None, device="cuda") -> Dict[str, float]:
+              detector=None, device="cuda",
+              feature_cache=None) -> Dict[str, float]:
     """Evaluate one split of ``model`` (a ``RelModelIMP``) on ``device``
     (the card unless the caller asks for the CPU). In mode sgdet pass the
     frozen ``detector`` (a ``FasterRCNNVGG`` or ``FasterRCNNFPN``).
@@ -88,6 +89,10 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
     ``sel_thresh``; the detections' ``boxes``, ``labels`` and ``scores``
     beside the image's ``gt_boxes`` and ``gt_classes``, in the canvas frame,
     for ``eval.det_eval.DetectionEvaluator``).
+
+    ``feature_cache``: the split's frozen-trunk cache
+    (``data/feature_cache.py``): its batches carry the trunk's maps, and
+    its canvas scale is the loader's.
 
     ``pair_ladder``: candidate-pair budgets (ascending, ``None`` = dense
     N*(N-1)); default ``[128, 512, 2048, None]``. Per batch the smallest
@@ -157,7 +162,10 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
         loader = BatchLoader(dataset, batch_size=bs, max_nodes=eval_nodes,
                              max_edges=config.max_edges, shuffle=False,
                              drop_last=False, with_images=with_images,
-                             im_scale=constants.IM_SCALE)  # read per call
+                             feature_cache=feature_cache,
+                             im_scale=(feature_cache.im_scale
+                                       if feature_cache is not None
+                                       else constants.IM_SCALE))
         img_base = 0
         for b_i, batch in enumerate(loader):
             if n_batches > -1 and b_i >= n_batches:

@@ -9,10 +9,15 @@ the ResNet50-FPN model. Mode sgdet loads the frozen detector of that
 backbone (``FasterRCNNVGG`` or ``FasterRCNNFPN``) from ``-ckpt`` (a
 ``train/checkpoint.py`` detector directory, as
 ``sgg_torch.pretrain_detector`` writes) and trains the relation head on its
-detections; ``-nepoch 0`` only evaluates (the test sweep). ``-split
-synthetic`` is the only split so far: the VG, GQA and VTransE parsers and
-image decoding need libraries the card's machine lacks, and those splits
-raise ``NotImplementedError``.
+detections; ``-nepoch 0`` only evaluates (the test sweep).
+
+``-split stanford|gqa|vte`` read the datasets under ``-data``
+(``data/visual_genome.py``, ``gqa.py``, ``vtranse.py``; gqa and vte need
+``-backbone resnet50``) and decode their images with PIL; both ``h5py``
+and PIL are imported only there, so ``-split synthetic`` also runs on a
+machine without them. ``SGG_CHECK_SIZES=0`` relaxes the full-dataset
+integrity checks (108,073 VG images, the eval splits' sizes) for a
+miniature tree written by ``sgg_torch.data.fixtures``.
 """
 
 from __future__ import annotations
@@ -20,10 +25,62 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+# the packages each split's parser and image decoding import
+_NEEDS = {"stanford": ("h5py", "PIL"), "vte": ("h5py", "PIL"),
+          "gqa": ("PIL",), "synthetic": ()}
+
+
+def load_splits(config) -> dict:
+    """Train and eval splits of ``config.split`` (``main.py:32-70`` of the
+    JAX package). A split whose packages are missing raises
+    ``ImportError`` naming them before anything is read."""
+    import importlib
+    import os
+
     from sgg_torch import constants
+    missing = []
+    for name in _NEEDS[config.split]:
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    if missing:
+        raise ImportError(f"-split {config.split} needs "
+                          f"{' and '.join(missing)}, which this Python lacks")
+    if config.split == "synthetic":
+        # val_size sizes the generated eval sets only when small: its
+        # default of 5000 (a subsample cap for the real 26k val split)
+        # would turn the run into hours of evaluation
+        from sgg_torch.data.synthetic import synthetic_splits
+        if not (0 < config.val_size <= 1000):
+            print(f"[synthetic] -val_size {config.val_size} out of the "
+                  "smoke-run range (0, 1000] -> generating 16-image eval "
+                  "sets instead")
+        return synthetic_splits(
+            num_eval=config.val_size if 0 < config.val_size <= 1000 else 16,
+            image_size=constants.IM_SCALE)
+    check_sizes = os.environ.get("SGG_CHECK_SIZES", "1") != "0"
+    sizes = dict(num_val_im=config.val_size,
+                 min_graph_size=config.min_graph_size,
+                 max_graph_size=config.max_graph_size)
+    if config.split == "stanford":
+        from sgg_torch.data import visual_genome
+        # non-overlap filtering is an sgdet-only train filter (reference
+        # main.py:47)
+        return visual_genome.splits(config.data, check_sizes=check_sizes,
+                                    filter_non_overlap=config.mode == "sgdet",
+                                    **sizes)
+    if config.split == "gqa":
+        from sgg_torch.data import gqa
+        return gqa.splits(config.data,
+                          exclude_left_right=config.exclude_left_right,
+                          **sizes)
+    from sgg_torch.data import vtranse
+    return vtranse.splits(config.data, **sizes)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
     from sgg_torch.config import config_from_args
-    from sgg_torch.data.synthetic import synthetic_splits
     from sgg_torch.train.checkpoint import load_detector
     from sgg_torch.train.trainer import Trainer
 
@@ -31,22 +88,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print("~~~~~~~~ Hyperparameters: ~~~~~~~")
     for k, v in sorted(vars(config).items()):
         print(f"{k} : {v}")
-    if config.split != "synthetic":
-        raise NotImplementedError(
-            f"-split {config.split}: the dataset parsers and image decoding "
-            f"are not ported to sgg_torch yet; use -split synthetic")
     if config.wandb is not None:
         raise NotImplementedError("W&B logging is not ported to sgg_torch")
-    # val_size sizes the generated eval sets only when small: its default
-    # of 5000 (a subsample cap for the real 26k val split) would turn the
-    # run into hours of evaluation
-    if not (0 < config.val_size <= 1000):
-        print(f"[synthetic] -val_size {config.val_size} out of the "
-              "smoke-run range (0, 1000] -> generating 16-image eval sets "
-              "instead")
-    splits = synthetic_splits(
-        num_eval=config.val_size if 0 < config.val_size <= 1000 else 16,
-        image_size=constants.IM_SCALE)
+    splits = load_splits(config)
     detector = det_state = None
     if config.mode == "sgdet":
         # sgdet refuses to start without a pretrained detector (reference

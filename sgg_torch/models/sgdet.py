@@ -81,6 +81,12 @@ def _zero_padded(out, det_mask, pair_mask):
     return out
 
 
+def _cached(batch: GraphBatch) -> Dict[str, torch.Tensor]:
+    """A feature-cache batch carries the VGG16 trunk's map: the detector
+    starts at the RPN (the FPN detector is never cached)."""
+    return {} if batch.fmaps is None else {"fmap": batch.fmaps}
+
+
 def _pad_edges(x: torch.Tensor, size: int) -> torch.Tensor:
     """Pad the edge axis (1) with zero slots up to ``size``."""
     pad = size - x.shape[1]
@@ -138,7 +144,7 @@ class SgdetRetryEvalStep:
     def detect(self, batch: GraphBatch) -> Dict[str, torch.Tensor]:
         batch = batch.to(self.device)
         self.detector.eval()
-        det = self.detector(batch.images, batch.im_hw,
+        det = self.detector(batch.images, batch.im_hw, **_cached(batch),
                             score_thresh=self.ts[-1],
                             nms_method=self.nms_method,
                             nms_candidates=self.nms_candidates)
@@ -336,7 +342,7 @@ def make_sgdet_train_step(detector, relmodel, config: Config,
         batch = batch.to(dev)
         detector.eval()
         with torch.no_grad():
-            det = detector(batch.images, batch.im_hw)
+            det = detector(batch.images, batch.im_hw, **_cached(batch))
         boxes, labels, mask = det["boxes"], det["labels"], det["mask"]
         if rels is None:
             rels = rel_assignments(

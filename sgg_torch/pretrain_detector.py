@@ -14,12 +14,12 @@ epochs, and a detector payload per epoch that ``python -m sgg_torch.main
 detector). Runs on the card unless the caller passes the CPU::
 
     python -m sgg_torch.pretrain_detector synthetic - <out_dir> 2 3
+    python -m sgg_torch.pretrain_detector vg <data_dir> <out_dir>
 
 ``pretrain`` trains ``FasterRCNNFPN`` unless given another detector, as
 the JAX package's does (the reference pretrains only the FPN detector);
-the VGG16 one is ``pretrain(..., detector=FasterRCNNVGG(...))``. The
-``vg``/``gqa`` datasets raise ``NotImplementedError`` until the dataset
-parsers are ported.
+the VGG16 one is ``pretrain(..., detector=FasterRCNNVGG(...))``. ``vg`` and
+``gqa`` need ``h5py`` (vg) and PIL.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence
@@ -277,10 +278,15 @@ def pretrain(splits, *, num_epochs: int = 10, batch_size: int = 3,
 def main(argv: Optional[Sequence[str]] = None):
     """CLI: ``python -m sgg_torch.pretrain_detector {vg,gqa,synthetic}
     DATA_DIR OUT_DIR [EPOCHS=10] [BATCH=3|2] [NUM_VAL_IM=5000] [LR=0.005]
-    [-device cpu]``, the JAX package's arguments. ``synthetic`` trains
-    ``pretrain``'s default, the ResNet50-FPN detector (bfloat16 compute
-    over float32 master weights), on a 64-image synthetic split with the
-    VG-Stanford vocabulary; DATA_DIR and NUM_VAL_IM are then unused."""
+    [-device cpu]``, the JAX package's arguments and defaults (reference
+    ``pretrain_detector.py:130,145-149``: batch 3 for VG, 2 for GQA, the
+    first NUM_VAL_IM train images kept for val). It trains ``pretrain``'s
+    default, the ResNet50-FPN detector (bfloat16 compute over float32
+    master weights), on the train split alone: ``vg`` reads
+    ``DATA_DIR/VG/stanford_filtered`` without the non-overlap filter (the
+    reference's pretraining loader; ``SGG_CHECK_SIZES=0`` for a fixture
+    tree), ``gqa`` the GQA scene graphs; ``synthetic`` a 64-image split
+    with the VG-Stanford vocabulary, DATA_DIR and NUM_VAL_IM unused."""
     p = argparse.ArgumentParser(prog="python -m sgg_torch.pretrain_detector")
     p.add_argument("dataset", choices=("vg", "gqa", "synthetic"))
     p.add_argument("data_dir")
@@ -291,15 +297,23 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("lr", nargs="?", type=float, default=LR)
     p.add_argument("-device", default="cuda")
     args = p.parse_args(argv)
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            f"{args.dataset}: the dataset parsers (VG, GQA) are not ported "
-            f"to sgg_torch yet; use synthetic")
-    from sgg_torch.data.synthetic import synthetic_splits
-
-    return pretrain(synthetic_splits(), num_epochs=args.epochs,
-                    batch_size=args.batch or 3, lr=args.lr,
-                    save_dir=args.out_dir, device=args.device)
+    if args.dataset == "synthetic":
+        from sgg_torch.data.synthetic import synthetic_splits
+        train = synthetic_splits()["train"]
+    elif args.dataset == "gqa":
+        from sgg_torch.data import gqa
+        train = gqa.load_split(gqa._GQAFiles(args.data_dir), "train",
+                               num_val_im=args.num_val_im)
+    else:
+        from sgg_torch.data import visual_genome as vg
+        check = os.environ.get("SGG_CHECK_SIZES", "1") != "0"
+        train = vg.load_split(args.data_dir, "train", check_sizes=check,
+                              num_val_im=args.num_val_im,
+                              filter_non_overlap=False)
+    batch = args.batch or (2 if args.dataset == "gqa" else 3)
+    return pretrain({"train": train}, num_epochs=args.epochs,
+                    batch_size=batch, lr=args.lr, save_dir=args.out_dir,
+                    device=args.device)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,13 @@ the caller's template and reports the rest, as the reference's
 A detector directory (what ``-ckpt`` names in mode sgdet) has the same
 layout: ``vgrel-<epoch>.pth`` holding ``{"params", "batch_stats"}`` of a
 ``FasterRCNNVGG`` or ``FasterRCNNFPN``, keyed by ``state_dict`` name.
+
+The reference's own checkpoints (torchvision-format state dicts) import
+through ``import_torch_vgg``, ``import_torch_faster_rcnn``,
+``import_torch_relmodel`` and ``import_torch_resnet50_fpn``, the JAX
+package's importers (``sgg_tpu/train/checkpoint.py:176-527``) onto the
+port's names and layouts; ``python -m sgg_torch.import_reference_ckpt``
+writes their payloads.
 """
 
 from __future__ import annotations
@@ -156,3 +163,231 @@ def load_detector_state(detector: torch.nn.Module,
     """Load a detector payload into ``detector`` with ``strict=True``."""
     detector.load_state_dict({**payload["params"],
                               **payload.get("batch_stats", {})}, strict=True)
+
+
+# ---------------------------------------------------------------------------
+# reference ``.pth`` import (``sgg_tpu/train/checkpoint.py:176-527,688``):
+# torchvision-format state dicts -> the port's flax-named ``state_dict``.
+# The port keeps torch's layouts (convs OIHW, denses (out, in), GRU gates
+# as ``weight_ih``/``weight_hh``), so most tensors carry over as they are;
+# every fc over a flattened 7x7 RoI pool takes the CHW -> HWC permutation
+# of its input axis, since the port's heads flatten NHWC pools.
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` file as ``{name: tensor}`` on the CPU: the ``state_dict``
+    sub-dict of a full training checkpoint (where the reference saves the
+    model), else the file as a bare state dict. Entries that are not
+    tensors are left out."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k: v.detach() for k, v in state.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _skipped(name: str) -> bool:
+    # the frozen BatchNorms never count batches: flax keeps no such leaf,
+    # and the port's stays at 0 (``convert.variables_from_jax``)
+    return name.endswith("num_batches_tracked")
+
+
+def optimistic_update(state: Mapping[str, torch.Tensor],
+                      flat_updates: Mapping[str, torch.Tensor],
+                      verbose: bool = False, return_stats: bool = False):
+    """Copy the same-shape tensors of ``flat_updates`` into a copy of
+    ``state`` (a port ``state_dict``), cast to each entry's type and
+    device; skip names missing from ``state`` or of another shape (printed
+    when ``verbose``). With ``return_stats`` also returns ``{"missing":
+    [state names not updated], "unused": [update names without a home]}``,
+    the JAX package's lists under the port's names."""
+    merged: Dict[str, torch.Tensor] = {}
+    used, missing = set(), []
+    for name, leaf in state.items():
+        got = flat_updates.get(name)
+        if got is not None and not _skipped(name) and \
+                tuple(got.shape) == tuple(leaf.shape):
+            merged[name] = got.to(dtype=leaf.dtype, device=leaf.device)
+            used.add(name)
+            continue
+        if got is not None and verbose and not _skipped(name):
+            print(f"shape mismatch for {name}: {tuple(got.shape)} vs "
+                  f"{tuple(leaf.shape)}")
+        if not _skipped(name):
+            missing.append(name)
+        merged[name] = leaf
+    unused = sorted(set(flat_updates) - used)
+    if verbose and unused:
+        print("unused checkpoint keys:", unused[:20])
+    if return_stats:
+        return merged, {"missing": missing, "unused": unused}
+    return merged
+
+
+def torch_vgg_key_map() -> Dict[str, str]:
+    """torchvision ``vgg16.features.{i}`` conv indices -> the port's trunk
+    convs ``trunk.conv.{j}`` (convs and pools interleave in torchvision)."""
+    from sgg_torch.models.backbone import VGG16_CFG
+    mapping, conv_i, torch_i = {}, 0, 0
+    for v in VGG16_CFG:
+        if v == "M":
+            torch_i += 1
+        else:
+            mapping[f"features.{torch_i}"] = f"trunk.conv.{conv_i}"
+            torch_i += 2  # conv + relu
+            conv_i += 1
+    return mapping
+
+
+def _fc6_chw_to_hwc(w, pool: int = 7) -> torch.Tensor:
+    """A torch fc over a flattened (C, P, P) RoI pool -> the same fc over
+    the port's (P, P, C) flatten order, still (out, in)."""
+    w = torch.as_tensor(w)
+    out_dim, in_dim = w.shape
+    c = in_dim // (pool * pool)
+    return (w.reshape(out_dim, c, pool, pool).permute(0, 2, 3, 1)
+            .reshape(out_dim, pool * pool * c))
+
+
+# the tensors of a module of each type, as (reference suffix, port suffix)
+_TENSORS = {
+    "wb": (("weight", "weight"), ("bias", "bias")),  # conv or dense
+    "fc6": (("weight", "weight"), ("bias", "bias")),  # weight CHW -> HWC
+    "bn": tuple((k, k) for k in ("weight", "bias", "running_mean",
+                                 "running_var")),
+    # torch's GRUCell: fused [r; z; n] gate matmuls and both bias vectors,
+    # which the port's GRUCell keeps
+    "gru": tuple((k, k) for k in ("weight_ih", "weight_hh", "bias_ih",
+                                  "bias_hh")),
+    "table": (("weight", "table"),),  # the frequency bias's (C * C, R)
+}
+REFERENCE_KINDS = ("detector", "vgg", "relmodel", "resnet_fpn")
+
+
+def _vgg_trunk_rows(prefix: str):
+    return [(f"{prefix}{t.split('.')[1]}", o, "wb")
+            for t, o in torch_vgg_key_map().items()]
+
+
+def reference_modules(kind: str) -> List[Tuple[Tuple[str, ...], str, str]]:
+    """The map from a reference checkpoint of ``kind`` onto the port, one
+    row a module: (reference names, port module, type). ``_TENSORS[type]``
+    lists the module's tensors. Of several reference names the first whose
+    ``weight`` the checkpoint holds is read (torchvision moved the FPN's
+    convs into a ``Sequential``)."""
+    if kind == "vgg":  # the reference copies the classifier into both heads
+        rows = _vgg_trunk_rows("features.") + [
+            row for head in ("roi_fmap", "roi_fmap_obj") for row in (
+                ("classifier.0", f"{head}.fc6", "fc6"),
+                ("classifier.3", f"{head}.fc7", "wb"))]
+    elif kind == "detector":  # torchvision FasterRCNN(vgg16)
+        rows = _vgg_trunk_rows("backbone.") + [
+            ("rpn.head.conv", "rpn.conv", "wb"),
+            ("rpn.head.cls_logits", "rpn.cls_logits", "wb"),
+            ("rpn.head.bbox_pred", "rpn.bbox_pred", "wb"),
+            ("roi_heads.box_head.fc6", "box_head.fc6", "fc6"),
+            ("roi_heads.box_head.fc7", "box_head.fc7", "wb"),
+            ("roi_heads.box_predictor.cls_score", "cls_score", "wb"),
+            ("roi_heads.box_predictor.bbox_pred", "bbox_pred", "wb")]
+    elif kind == "relmodel":  # the reference's RelModelStanford
+        rows = _vgg_trunk_rows("detector.backbone.") + [
+            (t, f"imp.{o}", "wb") for t, o in (
+                ("obj_unary", "obj_unary"), ("edge_unary", "edge_unary"),
+                ("obj_fc", "obj_fc"), ("rel_fc", "rel_fc"),
+                ("sub_vert_w_fc.0", "sub_vert_w_fc"),
+                ("obj_vert_w_fc.0", "obj_vert_w_fc"),
+                ("out_edge_w_fc.0", "out_edge_w_fc"),
+                ("in_edge_w_fc.0", "in_edge_w_fc"))] + [
+            # roi_fmap = Sequential(Flatten, classifier); roi_fmap_obj =
+            # classifier
+            ("roi_fmap.1.0", "roi_fmap.fc6", "fc6"),
+            ("roi_fmap.1.3", "roi_fmap.fc7", "wb"),
+            ("roi_fmap_obj.0", "roi_fmap_obj.fc6", "fc6"),
+            ("roi_fmap_obj.3", "roi_fmap_obj.fc7", "wb"),
+            # union boxes: Sequential(conv, relu, bn, maxpool, conv, relu, bn)
+            ("union_boxes.conv.0", "union_feats.conv1", "wb"),
+            ("union_boxes.conv.4", "union_feats.conv2", "wb"),
+            ("node_gru", "imp.node_gru", "gru"),
+            ("edge_gru", "imp.edge_gru", "gru"),
+            ("union_boxes.conv.2", "union_feats.bn1", "bn"),
+            ("union_boxes.conv.6", "union_feats.bn2", "bn"),
+            ("freq_bias.obj_baseline", "freq_bias", "table")]
+    elif kind == "resnet_fpn":  # torchvision maskrcnn_resnet50_fpn backbone
+        from sgg_torch.models.resnet import RESNET50_BLOCKS
+        rows = [("backbone.body.conv1", "body.conv1", "wb"),
+                ("backbone.body.bn1", "body.bn1", "bn")]
+        for stage, n_blocks in enumerate(RESNET50_BLOCKS, start=1):
+            for i in range(n_blocks):
+                t = f"backbone.body.layer{stage}.{i}"
+                o = f"body.layer{stage}_{i}"
+                for k in ("1", "2", "3"):
+                    rows += [(f"{t}.conv{k}", f"{o}.conv{k}", "wb"),
+                             (f"{t}.bn{k}", f"{o}.bn{k}", "bn")]
+                rows += [(f"{t}.downsample.0", f"{o}.downsample", "wb"),
+                         (f"{t}.downsample.1", f"{o}.bn_down", "bn")]
+        for i, lvl in enumerate(("c2", "c3", "c4", "c5")):
+            for t, o in (("inner_blocks", "lateral"),
+                         ("layer_blocks", "output")):
+                rows.append(((f"backbone.fpn.{t}.{i}.0",
+                              f"backbone.fpn.{t}.{i}"),
+                             f"fpn.{o}_{lvl}", "wb"))
+    else:
+        raise ValueError(f"unknown kind {kind!r}: one of {REFERENCE_KINDS}")
+    return [((t,) if isinstance(t, str) else t, o, typ) for t, o, typ in rows]
+
+
+def reference_flat_updates(kind: str, ts: Mapping
+                           ) -> Dict[str, torch.Tensor]:
+    """The tensors of a reference checkpoint of ``kind`` that
+    ``reference_modules`` maps, as ``{port name: tensor}`` in the port's
+    layouts (every fc over a RoI pool permuted CHW -> HWC)."""
+    flat: Dict[str, torch.Tensor] = {}
+    for refs, ours, typ in reference_modules(kind):
+        t = refs[0] if len(refs) == 1 else next(
+            (t for t in refs if f"{t}.weight" in ts), None)
+        for sfx_t, sfx_o in _TENSORS[typ] if t is not None else ():
+            v = ts.get(f"{t}.{sfx_t}")
+            if v is not None:
+                v = torch.as_tensor(v)
+                flat[f"{ours}.{sfx_o}"] = (_fc6_chw_to_hwc(v) if typ == "fc6"
+                                           and sfx_o == "weight" else v)
+    return flat
+
+
+def import_torch_vgg(state, torch_state: Mapping, verbose: bool = False,
+                     return_stats: bool = False):
+    """A torchvision VGG16 ``state_dict`` into a ``RelModelIMP`` state: the
+    trunk convs and both RoI heads."""
+    return optimistic_update(state, reference_flat_updates("vgg", torch_state),
+                             verbose=verbose, return_stats=return_stats)
+
+
+def import_torch_faster_rcnn(state, torch_state: Mapping,
+                             verbose: bool = False,
+                             return_stats: bool = False):
+    """A torchvision ``FasterRCNN(vgg16)`` ``state_dict`` (the reference's
+    detector checkpoints) into a ``FasterRCNNVGG`` state: backbone convs,
+    RPN head, box head and predictors."""
+    return optimistic_update(
+        state, reference_flat_updates("detector", torch_state),
+        verbose=verbose, return_stats=return_stats)
+
+
+def import_torch_relmodel(state, torch_state: Mapping, verbose: bool = False,
+                          return_stats: bool = False):
+    """The reference ``RelModelStanford.state_dict()`` into a
+    ``RelModelIMP`` state: the IMP head, both RoI heads, the union-boxes
+    convs with their BatchNorm statistics, the frequency bias and the
+    detector's VGG trunk."""
+    return optimistic_update(
+        state, reference_flat_updates("relmodel", torch_state),
+        verbose=verbose, return_stats=return_stats)
+
+
+def import_torch_resnet50_fpn(state, torch_state: Mapping,
+                              verbose: bool = False,
+                              return_stats: bool = False):
+    """A torchvision ResNet50-FPN ``state_dict`` (the reference's COCO
+    ``maskrcnn_resnet50_fpn``; its ``backbone.*`` tensors) into a
+    ``ResNet50FPN`` state: parameters and frozen BatchNorm buffers."""
+    return optimistic_update(
+        state, reference_flat_updates("resnet_fpn", torch_state),
+        verbose=verbose, return_stats=return_stats)

@@ -13,8 +13,11 @@ writes one), which also serves validation and the test sweep. Batches
 reach the step in the config's ``image_format`` (uint8 canvases are
 normalized on the device), float canvases in bfloat16 when the model
 computes in it, their copies to the device issued ahead on a stream of
-their own while the previous steps run (``device_prefetch``). Not ported yet, each raising
-``NotImplementedError`` that names it: the feature cache, GAN training and
+their own while the previous steps run (``device_prefetch``). With
+``config.feature_cache`` each split's frozen-trunk maps are extracted once
+(``data/feature_cache.py``; a cache of other trunk weights is extracted
+again) and the loaders stream them instead of images. Not ported yet,
+each raising ``NotImplementedError`` that names it: GAN training and
 multi-device training.
 """
 
@@ -99,8 +102,6 @@ class Trainer:
                  det_state: Optional[Dict] = None):
         if config.mode == "sgdet" and detector is None:
             raise ValueError("sgdet training needs a (pretrained) detector")
-        if config.feature_cache:
-            raise _not_ported("the feature cache")
         if config.gan:
             raise _not_ported("GAN training")
         if config.num_devices > 1:
@@ -140,6 +141,7 @@ class Trainer:
                                               self.optimizer)
         self.start_epoch = 0
         self.global_iter = 0
+        self._feature_caches: Dict[str, object] = {}
         if config.save_dir:
             os.makedirs(config.save_dir, exist_ok=True)
             self._restore()
@@ -191,6 +193,77 @@ class Trainer:
         print(f"resumed from epoch {last}")
 
     # ------------------------------------------------------------------
+    def _trunk(self):
+        """(the frozen trunk module, its forward, its stride): the relation
+        model's, or in mode sgdet the frozen detector's (VGG16 only: the
+        FPN detector reads every pyramid level). The ResNet50-FPN relation
+        model pools the stride-64 ``pool`` level alone, and only that is
+        cached."""
+        if self.config.mode == "sgdet":
+            trunk = self.detector.trunk
+        else:
+            trunk = self.model.trunk
+        if self.config.backbone == "resnet50":
+            return trunk, trunk.pool, 64
+        return trunk, trunk, 16
+
+    def _feature_cache_for(self, split_name: str, dataset):
+        """The frozen-trunk cache of one split (``config.feature_cache``),
+        extracted on first use, and again when the stored fingerprint is
+        not the trunk's (``sgg_tpu/train/trainer.py:_feature_cache_for``).
+        None without a cache directory, for an empty split, and for the
+        val splits of mode sgdet, which the evaluator skips."""
+        cfg = self.config
+        if not cfg.feature_cache or len(dataset) == 0:
+            return None
+        if cfg.mode == "sgdet" and split_name.startswith("val_"):
+            return None
+        cache = self._feature_caches.get(split_name)
+        if cache is not None:
+            return cache
+        from sgg_torch.data.feature_cache import (FeatureCache,
+                                                  extract_trunk_cache,
+                                                  params_fingerprint,
+                                                  split_cache_path)
+        path = split_cache_path(cfg.feature_cache, split_name)
+        trunk, trunk_fwd, stride = self._trunk()
+        fp = params_fingerprint(trunk.state_dict())
+        # train splits store cfg.cache_orientations (1: half the disk, no
+        # flips); eval splits never flip. More orientations on disk serve.
+        want_orient = cfg.cache_orientations if dataset.is_train else 1
+        if os.path.exists(path):
+            try:
+                cache = FeatureCache(path)
+            except (OSError, ValueError, KeyError) as e:
+                print(f"[feature_cache] {path} unreadable ({e}): "
+                      f"extracting again")
+            else:
+                if cache.complete() and cache.fingerprint == fp \
+                        and cache.n_orient >= want_orient \
+                        and cache.im_scale == constants.IM_SCALE:
+                    self._feature_caches[split_name] = cache
+                    return cache
+                print(f"[feature_cache] {path} is stale (incomplete, or of "
+                      f"other trunk weights or scale): extracting again")
+                cache.close()
+
+        @torch.inference_mode()
+        def trunk_fn(canvases):
+            return trunk_fwd(torch.from_numpy(canvases).to(self.device))
+
+        t0 = time.time()
+        extract_trunk_cache(
+            path, dataset, trunk_fn, stride=stride,
+            batch_size=min(8, len(dataset)), im_scale=constants.IM_SCALE,
+            image_format=cfg.image_format, fingerprint=fp,
+            n_orient=want_orient).close()
+        print(f"[feature_cache] extracted {split_name} ({len(dataset)} "
+              f"images) in {time.time() - t0:.1f}s")
+        cache = FeatureCache(path)
+        self._feature_caches[split_name] = cache
+        return cache
+
+    # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch (reference train_epoch, main.py:196-236). Losses stay
         on the device between print intervals; a non-finite interval mean
@@ -201,7 +274,10 @@ class Trainer:
                              max_edges=cfg.max_edges, seed=cfg.seed,
                              num_workers=cfg.num_workers,
                              image_format=cfg.image_format,
-                             im_scale=constants.IM_SCALE)  # read per call
+                             im_scale=constants.IM_SCALE,  # read per call
+                             feature_cache=self._feature_cache_for(
+                                 "train", self.train_data),
+                             cache_orientations=cfg.cache_orientations)
         loader._epoch = epoch
         # the next batches' copies to the device run while a step does
         batches = device_prefetch(
@@ -256,7 +332,8 @@ class Trainer:
             res = val_epoch(
                 self.model, ds, self.config, name, train=self.train_data,
                 verbose=verbose, collect_entries=collect_entries,
-                detector=self.detector, device=self.device)
+                detector=self.detector, device=self.device,
+                feature_cache=self._feature_cache_for(name, ds))
             if collect_entries and "_entries" in res:
                 results.setdefault("_entries", {})[name] = res.pop("_entries")
             for extra in ("_counters", "_throughput", "_detections"):

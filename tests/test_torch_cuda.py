@@ -853,3 +853,42 @@ def test_fpn_detector_train_step_card_matches_cpu_and_does_not_wait(dev):
         {"bf16": 4}, {"bf16-gather": 4}, {"bf16": 4}]
     for k, b in det.named_buffers():
         assert torch.equal(b, stats[k]), k
+
+
+def test_imported_vgg_detector_card_matches_cpu(dev):
+    """A torchvision-format ``FasterRCNN(vgg16)`` state dict through the
+    importer, then its f32 forward on the card against the CPU's, the CPU
+    held on the card's proposals: the continuous outputs within 1e-4 of
+    their size, the detections' decisions equal."""
+    from sgg_torch.import_reference_ckpt import reference_state_dict
+    from sgg_torch.models.detector import FasterRCNNVGG
+    from sgg_torch.train.checkpoint import import_torch_faster_rcnn
+
+    cpu = FasterRCNNVGG(8, obj_dim=48, score_thresh=0.05).eval()
+    sd = reference_state_dict("detector", cpu,
+                              torch.Generator().manual_seed(5))
+    cpu.load_state_dict(import_torch_faster_rcnn(cpu.state_dict(), sd),
+                        strict=True)
+    card = FasterRCNNVGG(8, obj_dim=48, score_thresh=0.05)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev).eval()
+    g = torch.Generator().manual_seed(0)
+    images = torch.randn(2, 96, 96, 3, generator=g)
+    im_hw = torch.tensor([[96.0, 96.0], [80.0, 96.0]])
+    k_roi, k_stem = troi.KERNEL.launches, vgg_stem.KERNEL.launches
+    with torch.no_grad():
+        got = card(images.to(dev), im_hw.to(dev))
+        torch.cuda.synchronize()
+        assert troi.KERNEL.launches == k_roi + 1
+        assert vgg_stem.KERNEL.launches == k_stem + 1
+        got = {k: v.cpu() for k, v in got.items()}
+        want = cpu(images, im_hw, proposal_index=(got["proposal_index"],
+                                                  got["rpn_prop_mask"]))
+    assert got["mask"].sum() > 0
+    for k in ("fmap", "rpn_obj_logits", "rpn_deltas", "class_logits",
+              "box_deltas"):
+        scale = float(want[k].abs().max())
+        torch.testing.assert_close(got[k], want[k], atol=1e-4 * scale,
+                                   rtol=0, msg=k)
+    for k in ("mask", "labels"):
+        assert torch.equal(got[k], want[k]), k

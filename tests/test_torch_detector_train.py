@@ -400,8 +400,10 @@ def test_pretrain_writes_payloads_that_sgdet_loads(tmp_path):
 
 
 def test_pretrain_refuses_what_is_not_ported(monkeypatch, one_thread):
-    """The real datasets raise; ``detector=None``, refused until the FPN
-    detector was ported, now trains it (tiny heads, 64 px)."""
+    """Nothing is refused any more: ``detector=None``, refused until the
+    FPN detector was ported, trains it (tiny heads, 64 px), and ``vg`` and
+    ``gqa``, refused until the parsers were ported, read their trees (a
+    missing one is the parser's ``FileNotFoundError``)."""
     from sgg_torch import constants
     monkeypatch.setattr(tdet, "FasterRCNNFPN", functools.partial(
         tdet.FasterRCNNFPN, **TINY))
@@ -413,5 +415,5 @@ def test_pretrain_refuses_what_is_not_ported(monkeypatch, one_thread):
                                max_nodes=8, detector=None, device="cpu")
     assert type(det).__name__ == "FasterRCNNFPN" and state.step == 1
     for ds in ("vg", "gqa"):
-        with pytest.raises(NotImplementedError, match="dataset parsers"):
-            tpre.main([ds, "data", "out"])
+        with pytest.raises(FileNotFoundError):
+            tpre.main([ds, "no_such_data_dir", "out", "-device", "cpu"])

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``sgg_torch`` and no line of
 ``chip_smoke.py`` or ``bench_kernels.py`` imports JAX, flax or ``sgg_tpu``; importing the package
-builds nothing."""
+builds nothing; importing its entry point, data modules and import tool
+loads neither ``h5py`` nor PIL."""
 
 import pathlib
 import re
@@ -37,5 +38,24 @@ def test_package_imports_without_jax():
             "bad = [m for m in set(sys.modules) - before\n"
             "       if m.split('.')[0] in ('jax', 'flax', 'sgg_tpu')]\n"
             "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("module", [
+    "sgg_torch.main", "sgg_torch.data.visual_genome",
+    "sgg_torch.data.vtranse", "sgg_torch.data.gqa",
+    "sgg_torch.data.fixtures", "sgg_torch.data.feature_cache",
+    "sgg_torch.data.pipeline", "sgg_torch.import_reference_ckpt"])
+def test_no_h5py_or_pil_at_import(module):
+    """The card's machine has neither ``h5py`` nor PIL: importing the
+    port's modules loads neither (they are imported where a file is read
+    or decoded)."""
+    code = (f"import sys\n"
+            f"before = set(sys.modules)\n"
+            f"import {module}\n"
+            f"bad = [m for m in set(sys.modules) - before\n"
+            f"       if m.split('.')[0] in ('h5py', 'PIL')]\n"
+            f"assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

@@ -135,5 +135,11 @@ def test_cli_trains_and_writes_test_results(tmp_path, monkeypatch,
 
 
 def test_cli_refuses_splits_that_are_not_ported():
-    with pytest.raises(NotImplementedError, match="-split stanford"):
-        cli.main(["-split", "stanford", "-device", "cpu"])
+    """Every split is ported now: ``-split stanford`` reads its tree (a
+    missing one is the parser's ``FileNotFoundError``); W&B logging is
+    still refused."""
+    with pytest.raises(FileNotFoundError):
+        cli.main(["-split", "stanford", "-data", "no_such_data_dir",
+                  "-device", "cpu"])
+    with pytest.raises(NotImplementedError, match="W&B"):
+        cli.main(["-split", "synthetic", "-wandb", "run", "-device", "cpu"])
