@@ -144,14 +144,37 @@ non-zero exit and without the result line:
    the eval); without either, ``sgg_torch.data.visual_genome`` imports and
    ``-split stanford`` raises ``ImportError`` naming what is missing before
    any work on the card; with PIL, ``main -split gqa -backbone resnet50``
-   (JSON scene graphs, JPEGs decoded) on a GQA fixture tree on the card.
+   (JSON scene graphs, JPEGs decoded) on a GQA fixture tree on the card;
+11. GAN-augmented training at full width under its own deadline: ``Trainer``
+   with ``-m sgcls -loss dnorm -b 24 -gan -largeD -perturb graphn -L 0.2
+   -topk 5 -graphn_a 2 -split synthetic`` (the VGG16 relation model in bf16
+   over f32 masters, the f32 GAN with 37 x 37 x 512 fake maps) on the
+   96-image split: a warm-up epoch, then one counted and timed epoch (per
+   step K2 once and K1 twice on the real bf16 map, K1 four times on the
+   f32 fake map, K1-bwd-fmap twice on ``f32-gather``, no other backward
+   kernel and no plain version on a card tensor; finite losses with every
+   GAN key; train images/s with the host); a step under
+   ``set_sync_debug_mode("error")``; a step timed by phase (F, G, D) with
+   CUDA events and its peak memory; the trunk bit-unchanged and every
+   relation-head tensor and G and D parameter moved; K1 (f32) and
+   K1-bwd-fmap (``f32-gather``, and ``bf16-gather`` for a bf16 GAN) at the
+   step's shape (the batch's 40 node boxes and the unions of 256 sampled
+   pairs an image over a 24 x 37 x 37 x 512 map) against their plain
+   versions under phase 3's and phase 8's limits, each launched twice for
+   the same bits, with times and bounds; and one f32 GAN step of 2 images
+   card against CPU with TF32 off (losses within ``GAN_LOSS_LIMIT``, the
+   gradients each optimizer receives within ``GAN_GRAD_LIMIT`` in norm by
+   part, G's and the rec update's within ``GAN_G_LIMIT``), with where G's
+   gap comes from: the card's step with K1-bwd-fmap's plain version, and
+   G's backward alone from one fixed map gradient, card against CPU.
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
 ``eval_shape``, the SGDet shapes' under ``sgdet``, the FPN levels' and the
-pool level's under ``fpn``; the backward rows' at the pretraining shape,
-their FPN levels' under ``fpn``; ``launches`` summed over the paths of
-phases 4, 5, 7, 8, 9 and 10) and, last, the result line ``{"ok": true,
+pool level's under ``fpn``, the GAN step's under ``gan``; the backward
+rows' at the pretraining shape, their FPN levels' under ``fpn``,
+K1-bwd-fmap's GAN shape under ``gan``; ``launches`` summed over the paths
+of phases 4, 5, 7, 8, 9, 10 and 11) and, last, the result line ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -3314,6 +3337,427 @@ def phase_real_inputs(torch):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 11: GAN-augmented training (-gan -largeD -perturb graphn)
+
+GAN_DEADLINE_S = 360
+# the second paper's command without the feature bank (-vis_cond)
+GAN_ARGV = ["-m", "sgcls", "-loss", "dnorm", "-b", str(TRAIN_BATCH), "-gan",
+            "-largeD", "-perturb", "graphn", "-L", "0.2", "-topk", "5",
+            "-graphn_a", "2", "-split", "synthetic"]
+# per step: K2 and two K1 launches on the real bf16 map (F), four K1
+# launches on the f32 fake map (the attached fake forward, the detached rec
+# forward) and K1-bwd-fmap twice on f32-gather (the adversarial losses
+# through the fake map's node and union pools); the boxes are constants
+GAN_ROUTES = {"roi_align": {"bf16": 2, "f32": 4},
+              "roi_align_bwd_fmap": {"f32-gather": 2},
+              "roi_align_bwd_boxes": {}, "vgg_conv1": {"bf16": 1},
+              "vgg_conv1_bwd": {}}
+GAN_KEYS = ("obj_loss", "rel_loss", "grad_norm", "G_obj", "G_rel", "G_fmap",
+            "obj_loss_rec", "rel_loss_rec", "D_obj", "D_rel", "D_fmap",
+            "grad_norm_G", "grad_norm_D", "total")
+# the card-vs-CPU GAN step: losses relative, gradients (and their global
+# norms) relative in norm by part (phase 6's limits); G's gradient and the
+# rec update's, which pass backward through G's or the union BatchNorms
+# in train mode, within GAN_G_LIMIT: G's backward alone from one fixed map
+# gradient differs card vs CPU by 2.0e-3 to 4.0e-3 by part, and the step
+# reads the same with K1-bwd-fmap's plain version on the card (printed by
+# gan_card_vs_cpu; measured on an NVIDIA H100 80GB HBM3 at 700.00 W)
+GAN_LOSS_LIMIT, GAN_GRAD_LIMIT, GAN_G_LIMIT = 1e-4, 1e-3, 1e-2
+
+
+def gan_config(**kw):
+    from sgg_torch.config import config_from_args
+    return config_from_args(GAN_ARGV + [
+        "-max_nodes", str(TRAIN_NODES), "-max_edges", str(TRAIN_EDGES),
+        "-p", "2", "-nwork", "4"]).replace(**kw)
+
+
+def gan_train(torch, splits):
+    """11a: ``Trainer`` with the command above on the card: a warm-up epoch,
+    then one counted and timed epoch; a step under
+    ``set_sync_debug_mode("error")``; a step timed by phase with CUDA
+    events and its peak memory; what moved. Returns the counted epoch's
+    launches and a host batch."""
+    from sgg_torch import constants
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.train.trainer import Trainer
+
+    # PyTorch's defaults, as a user's run has them (phase 3 turned TF32
+    # off): cuDNN's convolutions may take TF32, cuBLAS's matmuls not
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gan_config()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, splits)
+    model, gan = trainer.model, trainer.gan
+    steps = trainer.steps_per_epoch
+    print(f"phase 11 GAN trainer built in {time.perf_counter() - t0:.1f} s: "
+          f"{' '.join(GAN_ARGV)}; relation model "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params "
+          f"(bf16), GAN {sum(p.numel() for p in gan.parameters()) / 1e6:.2f}"
+          f" M (f32, {gan.fmap_sz}x{gan.fmap_sz}x{gan.n_ch} maps); "
+          f"{len(splits['train'])} train images, {steps} steps an epoch",
+          flush=True)
+    check(all(p.dtype == torch.float32 for p in gan.parameters()),
+          "GAN parameters are not float32")
+    check(trainer.perturber is not None, "no perturber under -perturb")
+    trunk0 = _snapshot(model, lambda n: n.startswith("trunk."))
+    heads0 = _snapshot(model, lambda n: not n.startswith("trunk.")
+                       and "num_batches" not in n)
+    gan0 = {n: p.detach().clone() for n, p in gan.named_parameters()}
+
+    trainer.train_epoch(0)  # warm-up: first launches, cuDNN/cuBLAS set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, n, routes = _counted(torch, lambda: trainer.train_epoch(1))
+    loop_s = time.perf_counter() - t0
+    peak_epoch = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 11 GAN train_epoch: {steps} steps x {TRAIN_BATCH} images "
+          f"in {loop_s:.3f} s = {steps * TRAIN_BATCH / loop_s:.2f} train "
+          f"images/s (host included); losses {json.dumps(losses)}; launches "
+          f"{json.dumps(n)} by route {json.dumps(routes)}; peak device "
+          f"memory {peak_epoch:.2f} GiB", flush=True)
+    check(all(k in losses and math.isfinite(losses[k]) for k in GAN_KEYS),
+          f"GAN losses missing or not finite: {losses}")
+    want = {k: {r: c * steps for r, c in v.items()}
+            for k, v in GAN_ROUTES.items()}
+    check(routes == want and n == {k: sum(v.values())
+                                   for k, v in want.items()},
+          f"{steps} GAN steps launched {n} by route {routes}; want {want}")
+
+    host = next(iter(BatchLoader(
+        splits["train"], batch_size=TRAIN_BATCH, max_nodes=TRAIN_NODES,
+        max_edges=TRAIN_EDGES, shuffle=False, im_scale=constants.IM_SCALE,
+        image_format=cfg.image_format)))
+    item = trainer._gan_host_inputs(host, 2).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    trainer.gan_step(item.batch, item.fake_classes, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.gan_step(item.batch, item.fake_classes, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("phase 11 a GAN step under set_sync_debug_mode('error'): no host "
+          "sync", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    by_phase = {"F": [], "G": [], "D": [], "wall": []}
+    for _ in range(5):
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "F", "G", "D")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev["start"].record()
+        trainer.gan_step(item.batch, item.fake_classes, gen,
+                         mark=lambda phase, ev=ev: ev[phase].record())
+        torch.cuda.synchronize()
+        by_phase["wall"].append((time.perf_counter() - t0) * 1e3)
+        for a, b in (("start", "F"), ("F", "G"), ("G", "D")):
+            by_phase[b].append(ev[a].elapsed_time(ev[b]))
+    peak_step = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: sorted(v)[len(v) // 2] for k, v in by_phase.items()}
+    print(f"phase 11 one GAN step on a batch on the card (bf16 relation "
+          f"model, f32 GAN, batch {TRAIN_BATCH}), median of 5 by phase (CUDA "
+          f"events from the host's issue points): F {med['F']:.3f} ms, G "
+          f"{med['G']:.3f} ms, D {med['D']:.3f} ms; the step {med['wall']:.3f}"
+          f" ms wall (min {min(by_phase['wall']):.3f}, max "
+          f"{max(by_phase['wall']):.3f}); peak device memory of a step "
+          f"{peak_step:.2f} GiB", flush=True)
+
+    changed = [k for k, t in _snapshot(model, trunk0.__contains__).items()
+               if not torch.equal(t, trunk0[k])]
+    check(not changed, f"trunk changed: {changed[:5]}")
+    still = [k for k, t in _snapshot(model, heads0.__contains__).items()
+             if torch.equal(t, heads0[k])]
+    check(not still, f"relation-head tensors did not move: {still[:5]}")
+    still = [k for k, p in gan.named_parameters()
+             if torch.equal(p.detach(), gan0[k])]
+    check(not still, f"GAN parameters did not move: {still[:5]}")
+    print(f"phase 11 trunk bit-unchanged ({len(trunk0)} tensors); all "
+          f"{len(heads0)} relation-head parameters and BN statistics and all "
+          f"{len(gan0)} G and D parameters moved", flush=True)
+    del trainer, model, gan, item
+    torch.cuda.empty_cache()
+    return n, host
+
+
+def gan_kernels(torch, peaks, host):
+    """11b: K1 (f32) and K1-bwd-fmap (f32-gather; bf16-gather for a bf16
+    GAN) at the GAN step's shape, against their plain versions (phase 3's
+    and phase 8's limits): a 24 x 37 x 37 x 512 fake map, the batch's 40
+    node boxes and the union boxes of 256 sampled pairs an image; each
+    launched twice for the same bits; times and bounds per launch pair."""
+    from sgg_torch.ops import roi_align as K1
+    from sgg_torch.ops.boxes import union_boxes
+    from sgg_torch.train.assign import sample_edges
+    b = host.to("cpu")
+    sampled, _ = sample_edges(torch.Generator().manual_seed(2), b.rels,
+                              b.rel_mask, b.node_mask, max_out=TRAIN_EDGES)
+    nodes = b.boxes.float().contiguous().cuda()
+    unions = union_boxes(b.boxes.float(), sampled[..., 0],
+                         sampled[..., 1]).contiguous().cuda()
+    B, H, C, s = TRAIN_BATCH, CANVAS // 16, 512, 1 / 16
+    g_ = torch.Generator().manual_seed(11)
+    fmap = torch.rand(B, H, H, C, generator=g_).cuda()
+    out = {}
+    err = rel = 0.0
+    for bx in (nodes, unions):
+        want = K1.roi_align_reference(fmap, bx, spatial_scale=s)
+        got = [K1.roi_align(fmap, bx, spatial_scale=s) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], got[1]), "roi_align f32: two launches "
+                                           "differ")
+        err = max(err, float((got[0] - want).abs().max()))
+    check(err <= 1e-5, f"roi_align f32 at the GAN shape: max |err| {err}")
+    del want, got
+    n_pool = B * (nodes.shape[1] + unions.shape[1]) * 49 * C
+    k1_bytes = 2 * fmap.numel() * 4 + (nodes.numel() + unions.numel()) * 4 \
+        + n_pool * 4
+    bms, bby = bound_ms(k1_bytes, n_pool * 32, peaks, bf16=False)
+    out["roi_align"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: (
+            K1.roi_align(fmap, nodes, spatial_scale=s),
+            K1.roi_align(fmap, unions, spatial_scale=s))),
+        plain_ms=time_ms(lambda: (
+            K1.roi_align_reference(fmap, nodes, spatial_scale=s),
+            K1.roi_align_reference(fmap, unions, spatial_scale=s)),
+            iters=3, warmup=1),
+        bound_ms=bms, bound_by=bby, library_ms=None, bytes=k1_bytes,
+        flops=n_pool * 32, route="f32",
+        shape=f"f32 fake map {B}x{H}x{H}x{C}; nodes R={nodes.shape[1]} + "
+              f"unions R={unions.shape[1]} (the step's launch pair)")
+    taps = 0.0
+    for bx in (nodes, unions):
+        ny, nx, _, _ = _tap_counts(torch, bx, H, H)
+        taps += float((ny.sum(-1) * nx.sum(-1)).sum())
+    K1.KERNEL_BWD_FMAP.reset_counts()
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        worst = 0.0
+        for bx in (nodes, unions):
+            g = torch.randn(B, bx.shape[1], 7, 7, C, generator=g_).to(
+                "cuda", dtype)
+            want = K1.roi_align_backward_reference(
+                g, bx, (H, H), dtype, spatial_scale=s)
+            got = [K1._grad_fmap_kernel(g, bx, (B, H, H, C), dtype, s, 7, 2)
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], got[1]),
+                  f"roi_align_bwd_fmap {dtype}: two launches differ")
+            worst = max(worst, rel_err(torch, got[0], want.float()))
+            if dtype == torch.float32:
+                errs["max_abs_err"] = max(errs.get("max_abs_err", 0.0), float(
+                    (got[0] - want).abs().max()))
+            del want, got, g
+        errs[dtype] = worst
+        check(worst <= tol, f"roi_align_bwd_fmap {dtype} at the GAN shape: "
+                            f"rel err {worst} > {tol}")
+    routes = dict(K1.KERNEL_BWD_FMAP.routes)
+    check(routes == {"f32-gather": 4, "bf16-gather": 4},
+          f"roi_align_bwd_fmap routes {routes}")
+    rows = {}
+    for dtype, route in ((torch.float32, "f32-gather"),
+                         (torch.bfloat16, "bf16-gather")):
+        gs = [torch.randn(B, bx.shape[1], 7, 7, C, generator=g_).to(
+            "cuda", dtype) for bx in (nodes, unions)]
+        size = gs[0].element_size()
+        n_bytes = sum(g.numel() for g in gs) * size + 2 * fmap.numel() * size \
+            + (nodes.numel() + unions.numel()) * 4
+        ops = 2 * C * taps
+        bms, bby = bound_ms(n_bytes, ops, peaks, bf16=False)
+        rows[route] = dict(
+            ms=time_ms(lambda: [K1._grad_fmap_kernel(
+                g, bx, (B, H, H, C), dtype, s, 7, 2)
+                for g, bx in zip(gs, (nodes, unions))]),
+            plain_ms=time_ms(lambda: [K1.roi_align_backward_reference(
+                g, bx, (H, H), dtype, spatial_scale=s)
+                for g, bx in zip(gs, (nodes, unions))], iters=3, warmup=1),
+            bound_ms=bms, bound_by=bby, bytes=n_bytes, flops=ops)
+        del gs
+    out["roi_align_bwd_fmap"] = dict(
+        max_abs_err=errs["max_abs_err"], f32_rel_err=errs[torch.float32],
+        bf16_rel_err=errs[torch.bfloat16], route="f32-gather",
+        **rows["f32-gather"], library_ms=None, bf16_gather=rows["bf16-gather"],
+        shape=f"g {B}x({nodes.shape[1]} | {unions.shape[1]})x7x7x{C} into a "
+              f"{B}x{H}x{H}x{C} map (the step's launch pair)")
+    for name, m in out.items():
+        extra = (f"; bf16-gather {m['bf16_gather']['ms']:.4f} ms, bound "
+                 f"{m['bf16_gather']['bound_ms']:.4f} ms, plain "
+                 f"{m['bf16_gather']['plain_ms']:.4f} ms"
+                 if "bf16_gather" in m else "")
+        print(f"phase 11 {name} at the GAN shape on {m['route']}: "
+              f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+              f"({m['bound_by']}), plain {m['plain_ms']:.4f} ms; max|err| "
+              f"{m['max_abs_err']:.3g}{extra}; the same bits from two "
+              f"launches [{m['shape']}]", flush=True)
+    del fmap, nodes, unions
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grads_received(torch, opts):
+    """Each optimizer's gradients as it received them (zeros for none),
+    recorded by wrapping its ``apply_gradients``: {tag: [{name: tensor on
+    the CPU}, ...]}."""
+    log = {}
+    for tag, opt in opts.items():
+        def apply(real=opt.apply_gradients, opt=opt, tag=tag):
+            # copies: the optimizer clips the gradients in place
+            log.setdefault(tag, []).append({
+                n: (p.grad.detach().float().to("cpu", copy=True)
+                    if p.grad is not None else torch.zeros(p.shape))
+                for n, p in opt.named})
+            return real()
+        opt.apply_gradients = apply
+    return log
+
+
+def _gan_parts(names):
+    """Parameter names by part: the relation model's top module; G's and
+    the Ds' first two (``G.gcn``, ``D_edges.SNConv_0``)."""
+    parts = {}
+    for n in names:
+        p = n.split(".")
+        parts.setdefault(".".join(p[:2]) if p[0][0] in "GD" else p[0],
+                         []).append(n)
+    return parts
+
+
+def gan_card_vs_cpu(torch, splits):
+    """11c: one f32 GAN step of 2 images at full width, card (kernels)
+    against CPU (plain versions), same weights, the same sampled edges and
+    perturbed classes, dropout off, TF32 off: losses within
+    ``GAN_LOSS_LIMIT`` relative, the gradients each optimizer receives,
+    and their global norms, within ``GAN_GRAD_LIMIT`` in norm by part (G's
+    and the rec update's within ``GAN_G_LIMIT``)."""
+    import copy
+
+    from sgg_torch import constants
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.models.backbone import Dropout
+    from sgg_torch.models.gan import GANModel, init_gan_weights
+    from sgg_torch.models.relhead import RelModelIMP, init_weights
+    from sgg_torch.train.assign import sample_edges
+    from sgg_torch.train.gan_step import (create_gan_optimizers,
+                                          make_gan_train_step)
+    from sgg_torch.train.state import Optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(os.cpu_count() or 1)
+    train = splits["train"]
+    rel = init_weights(RelModelIMP(num_classes=train.num_classes,
+                                   num_predicates=train.num_predicates), 1)
+    for mod in rel.modules():
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    gan = init_gan_weights(GANModel(train.num_classes, train.num_predicates,
+                                    fmap_sz=CANVAS // 16, largeD=True), 2)
+    batch = next(iter(BatchLoader(train, batch_size=2, max_nodes=TRAIN_NODES,
+                                  max_edges=TRAIN_EDGES, shuffle=False,
+                                  im_scale=constants.IM_SCALE)))
+    host = batch.to("cpu")
+    edges = sample_edges(torch.Generator().manual_seed(0), host.rels,
+                         host.rel_mask, host.node_mask, max_out=TRAIN_EDGES)
+    fake = host.classes.clone()
+    fake[host.node_mask] = fake[host.node_mask] % (train.num_classes - 1) + 1
+    def run(dev):
+        m = copy.deepcopy(rel).to(dev)
+        gm = copy.deepcopy(gan).to(dev)
+        cfg = gan_config(device=dev, batch_size=2, compute_dtype="float32")
+        opt = Optimizer(cfg, m)
+        g_opt, d_opt = create_gan_optimizers(cfg, gm)
+        got = _grads_received(torch, {"sgg": opt, "G": g_opt, "D": d_opt})
+        step = make_gan_train_step(m, gm, cfg, opt, g_opt, d_opt)
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in step(batch, fake, None,
+                                                edges=edges).items()}
+        return metrics, got, time.perf_counter() - t0
+
+    out, grads, secs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        out[dev], grads[dev], secs[dev] = run(dev)
+    torch.cuda.empty_cache()
+    loss_err = {k: abs(out["cuda"][k] - out["cpu"][k])
+                / max(abs(out["cpu"][k]), 1e-30) for k in out["cpu"]}
+    check(set(out["cuda"]) == set(out["cpu"]) == set(GAN_KEYS),
+          f"GAN step keys {sorted(out['cuda'])}")
+    counts = {t: len(v) for t, v in grads["cpu"].items()}
+    check(counts == {t: len(v) for t, v in grads["cuda"].items()}
+          == {"sgg": 2, "G": 1, "D": 1}, f"optimizer updates {counts}")
+    grad_err = {}
+    for tag in ("sgg", "G", "D"):
+        for i, (g, w) in enumerate(zip(grads["cuda"][tag],
+                                       grads["cpu"][tag])):
+            for p, e in _part_err(torch, g, w, _gan_parts(w)).items():
+                grad_err[f"{tag}{i}:{p}"] = e
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:6]
+    print(f"phase 11 GAN step card vs CPU (f32, 2 images, full width, "
+          f"largeD, same edges and classes, TF32 off): losses rel err "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in loss_err.items()})}"
+          f"; gradients rel err in norm, the largest of "
+          f"{len(grad_err)} parts {json.dumps({k: float(f'{v:.3g}') for k, v in worst})}"
+          f"; card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s",
+          flush=True)
+    check(all(v <= (GAN_GRAD_LIMIT if k.startswith("grad_norm")
+                    else GAN_LOSS_LIMIT) for k, v in loss_err.items()),
+          f"GAN card vs CPU losses differ: {loss_err}")
+    check(all(v <= (GAN_G_LIMIT if k.startswith(("G", "sgg1"))
+                    else GAN_GRAD_LIMIT) for k, v in grad_err.items()),
+          f"GAN card vs CPU gradients differ: {worst}")
+
+    # where G's gap comes from: the card's step again with K1-bwd-fmap's
+    # plain version in place of the kernel; and G's backward alone from
+    # one fixed map gradient, card against CPU
+    from sgg_torch.ops import roi_align as K1
+    kernel = K1._grad_fmap_kernel
+    K1._grad_fmap_kernel = lambda g, b, shape, dtype, scale, pooled, ratio: \
+        K1.roi_align_backward_reference(g, b, shape[1:3], dtype,
+                                        spatial_scale=scale, pooled=pooled,
+                                        ratio=ratio)
+    try:
+        plain_g = run("cuda")[1]["G"][0]
+    finally:
+        K1._grad_fmap_kernel = kernel
+    gfix = torch.randn(2, CANVAS // 16, CANVAS // 16, gan.n_ch,
+                       generator=torch.Generator().manual_seed(3))
+    alone = {}
+    for dev in ("cuda", "cpu"):
+        gm = copy.deepcopy(gan).to(dev).train()
+        fmap = gm.generate(fake.to(dev), (host.boxes / float(CANVAS)).to(dev),
+                           host.rels.to(dev), host.node_mask.to(dev),
+                           host.rel_mask.to(dev))
+        (fmap * gfix.to(dev)).sum().backward()
+        alone[dev] = {n: p.grad.float().cpu()
+                      for n, p in gm.named_parameters() if n.startswith("G.")}
+        del gm, fmap
+    torch.cuda.empty_cache()
+    fmt = lambda d: json.dumps(  # noqa: E731
+        {k: float(f"{v:.3g}") for k, v in sorted(d.items())})
+    print(f"phase 11 where G's gap comes from, rel err in norm by part: "
+          f"the step with K1-bwd-fmap's plain version on the card "
+          f"{fmt(_part_err(torch, plain_g, grads['cpu']['G'][0], _gan_parts(plain_g)))}"
+          f"; G's backward alone from one fixed map gradient "
+          f"{fmt(_part_err(torch, alone['cuda'], alone['cpu'], _gan_parts(alone['cpu'])))}",
+          flush=True)
+
+
+def phase_gan(torch, peaks, rows, splits):
+    """Phase 11: GAN-augmented training at full width."""
+    t0 = time.perf_counter()
+    n, host = gan_train(torch, splits)
+    for name, m in gan_kernels(torch, peaks, host).items():
+        rows[name]["gan"] = m
+    gan_card_vs_cpu(torch, splits)
+    print(f"phase 11 GAN training in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"gan_train_epoch": n}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
         fail("sgg_torch/ not found beside chip_smoke.py; run from a checkout")
@@ -3344,6 +3788,8 @@ def main() -> None:
             paths.update(phase_resnet(torch, peaks, rows, splits))
         with Deadline(REAL_DEADLINE_S, "phase 10"):
             paths.update(phase_real_inputs(torch))
+        with Deadline(GAN_DEADLINE_S, "phase 11"):
+            paths.update(phase_gan(torch, peaks, rows, splits))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -170,7 +170,9 @@ def device_prefetch(iterator: Iterable[GraphBatch], device,
     memory is not reused under a running step. One copy stream a device
     serves every call: the caching allocator keeps a stream's blocks for
     that stream, so a new stream each epoch would allocate anew. Order and
-    content are the iterator's."""
+    content are the iterator's. An item is a ``GraphBatch`` or another
+    dataclass with a ``to(device)``; its tensors, nested dataclasses'
+    included, are marked as used."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     if cuda and device not in _COPY_STREAMS:
@@ -183,10 +185,8 @@ def device_prefetch(iterator: Iterable[GraphBatch], device,
         if cuda:
             consumer = torch.cuda.current_stream(device)
             consumer.wait_event(done)
-            for f in dataclasses.fields(batch):
-                t = getattr(batch, f.name)
-                if isinstance(t, torch.Tensor):
-                    t.record_stream(consumer)
+            for t in _tensors(batch):
+                t.record_stream(consumer)
         return batch
 
     for item in iterator:
@@ -201,6 +201,16 @@ def device_prefetch(iterator: Iterable[GraphBatch], device,
             yield release()
     while buf:
         yield release()
+
+
+def _tensors(item):
+    """The tensors of a dataclass, nested dataclasses included."""
+    for f in dataclasses.fields(item):
+        v = getattr(item, f.name)
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif dataclasses.is_dataclass(v):
+            yield from _tensors(v)
 
 
 def to_image_dtype(batch: GraphBatch, dtype: str) -> GraphBatch:

@@ -11,6 +11,12 @@ backbone (``FasterRCNNVGG`` or ``FasterRCNNFPN``) from ``-ckpt`` (a
 ``sgg_torch.pretrain_detector`` writes) and trains the relation head on its
 detections; ``-nepoch 0`` only evaluates (the test sweep).
 
+``-gan`` trains with the GAN's compositional augmentation (the ICCV 2021
+command, without the feature bank, which is not ported yet)::
+
+    python -m sgg_torch.main -m sgcls -loss dnorm -b 24 -gan -largeD \
+        -perturb graphn -L 0.2 -topk 5 -graphn_a 2 -split synthetic
+
 ``-split stanford|gqa|vte`` read the datasets under ``-data``
 (``data/visual_genome.py``, ``gqa.py``, ``vtranse.py``; gqa and vte need
 ``-backbone resnet50``) and decode their images with PIL; both ``h5py``

@@ -218,7 +218,7 @@ class RelModelIMP(nn.Module):
 
     def forward(self, images, boxes, classes, pairs, pair_mask, *,
                 fmap=None, im_hw=None, mode: Optional[str] = None,
-                dedup_unions: bool = False,
+                dedup_unions: bool = False, return_feats: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """Forward pass over a padded batch; train mode (``self.training``)
@@ -235,7 +235,11 @@ class RelModelIMP(nn.Module):
         dedup).
 
         Returns obj_logits (B,N,C), rel_logits (B,E,R), obj_preds (B,N),
-        obj_scores (B,N), and ``dedup_ok`` when deduplicating.
+        obj_scores (B,N), and ``dedup_ok`` when deduplicating. With
+        ``return_feats`` also ``fmap``, ``node_pool`` (B,N,P,P,C) and
+        ``edge_pool`` (B,E,P,P,C): the map and its raw RoIAlign pools,
+        before the rects are added, in the map's type (the features the
+        GAN's discriminators judge, ``sgg_tpu/models/relhead.py:337-346``).
         """
         mode = mode or self.mode
         if fmap is None:
@@ -305,6 +309,13 @@ class RelModelIMP(nn.Module):
                "obj_preds": obj_preds, "obj_scores": obj_scores}
         if dedup_ok is not None:
             out["dedup_ok"] = dedup_ok
+        if return_feats:
+            edge_pool = union_pool_u
+            if gidx is not None:
+                edge_pool = torch.gather(
+                    union_pool_u, 1, gidx[:, :, None, None, None].expand(
+                        *gidx.shape, *union_pool_u.shape[2:]))
+            out.update(fmap=fmap, node_pool=node_pool, edge_pool=edge_pool)
         return out
 
 

@@ -38,9 +38,10 @@ def paint_weights(start: torch.Tensor, extent: torch.Tensor, out_dim: int,
     package's do."""
     dev = start.device
     step = float(np.float32(1.0) / np.float32(max(out_dim - 1, 1)))
-    t = torch.arange(out_dim, dtype=torch.float32, device=dev) * step
-    if out_dim > 1:
-        t[-1] = 1.0
+    i = torch.arange(out_dim, device=dev)
+    # the last position is exactly 1 (set by a fill: writing a Python number
+    # into one element of a card tensor copies it from the host and waits)
+    t = (i.float() * step).masked_fill(i == max(out_dim - 1, 1), 1.0)
     xs = ((t - start[..., None]) / extent[..., None]) * in_dim - 0.5
     x0 = torch.floor(xs)
     frac = xs - x0

@@ -15,10 +15,11 @@ layout: ``vgrel-<epoch>.pth`` holding ``{"params", "batch_stats"}`` of a
 
 The reference's own checkpoints (torchvision-format state dicts) import
 through ``import_torch_vgg``, ``import_torch_faster_rcnn``,
-``import_torch_relmodel`` and ``import_torch_resnet50_fpn``, the JAX
-package's importers (``sgg_tpu/train/checkpoint.py:176-527``) onto the
-port's names and layouts; ``python -m sgg_torch.import_reference_ckpt``
-writes their payloads.
+``import_torch_relmodel``, ``import_torch_resnet50_fpn`` and
+``import_torch_gan``, the JAX package's importers
+(``sgg_tpu/train/checkpoint.py:176-700``) onto the port's names and
+layouts; ``python -m sgg_torch.import_reference_ckpt`` writes their
+payloads.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import os
 import re
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 CKPT_NAME = "vgrel"  # the reference's vgrel.pth
@@ -173,13 +175,15 @@ def load_detector_state(detector: torch.nn.Module,
 # every fc over a flattened 7x7 RoI pool takes the CHW -> HWC permutation
 # of its input axis, since the port's heads flatten NHWC pools.
 
-def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.pth`` file as ``{name: tensor}`` on the CPU: the ``state_dict``
-    sub-dict of a full training checkpoint (where the reference saves the
-    model), else the file as a bare state dict. Entries that are not
-    tensors are left out."""
+def load_torch_state_dict(path: str, key: str = "state_dict"
+                          ) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` file as ``{name: tensor}`` on the CPU: the ``key``
+    sub-dict of a full training checkpoint (the reference saves the model
+    under ``state_dict`` and the GAN under ``gan``, pytorch_misc.py:226-231,
+    main.py:249-254), else the file as a bare state dict. Entries that are
+    not tensors are left out."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    state = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    state = ckpt.get(key, ckpt) if isinstance(ckpt, dict) else ckpt
     return {k: v.detach() for k, v in state.items()
             if isinstance(v, torch.Tensor)}
 
@@ -258,8 +262,16 @@ _TENSORS = {
     "gru": tuple((k, k) for k in ("weight_ih", "weight_hh", "bias_ih",
                                   "bias_hh")),
     "table": (("weight", "table"),),  # the frequency bias's (C * C, R)
+    "embed": (("weight", "weight"),),
+    # torch's spectral_norm(Conv2d): its weight before normalization and
+    # power-iteration vectors, read by ``_snconv_updates``
+    "snconv": (("weight_orig", "Conv_0.weight"), ("bias", "Conv_0.bias"),
+               ("weight_u", "u")),
 }
-REFERENCE_KINDS = ("detector", "vgg", "relmodel", "resnet_fpn")
+REFERENCE_KINDS = ("detector", "vgg", "relmodel", "resnet_fpn", "gan")
+# the reference GAN's shape (augment/gan.py): GCN layers, BatchNorms in
+# its MLPs, the CRN's stages, largeD
+GAN_SHAPE = dict(n_layers=5, batch_norm=True, crn_stages=3, largeD=False)
 
 
 def _vgg_trunk_rows(prefix: str):
@@ -267,13 +279,54 @@ def _vgg_trunk_rows(prefix: str):
             for t, o in torch_vgg_key_map().items()]
 
 
-def reference_modules(kind: str) -> List[Tuple[Tuple[str, ...], str, str]]:
+def _gan_rows(n_layers: int, batch_norm: bool, crn_stages: int,
+              largeD: bool):
+    """The reference ``GAN``'s modules (``sgg_tpu/train/checkpoint.py:
+    528-640``): the generator's embeddings, GCN MLPs (``build_mlp``: Linear
+    at 0 and 3, BatchNorm1d at 1 and 4 with ``mlp_normalization='batch'``,
+    the last layer's MLPs without the trailing BatchNorm; Linear at 0 and 2
+    without), spatializing convs, projection and CRN
+    (``refinement_modules.{i}.net``: conv 0, bn 1, conv 3, bn 4), then the
+    spectral-norm convs of the Ds (patch Ds at 0/2/4/6; ``D_global`` at
+    0/5/10/15, with ``largeD`` also its 1x1 convs at 2/7/12)."""
+    rows = [("G_obj_embed", "G.obj_embed", "embed"),
+            ("G_rel_embed", "G.rel_embed", "embed")]
+    for i in range(n_layers):
+        for net in ("net1", "net2"):
+            t, o = f"G_gcn.gconvs.{i}.{net}", f"G.gcn.gconv_{i}.{net}"
+            rows += [(f"{t}.{ti}", f"{o}.Dense_{j}", "wb") for j, ti in
+                     enumerate(("0", "3") if batch_norm else ("0", "2"))]
+            if batch_norm:
+                rows.append((f"{t}.1", f"{o}.MaskedBatchNorm_0", "bn"))
+                if i < n_layers - 1:
+                    rows.append((f"{t}.4", f"{o}.MaskedBatchNorm_1", "bn"))
+    rows += [("G_node.0", "G.node_conv0", "wb"),
+             ("G_node.2", "G.node_conv1", "wb"), ("G_proj", "G.proj", "wb")]
+    for i in range(crn_stages):
+        t, o = f"G_refine.refinement_modules.{i}.net", f"G.refine.mod{i}"
+        rows += [(f"{t}.0", f"{o}.conv0", "wb"), (f"{t}.1", f"{o}.bn0", "bn"),
+                 (f"{t}.3", f"{o}.conv1", "wb"), (f"{t}.4", f"{o}.bn1", "bn")]
+    rows.append(("G_refine.output_conv.0", "G.refine.output_conv", "wb"))
+    for d in ("D_nodes", "D_edges"):
+        rows += [(f"{d}.{ti}", f"{d}.SNConv_{j}", "snconv")
+                 for j, ti in enumerate((0, 2, 4, 6))]
+    rows += [(f"D_global.{ti}", f"D_global.SNConv_{j}", "snconv")
+             for j, ti in enumerate((0, 2, 5, 7, 10, 12, 15) if largeD
+                                    else (0, 5, 10, 15))]
+    return rows
+
+
+def reference_modules(kind: str, **gan_shape
+                      ) -> List[Tuple[Tuple[str, ...], str, str]]:
     """The map from a reference checkpoint of ``kind`` onto the port, one
     row a module: (reference names, port module, type). ``_TENSORS[type]``
     lists the module's tensors. Of several reference names the first whose
     ``weight`` the checkpoint holds is read (torchvision moved the FPN's
-    convs into a ``Sequential``)."""
-    if kind == "vgg":  # the reference copies the classifier into both heads
+    convs into a ``Sequential``). ``gan_shape`` overrides ``GAN_SHAPE``
+    for ``kind="gan"``."""
+    if kind == "gan":
+        rows = _gan_rows(**{**GAN_SHAPE, **gan_shape})
+    elif kind == "vgg":  # the reference copies the classifier into both heads
         rows = _vgg_trunk_rows("features.") + [
             row for head in ("roi_fmap", "roi_fmap_obj") for row in (
                 ("classifier.0", f"{head}.fc6", "fc6"),
@@ -334,15 +387,54 @@ def reference_modules(kind: str) -> List[Tuple[Tuple[str, ...], str, str]]:
     return [((t,) if isinstance(t, str) else t, o, typ) for t, o, typ in rows]
 
 
-def reference_flat_updates(kind: str, ts: Mapping
+def _snconv_updates(t: str, ours: str, ts: Mapping
+                    ) -> Dict[str, torch.Tensor]:
+    """torch's ``spectral_norm(Conv2d)`` tensors -> an ``SNConv``'s
+    (``sgg_tpu/train/checkpoint.py::_snconv_updates``): ``weight_orig`` and
+    the bias to the conv, ``weight_u`` (out,) to ``u`` (1, out), and, with
+    ``weight_v``, ``sigma = u . (W v)`` over torch's (out, in kh kw)
+    flatten, in numpy float32 as the JAX importer computes it. At torch's
+    converged vectors, flax's one power iteration from ``u`` then gives
+    torch's eval weight. A conv saved without spectral norm (a plain
+    ``weight``) maps as a conv."""
+    w = ts.get(f"{t}.weight_orig")
+    if w is None:
+        return {f"{ours}.Conv_0.{k}": torch.as_tensor(ts[f"{t}.{k}"])
+                for k in ("weight", "bias") if f"{t}.{k}" in ts}
+    out = {f"{ours}.Conv_0.weight": torch.as_tensor(w)}
+    if f"{t}.bias" in ts:
+        out[f"{ours}.Conv_0.bias"] = torch.as_tensor(ts[f"{t}.bias"])
+    u, v = ts.get(f"{t}.weight_u"), ts.get(f"{t}.weight_v")
+    if u is not None:
+        u = np.asarray(u)
+        out[f"{ours}.u"] = torch.from_numpy(u[None, :].copy())
+        if v is not None:
+            wm = np.asarray(w).reshape(u.shape[0], -1)
+            out[f"{ours}.sigma"] = torch.from_numpy(
+                np.asarray(u @ (wm @ np.asarray(v)), np.float32))
+    return out
+
+
+def reference_flat_updates(kind: str, ts: Mapping, **gan_shape
                            ) -> Dict[str, torch.Tensor]:
     """The tensors of a reference checkpoint of ``kind`` that
     ``reference_modules`` maps, as ``{port name: tensor}`` in the port's
-    layouts (every fc over a RoI pool permuted CHW -> HWC)."""
+    layouts (every fc over a RoI pool permuted CHW -> HWC; spectral-norm
+    convs through ``_snconv_updates``). A GAN's CRN stages are those the
+    checkpoint holds from the first on, up to one whose first conv it
+    lacks (``sgg_tpu/train/checkpoint.py:575-588``)."""
+    if kind == "gan" and "crn_stages" not in gan_shape:
+        n = 0
+        while n < 8 and f"G_refine.refinement_modules.{n}.net.0.weight" in ts:
+            n += 1
+        gan_shape = {**gan_shape, "crn_stages": n}
     flat: Dict[str, torch.Tensor] = {}
-    for refs, ours, typ in reference_modules(kind):
+    for refs, ours, typ in reference_modules(kind, **gan_shape):
         t = refs[0] if len(refs) == 1 else next(
             (t for t in refs if f"{t}.weight" in ts), None)
+        if typ == "snconv":
+            flat.update(_snconv_updates(t, ours, ts))
+            continue
         for sfx_t, sfx_o in _TENSORS[typ] if t is not None else ():
             v = ts.get(f"{t}.{sfx_t}")
             if v is not None:
@@ -390,4 +482,18 @@ def import_torch_resnet50_fpn(state, torch_state: Mapping,
     ``ResNet50FPN`` state: parameters and frozen BatchNorm buffers."""
     return optimistic_update(
         state, reference_flat_updates("resnet_fpn", torch_state),
+        verbose=verbose, return_stats=return_stats)
+
+
+def import_torch_gan(state, torch_state: Mapping, num_gcn_layers: int = 5,
+                     batch_norm: bool = True, largeD: bool = False,
+                     verbose: bool = False, return_stats: bool = False):
+    """A reference ``GAN.state_dict()`` (the ``gan`` entry of a ``vgrel.pth``
+    or a bare one: the generator and the three spectral-norm Ds) into a
+    ``GANModel`` state: parameters, BatchNorm statistics and the
+    power-iteration vectors."""
+    return optimistic_update(
+        state, reference_flat_updates("gan", torch_state,
+                                      n_layers=num_gcn_layers,
+                                      batch_norm=batch_norm, largeD=largeD),
         verbose=verbose, return_stats=return_stats)

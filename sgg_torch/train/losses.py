@@ -35,13 +35,14 @@ def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 def edge_losses(rel_logits: torch.Tensor, rel_labels: torch.Tensor,
                 rel_mask: torch.Tensor, loss_type: str = "dnorm",
-                loss_weights: Tuple[float, float, float] = (1.0, 1.0, 1.0)
-                ) -> Dict[str, torch.Tensor]:
+                loss_weights: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+                sfx: str = "") -> Dict[str, torch.Tensor]:
     """Edge (predicate) loss over the whole padded batch.
 
     rel_logits (B, E, R); rel_labels (B, E), 0 = background; rel_mask
     (B, E). ``loss_weights`` is (alpha, beta, gamma), reference
-    config.py:186-190. Returns ``{"rel_loss": scalar}``.
+    config.py:186-190. Returns ``{"rel_loss" + sfx: scalar}`` (the GAN
+    step's reconstruction losses take ``sfx="_rec"``).
     """
     alpha, beta, gamma = loss_weights
     ce = _masked_ce(rel_logits, rel_labels, rel_mask)
@@ -70,12 +71,14 @@ def edge_losses(rel_logits: torch.Tensor, rel_labels: torch.Tensor,
         loss = gamma * (ce * weights).sum()
     else:
         raise NotImplementedError(loss_type)
-    return {"rel_loss": loss}
+    return {"rel_loss" + sfx: loss}
 
 
 def node_losses(obj_logits: torch.Tensor, obj_labels: torch.Tensor,
-                node_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Mean CE over valid objects (reference losses.py:73-74)."""
+                node_mask: torch.Tensor, sfx: str = ""
+                ) -> Dict[str, torch.Tensor]:
+    """Mean CE over valid objects (reference losses.py:73-74), as
+    ``{"obj_loss" + sfx: scalar}``."""
     ce = _masked_ce(obj_logits, obj_labels, node_mask)
     n = torch.clamp(node_mask.sum().float(), min=1.0)
-    return {"obj_loss": ce.sum() / n}
+    return {"obj_loss" + sfx: ce.sum() / n}

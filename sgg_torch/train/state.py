@@ -18,6 +18,10 @@ Counterpart of ``sgg_tpu/train/state.py:48-100`` (reference
   ``optax.piecewise_constant_schedule``.
 
 Parameters and momentum buffers are float32 (the model's master weights).
+
+``Adam`` is the GAN's optimizer (``sgg_tpu/train/gan_step.py:58-73``,
+reference ``pytorch_misc.py:98-127``): ``optax.adam(lr, b1, b2)`` over one
+partition of the GAN's parameters, in optax's arithmetic.
 """
 
 from __future__ import annotations
@@ -119,3 +123,75 @@ class Optimizer:
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
         for name, p in self.named:
             self.sgd.state[p]["momentum_buffer"].copy_(state[name])
+
+
+class Adam:
+    """``optax.adam(lr, b1=b1, b2=b2)`` (eps 1e-8, no ``eps_root``) over
+    ``named`` (name, parameter) pairs, one partition of a model, as
+    ``optax.multi_transform`` with ``set_to_zero`` on the rest gives it:
+    ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, then ``p +=
+    -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)`` at update t
+    (1-based), each term in optax's order and rounding (op by op; jitted,
+    XLA fuses the second moment's update into an FMA). A parameter that
+    took no gradient gets a zero one, as in optax. The moments are float32
+    and the bias corrections are computed on the parameters' device, so an
+    update waits for nothing."""
+
+    def __init__(self, named, lr: float, b1: float, b2: float,
+                 eps: float = 1e-8):
+        self.named = list(named)
+        self.params = [p for _, p in self.named]
+        self.lr, self.b1, self.b2 = float(lr), float(b1), float(b2)
+        self.eps = float(eps)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def _bias_correction(self, decay: float, like: torch.Tensor):
+        full = lambda v: torch.full((), v, dtype=torch.float32,  # noqa: E731
+                                    device=like.device)
+        return 1 - full(decay) ** full(float(self.count))
+
+    @torch.no_grad()
+    def apply_gradients(self) -> torch.Tensor:
+        """One update from the parameters' ``grad``; returns their global
+        norm (a device scalar)."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        b1, b2 = self.b1, self.b2
+        self.mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                                     torch._foreach_mul(self.mu, b1))
+        self.nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+            torch._foreach_mul(self.nu, b2))
+        self.count += 1
+        mu_hat = torch._foreach_div(
+            self.mu, self._bias_correction(b1, self.params[0]))
+        nu_hat = torch._foreach_div(
+            self.nu, self._bias_correction(b2, self.params[0]))
+        # the square root correctly rounded, as XLA's (PyTorch's vectorized
+        # float32 sqrt on the CPU is not): through float64
+        roots = [r.float() for r in torch._foreach_sqrt(
+            [v.double() for v in nu_hat])]
+        denom = torch._foreach_add(roots, self.eps)
+        updates = torch._foreach_mul(torch._foreach_div(mu_hat, denom),
+                                     -self.lr)
+        torch._foreach_add_(self.params, updates)
+        return norm
+
+    def state_dict(self) -> Dict:
+        """The update count and both moments by parameter name."""
+        return {"count": torch.tensor(self.count),
+                "mu": {n: m for (n, _), m in zip(self.named, self.mu)},
+                "nu": {n: v for (n, _), v in zip(self.named, self.nu)}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])
+        for i, (n, _) in enumerate(self.named):
+            self.mu[i].copy_(state["mu"][n])
+            self.nu[i].copy_(state["nu"][n])

@@ -16,34 +16,46 @@ computes in it, their copies to the device issued ahead on a stream of
 their own while the previous steps run (``device_prefetch``). With
 ``config.feature_cache`` each split's frozen-trunk maps are extracted once
 (``data/feature_cache.py``; a cache of other trunk weights is extracted
-again) and the loaders stream them instead of images. Not ported yet,
-each raising ``NotImplementedError`` that names it: GAN training and
-multi-device training.
+again) and the loaders stream them instead of images. With
+``config.gan`` each batch takes the GAN step (``train/gan_step.py``: the
+SGG, generator and discriminator updates) on a ``GANModel`` built from the
+train split's vocabulary, its classes perturbed on the host first
+(``-perturb``, ``augment/perturb.py``). Not ported yet, each raising
+``NotImplementedError`` that names it: the GAN's feature-bank conditioning
+(``-vis_cond``) and multi-device training.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import time
+import zlib
 from collections import defaultdict
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from sgg_torch import constants
 from sgg_torch.config import Config
 from sgg_torch.data.datasets import SGGDataset
+from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.data.pipeline import (BatchLoader, device_prefetch,
                                      to_image_dtype)
 from sgg_torch.device import resolve_device
 from sgg_torch.eval.driver import val_epoch
+from sgg_torch.data.word_vectors import normalized_class_embeddings
 from sgg_torch.models.frequency_bias import (count_matrices,
                                              log_predicate_distribution)
+from sgg_torch.models.gan import GANModel, init_gan_weights
 from sgg_torch.models.relhead import RelModelIMP, init_weights
 from sgg_torch.models.sgdet import make_sgdet_train_step
 from sgg_torch.train import checkpoint as ckpt
+from sgg_torch.train.gan_step import (create_gan_optimizers,
+                                      make_gan_train_step)
 from sgg_torch.train.state import Optimizer
 from sgg_torch.train.step import make_train_step
 
@@ -87,6 +99,43 @@ def _not_ported(what: str) -> NotImplementedError:
                                f"(ROADMAP Queue A)")
 
 
+def build_gan(config: Config, train_data: SGGDataset, *, device="cuda",
+              seed: int = 1) -> GANModel:
+    """The GAN of ``-gan`` (reference main.py:65-76): the train split's
+    vocabulary, a ``IM_SCALE // STRIDE`` map (read at call time), ``largeD``
+    and, with ``init_embed``, word-vector tables for both embeddings;
+    seeded random weights, float32, on ``device``."""
+    emb_o = emb_r = None
+    if config.init_embed:
+        emb_o = normalized_class_embeddings(train_data.ind_to_classes,
+                                            wv_dir=config.data)
+        emb_r = normalized_class_embeddings(train_data.ind_to_predicates,
+                                            wv_dir=config.data)
+    gan = GANModel(num_classes=train_data.num_classes,
+                   num_predicates=train_data.num_predicates,
+                   fmap_sz=constants.IM_SCALE // constants.STRIDE,
+                   largeD=config.largeD, init_embed_objs=emb_o,
+                   init_embed_rels=emb_r)
+    return init_gan_weights(gan, seed).to(resolve_device(device))
+
+
+@dataclasses.dataclass
+class GANBatch:
+    """A batch and the classes the generator paints for it, for
+    ``device_prefetch``."""
+
+    batch: GraphBatch
+    fake_classes: object
+
+    def to(self, device) -> "GANBatch":
+        fake = self.fake_classes
+        if not isinstance(fake, torch.Tensor):
+            fake = torch.from_numpy(np.ascontiguousarray(fake, np.int64))
+        if torch.device(device).type == "cuda" and fake.device.type == "cpu":
+            fake = fake.pin_memory().to(device, non_blocking=True)
+        return GANBatch(self.batch.to(device), fake.to(device))
+
+
 class Trainer:
     """Owns the model, the optimizer, the train step and the epoch, val
     and test loops, on ``config.device``.
@@ -95,15 +144,28 @@ class Trainer:
     ``FasterRCNNFPN``, of the config's backbone); ``det_state``, a
     detector payload (``checkpoint.load_detector``), is loaded into it
     with ``strict=True``. The detector is frozen and is not part of the
-    run's checkpoints: they hold the relation model and its optimizer."""
+    run's checkpoints: they hold the relation model and its optimizer.
+
+    With ``config.gan`` the trainer also owns the ``GANModel`` (``gan``,
+    or ``build_gan``'s with seed ``config.seed + 1``), its two Adams and the
+    perturber; the relation model's SGD then takes two updates a batch
+    under ``rec``, and the schedule's boundaries count both
+    (``sgg_tpu/train/trainer.py:308-317``). Checkpoints carry the GAN
+    under ``gan``."""
 
     def __init__(self, config: Config, splits: Dict[str, SGGDataset],
                  model: Optional[RelModelIMP] = None, detector=None,
-                 det_state: Optional[Dict] = None):
+                 det_state: Optional[Dict] = None,
+                 gan: Optional[GANModel] = None):
         if config.mode == "sgdet" and detector is None:
             raise ValueError("sgdet training needs a (pretrained) detector")
-        if config.gan:
-            raise _not_ported("GAN training")
+        if config.gan and config.vis_cond is not None:
+            raise _not_ported("-vis_cond (the GAN's feature bank, "
+                              "sgg_tpu/augment/feature_bank.py)")
+        if config.gan and config.mode == "sgdet":
+            raise ValueError("-gan trains on the GT boxes of predcls/sgcls; "
+                             "mode sgdet has no trunk of its own to pool "
+                             "the real map from")
         if config.num_devices > 1:
             raise _not_ported("multi-device training")
         self.config = config
@@ -132,7 +194,12 @@ class Trainer:
                   f"candidate pairs")
         self.steps_per_epoch = max(len(self.train_data) // config.batch_size,
                                    1)
-        self.optimizer = Optimizer(config, self.model, self.steps_per_epoch)
+        upd_per_batch = 2 if config.gan and "rec" in config.ganlosses else 1
+        self.optimizer = Optimizer(config, self.model,
+                                   self.steps_per_epoch * upd_per_batch)
+        self.gan = self.perturber = None
+        if config.gan:
+            self._init_gan(gan)
         if config.mode == "sgdet":
             self.train_step = make_sgdet_train_step(
                 self.detector, self.model, config, self.optimizer)
@@ -147,15 +214,44 @@ class Trainer:
             self._restore()
 
     # ------------------------------------------------------------------
+    def _init_gan(self, gan: Optional[GANModel]) -> None:
+        """The GAN, its optimizers, step and perturber (reference
+        main.py:65-76, the perturber at :131)."""
+        cfg, td = self.config, self.train_data
+        self.gan = (gan.to(self.device) if gan is not None else
+                    build_gan(cfg, td, device=self.device,
+                              seed=cfg.seed + 1))
+        self.g_opt, self.d_opt = create_gan_optimizers(cfg, self.gan)
+        self.gan_step = make_gan_train_step(self.model, self.gan, cfg,
+                                            self.optimizer, self.g_opt,
+                                            self.d_opt)
+        if cfg.perturb:
+            from sgg_torch.augment.perturb import SceneGraphPerturb
+            emb = normalized_class_embeddings(td.ind_to_classes,
+                                              wv_dir=cfg.data)
+            self.perturber = SceneGraphPerturb(
+                cfg.perturb, emb, td.subj_pred_pairs, td.pred_obj_pairs,
+                L=cfg.L, topk=cfg.topk, alpha=cfg.graphn_a,
+                uniform=cfg.uniform,
+                degree_smoothing=cfg.degree_smoothing, seed=cfg.seed)
+
     def _payload(self, epoch: int) -> Dict:
         params = dict(self.model.named_parameters())
-        return {
+        payload = {
             "step": torch.tensor(self.optimizer.count),
             "params": {k: v.detach() for k, v in params.items()},
             "batch_stats": dict(self.model.named_buffers()),
             "opt_state": self.optimizer.state_dict(),
             "epoch": torch.tensor(epoch),
         }
+        if self.gan is not None:
+            payload["gan"] = {
+                "params": {k: v.detach()
+                           for k, v in self.gan.named_parameters()},
+                "stats": dict(self.gan.named_buffers()),
+                "g_opt": self.g_opt.state_dict(),
+                "d_opt": self.d_opt.state_dict()}
+        return payload
 
     def save(self, epoch: int) -> None:
         ckpt.save_payload(self.config.save_dir, self._payload(epoch), epoch)
@@ -163,7 +259,7 @@ class Trainer:
     def _restore(self) -> None:
         # the payload is the relation model's alone: a frozen detector's
         # leaves are never counted as the run's own
-        restored, last, _, stats = ckpt.optimistic_restore_payload(
+        restored, last, on_disk, stats = ckpt.optimistic_restore_payload(
             self.config.save_dir, self._payload(0),
             map_location=self.device)
         if last < 0:
@@ -188,6 +284,16 @@ class Trainer:
                     live[k].copy_(v)
         self.optimizer.load_state_dict(restored["opt_state"])
         self.optimizer.count = int(restored["step"])
+        if self.gan is not None and "gan" in on_disk:
+            g = restored["gan"]
+            with torch.no_grad():
+                for coll, live in (("params",
+                                    dict(self.gan.named_parameters())),
+                                   ("stats", dict(self.gan.named_buffers()))):
+                    for k, v in g[coll].items():
+                        live[k].copy_(v)
+            self.g_opt.load_state_dict(g["g_opt"])
+            self.d_opt.load_state_dict(g["d_opt"])
         self.start_epoch = last + 1
         self.global_iter = self.optimizer.count
         print(f"resumed from epoch {last}")
@@ -279,17 +385,23 @@ class Trainer:
                                  "train", self.train_data),
                              cache_orientations=cfg.cache_orientations)
         loader._epoch = epoch
+        source = (to_image_dtype(b, cfg.compute_dtype) for b in loader)
+        if self.gan is not None:
+            # the perturbation runs on the host batch, before its copy
+            source = (self._gan_host_inputs(b, epoch) for b in source)
         # the next batches' copies to the device run while a step does
-        batches = device_prefetch(
-            (to_image_dtype(b, cfg.compute_dtype) for b in loader),
-            self.device)
+        batches = device_prefetch(source, self.device)
         generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed * 100003 + epoch)
         accum = defaultdict(list)
         epoch_means = defaultdict(list)
         t0 = time.time()
-        for b_i, batch in enumerate(batches):
-            metrics = self.train_step(batch, generator)
+        for b_i, item in enumerate(batches):
+            if self.gan is not None:
+                metrics = self.gan_step(item.batch, item.fake_classes,
+                                        generator)
+            else:
+                metrics = self.train_step(item, generator)
             self.global_iter += 1
             for k, v in metrics.items():
                 accum[k].append(v)
@@ -314,6 +426,26 @@ class Trainer:
             for k, v in self._means(accum).items():
                 epoch_means[k].append(v)
         return {k: sum(v) / len(v) for k, v in epoch_means.items()}
+
+    def _gan_host_inputs(self, batch: GraphBatch, epoch: int) -> GANBatch:
+        """The batch and the classes G paints for it, computed on the host
+        batch (``sgg_tpu/train/trainer.py:522-550``). Each image's
+        perturbation draws from a ``RandomState`` seeded by the crc32 of its
+        int32 classes and float32 boxes, mixed with the epoch and the run's
+        seed: the same image perturbs the same way whatever batch or
+        process holds it, and differently each epoch."""
+        fake = np.asarray(batch.classes)
+        if self.perturber is not None:
+            classes = np.ascontiguousarray(fake, np.int32)
+            boxes = np.ascontiguousarray(batch.boxes, np.float32)
+            seeds = [(zlib.crc32(classes[i].tobytes() + boxes[i].tobytes())
+                      ^ (epoch * 0x9E3779B1)
+                      ^ (self.config.seed * 0x85EBCA6B)) & 0xFFFFFFFF
+                     for i in range(fake.shape[0])]
+            fake = self.perturber.perturb_batch(
+                fake, np.asarray(batch.rels), np.asarray(batch.node_mask),
+                np.asarray(batch.rel_mask), seeds=seeds)
+        return GANBatch(batch, fake)
 
     @staticmethod
     def _means(accum) -> Dict[str, float]:

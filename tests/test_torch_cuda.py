@@ -892,3 +892,114 @@ def test_imported_vgg_detector_card_matches_cpu(dev):
                                    rtol=0, msg=k)
     for k in ("mask", "labels"):
         assert torch.equal(got[k], want[k]), k
+
+
+def test_roi_align_backward_fmap_f32_gather_at_a_crowded_gan_shape(dev):
+    """K1-bwd-fmap on ``f32-gather`` (the GAN's f32 fake map) with 256
+    heavily overlapping union boxes an image and 40 node boxes over a
+    37 x 37 map, against its plain version; two launches, the same bits."""
+    rng = np.random.RandomState(5)
+    B, H, C = 2, 37, 64
+    nodes = rng.rand(B, 40, 4).astype(np.float32) * 400
+    nodes[..., 2:] = nodes[..., :2] + 40 + rng.rand(B, 40, 2) * 150
+    i, j = rng.randint(0, 40, (2, B, 256))
+    take = np.take_along_axis
+    unions = np.concatenate([
+        np.minimum(take(nodes[..., :2], i[..., None], 1),
+                   take(nodes[..., :2], j[..., None], 1)),
+        np.maximum(take(nodes[..., 2:], i[..., None], 1),
+                   take(nodes[..., 2:], j[..., None], 1))], -1)
+    troi.KERNEL_BWD_FMAP.reset_counts()
+    for boxes in (nodes, unions):
+        b = torch.from_numpy(np.ascontiguousarray(boxes)).to(dev)
+        g = torch.randn(B, b.shape[1], 7, 7, C, generator=torch.Generator(
+        ).manual_seed(1)).to(dev)
+        want = troi.roi_align_backward_reference(g, b, (H, H), torch.float32,
+                                                 spatial_scale=1 / 16)
+        got = [troi._grad_fmap_kernel(g, b, (B, H, H, C), torch.float32,
+                                      1 / 16, 7, 2) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[1])
+        torch.testing.assert_close(got[0], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    assert dict(troi.KERNEL_BWD_FMAP.routes) == {"f32-gather": 4}
+
+
+def _tiny_gan_step(device, seed=0):
+    from sgg_torch.config import Config
+    from sgg_torch.models.backbone import Dropout
+    from sgg_torch.models.gan import GANModel, init_gan_weights
+    from sgg_torch.models.relhead import RelModelIMP, init_weights
+    from sgg_torch.train.gan_step import (create_gan_optimizers,
+                                          make_gan_train_step)
+    from sgg_torch.train.state import Optimizer
+    model = init_weights(RelModelIMP(num_classes=9, num_predicates=6,
+                                     hidden_dim=16, obj_dim=32), seed)
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    gan = init_gan_weights(GANModel(9, 6, embed_dim=16, hidden_dim=8,
+                                    fmap_sz=8, n_layers_G=2, largeD=True),
+                           seed + 1)
+    model, gan = model.to(device), gan.to(device)
+    cfg = Config(device=str(device), mode="sgcls", loss="dnorm",
+                 batch_size=2, max_nodes=8, max_edges=12,
+                 compute_dtype="float32", gan=True, perturb="graphn")
+    opt = Optimizer(cfg, model)
+    g_opt, d_opt = create_gan_optimizers(cfg, gan)
+    return (model, gan), make_gan_train_step(model, gan, cfg, opt, g_opt,
+                                             d_opt)
+
+
+def _gan_batch():
+    from sgg_torch.data.synthetic import SyntheticSGGDataset
+    return SyntheticSGGDataset(num_images=2, num_classes=9, num_predicates=6,
+                               max_objects=6, image_size=128,
+                               with_images=True, seed=3).batch(
+        [0, 1], max_nodes=8, max_edges=12)
+
+
+def test_tiny_gan_step_card_matches_cpu_and_counts_routes(dev):
+    """One f32 GAN step (D, G and rec; dropout off) on the card and on the
+    CPU, from the same weights on the same sampled edges: the losses within
+    1e-4 relative, the updated relation model within phase 6's limits;
+    on the card K2 once, K1 twice on the real map and four times on the
+    f32 fake map, K1-bwd-fmap twice on ``f32-gather``, nothing else; a
+    second step waits for nothing."""
+    from sgg_torch.train.assign import sample_edges
+    batch = _gan_batch()
+    edges = sample_edges(torch.Generator().manual_seed(0),
+                         *(torch.from_numpy(a) for a in (
+                             batch.rels, batch.rel_mask, batch.node_mask)),
+                         max_out=12)
+    fake = torch.from_numpy(batch.classes.astype(np.int64))
+    fake[torch.from_numpy(batch.node_mask)] = fake[torch.from_numpy(
+        batch.node_mask)] % 8 + 1
+    (cpu, _), cpu_step = _tiny_gan_step("cpu")
+    (card, card_gan), card_step = _tiny_gan_step(dev)
+    kernels = (troi.KERNEL, troi.KERNEL_BWD_FMAP, troi.KERNEL_BWD_BOXES,
+               vgg_stem.KERNEL, vgg_stem.KERNEL_BWD)
+    for k in kernels:
+        k.reset_counts()
+    got = card_step(batch, fake, None, edges=edges)
+    torch.cuda.synchronize()
+    assert [dict(k.routes) for k in kernels] == [
+        {"f32": 6}, {"f32-gather": 2}, {}, {"f32": 1}, {}]
+    want = cpu_step(batch, fake, None, edges=edges)
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], atol=0,
+                                   rtol=1e-4)
+    theirs = cpu.state_dict()
+    for k, v in card.state_dict().items():
+        torch.testing.assert_close(v.cpu(), theirs[k], atol=1e-6, rtol=1e-5)
+    on_card = batch.to(dev)
+    fake = fake.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = card_step(on_card, fake,
+                            torch.Generator(device=dev).manual_seed(1))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.isfinite(v).item() for v in metrics.values())

@@ -5,8 +5,9 @@ seeded):
 
 * the port's result equals ``variables_from_jax`` of the JAX importer's,
   bitwise, key by key, for the VGG16 relation model, the VGG16 Faster
-  R-CNN, the reference relation model and the ResNet50-FPN backbone (alone
-  and inside a ``FasterRCNNFPN``);
+  R-CNN, the reference relation model, the ResNet50-FPN backbone (alone
+  and inside a ``FasterRCNNFPN``) and the GAN (generator, spectral-norm
+  discriminators with their power-iteration vectors);
 * the skipped names (state entries not filled, checkpoint tensors without a
   home) are the JAX importer's under the port's names, and a damaged dict
   (names left out, a tensor of another shape, a name the model lacks)
@@ -18,6 +19,7 @@ seeded):
 import copy
 import functools
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -28,12 +30,14 @@ import torch
 import sgg_tpu.train.checkpoint as jckpt
 from sgg_tpu.models.detector import FasterRCNNFPN as JDetFPN
 from sgg_tpu.models.detector import FasterRCNNVGG as JDet
+from sgg_tpu.models.gan import GANModel as JGAN
 from sgg_tpu.models.relhead import RelModelIMP as JModel
 from sgg_tpu.models.resnet import ResNet50FPN as JResNet
 from sgg_tpu.train.assign import all_pairs
 from sgg_torch import import_reference_ckpt as tool
 from sgg_torch.convert import _convert_leaf, variables_from_jax
 from sgg_torch.models.detector import FasterRCNNFPN, FasterRCNNVGG
+from sgg_torch.models.gan import GANModel
 from sgg_torch.models.relhead import RelModelIMP
 from sgg_torch.models.resnet import ResNet50FPN
 from sgg_torch.train import checkpoint as ckpt
@@ -47,6 +51,8 @@ REL_KW = dict(num_classes=C, num_predicates=P, hidden_dim=16, obj_dim=32,
 DET_KW = dict(obj_dim=48)
 FPN_DET_KW = dict(obj_dim=32, rpn_pre_nms_top_n=96, rpn_post_nms_top_n=80,
                   detections_per_img=8)
+GAN_KW = dict(hidden_dim=8, n_ch=32, fmap_sz=8, n_layers_G=2, largeD=True)
+GAN_SHAPE = dict(n_layers=2, largeD=True)  # the reference dict's rows
 
 
 def _rel_args():
@@ -84,6 +90,16 @@ def _case(kind):
         return (JResNet(dtype=jnp.float32), (jnp.zeros((1, IMG, IMG, 3)),),
                 ResNet50FPN(), jckpt.import_torch_resnet50_fpn,
                 ckpt.import_torch_resnet50_fpn, "resnet_fpn")
+    if kind == "gan":
+        nm = jnp.ones((1, 3), bool)
+        args = (jnp.ones((1, 3), jnp.int32), jnp.full((1, 3, 4), 0.5),
+                jnp.zeros((1, 4, 3), jnp.int32), nm, jnp.ones((1, 4), bool))
+        return (JGAN(num_classes=C, num_predicates=P, **GAN_KW), args,
+                GANModel(C, P, **GAN_KW),
+                functools.partial(jckpt.import_torch_gan, num_gcn_layers=2,
+                                  largeD=True),
+                functools.partial(ckpt.import_torch_gan, num_gcn_layers=2,
+                                  largeD=True), "gan")
     assert kind == "fpn_detector"
     return (JDetFPN(num_classes=C, dtype=jnp.float32, **FPN_DET_KW),
             _det_args(), FasterRCNNFPN(C, **FPN_DET_KW),
@@ -110,6 +126,9 @@ def _import_into_backbone(template, sd, return_stats):
 @functools.lru_cache(maxsize=None)
 def _variables(kind):
     jm, args = _case(kind)[:2]
+    if kind == "gan":  # GANModel.init_all creates the Ds too
+        jm = types.SimpleNamespace(init=functools.partial(
+            jm.init, method=JGAN.init_all))
     return random_variables(jm, args, seed=3)
 
 
@@ -118,7 +137,8 @@ def _reference_dict(kind, port_model, damaged):
     shape_src = _case("resnet_fpn")[2] if ref_kind == "resnet_fpn" \
         else port_model
     sd = tool.reference_state_dict(ref_kind, shape_src,
-                                   torch.Generator().manual_seed(7))
+                                   torch.Generator().manual_seed(7),
+                                   **(GAN_SHAPE if kind == "gan" else {}))
     if damaged:
         names = sorted(sd)
         for k in names[::5]:  # names the checkpoint lacks
@@ -163,7 +183,7 @@ def _jax_import(monkeypatch, importer, variables, sd_np, params_only):
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("damaged", [False, True], ids=["full", "damaged"])
 @pytest.mark.parametrize("kind", ["vgg", "detector", "relmodel",
-                                  "resnet_fpn", "fpn_detector"])
+                                  "resnet_fpn", "fpn_detector", "gan"])
 def test_importer_matches_jax_bitwise(monkeypatch, kind, damaged):
     _, _, port_model, jimport, timport, _ = _case(kind)
     variables = _variables(kind)

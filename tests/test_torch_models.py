@@ -57,7 +57,7 @@ def random_variables(jm, args, seed=1):
             x = 1.0 + 0.1 * rng.randn(*shape)
         else:  # biases, BatchNorm means, the frequency table
             x = 0.1 * rng.randn(*shape)
-        return x.astype(np.float32)
+        return np.asarray(x, np.float32)  # a 0-d leaf draws a float
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
