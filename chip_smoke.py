@@ -166,7 +166,29 @@ non-zero exit and without the result line:
    gradients each optimizer receives within ``GAN_GRAD_LIMIT`` in norm by
    part, G's and the rec update's within ``GAN_G_LIMIT``), with where G's
    gap comes from: the card's step with K1-bwd-fmap's plain version, and
-   G's backward alone from one fixed map gradient, card against CPU.
+   G's backward alone from one fixed map gradient, card against CPU;
+12. the GAN's feature-bank conditioning at full width under its own
+   deadline (the card's machine has no ``h5py``, so the bank's file is
+   neither written nor read here; the CPU tests hold both): 12a
+   ``extract_features``' forward (batch 8, bf16) over the 96-image split,
+   counted (K2 once and K1 twice a batch, bf16), images/s and the copy of a
+   batch's pools to the host, the pools card against CPU on 2 images (f32,
+   within ``POOL_LIMIT``) and a forward under
+   ``set_sync_debug_mode("error")``; 12b the reservoirs filled from those
+   pools by ``FeatureBank``'s own draw, one ``sample`` at 24 x 40 and its
+   pinned copy timed; 12c ``Trainer`` with phase 11's command and
+   ``-vis_cond`` (the bank of 12b): a warm-up and a counted, timed epoch
+   (phase 11's launches a step, finite losses with every GAN key, train
+   images/s beside phase 11's from the same run, the host's perturbation
+   and sample a batch), a step under ``set_sync_debug_mode("error")``, a
+   step timed by phase with its peak memory, the trunk bit-unchanged and
+   G's projection moved; 12e FID and PRDC between the bank's node pools and
+   K1's node pools of the trained G's maps (pool means, 512-d), the
+   distance matrices card against CPU (squares within ``DIST_LIMIT``, PRDC
+   equal), and ``recall_jit.batch_recall`` on the card over phase 4's eval
+   batch (the sgcls regime and predcls on its scores) equal to the numpy
+   evaluator's R@20/50/100; 12d one f32 conditioned GAN step of 2 images
+   card against CPU with the same vis tensor, under phase 11's limits.
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
@@ -174,8 +196,8 @@ forward row's numbers at the training shapes, the eval shapes' under
 pool level's under ``fpn``, the GAN step's under ``gan``; the backward
 rows' at the pretraining shape, their FPN levels' under ``fpn``,
 K1-bwd-fmap's GAN shape under ``gan``; ``launches`` summed over the paths
-of phases 4, 5, 7, 8, 9, 10 and 11) and, last, the result line ``{"ok": true,
-"device": {...}}``.
+of phases 4, 5, 7, 8, 9, 10, 11 and 12) and, last, the result line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -522,7 +544,9 @@ def phase_kernels(torch, peaks):
 
 
 def phase_slice(torch, splits):
-    """val_epoch (sgcls: predcls + sgcls regimes) at full width on the card."""
+    """val_epoch (sgcls: predcls + sgcls regimes) at full width on the card.
+    Returns the launches and one eval batch's GT and outputs (for phase
+    12's on-device recall)."""
     from sgg_torch.config import Config
     from sgg_torch.eval.driver import val_epoch
     from sgg_torch.ops import roi_align as K1
@@ -591,6 +615,11 @@ def phase_slice(torch, splits):
                                   drop_last=False))).to("cuda")
     step = make_eval_step(model, mode="sgcls", max_pairs=512, device="cuda")
     fwd = time_ms(lambda: step(batch), iters=5, warmup=1)
+    out = step(batch)
+    kept = {k: getattr(batch, k) for k in (
+        "boxes", "classes", "node_mask", "rels", "rel_mask")}
+    kept.update({k: out[k] for k in (
+        "obj_preds", "obj_scores", "pairs", "pair_mask", "rel_dists")})
     loop_s = sum(thr[m]["seconds"] for m in thr)
     print(f"phase 4 one eval forward (16 images, rung 512, dedup, bf16): "
           f"{fwd:.3f} ms; {forwards} forwards = "
@@ -598,7 +627,7 @@ def phase_slice(torch, splits):
           f"{loop_s:.3f} s loop", flush=True)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, kept
 
 
 def _snapshot(model, keep):
@@ -3378,7 +3407,7 @@ def gan_train(torch, splits):
     then one counted and timed epoch; a step under
     ``set_sync_debug_mode("error")``; a step timed by phase with CUDA
     events and its peak memory; what moved. Returns the counted epoch's
-    launches and a host batch."""
+    launches, a host batch and the epoch's train images/s."""
     from sgg_torch import constants
     from sgg_torch.data.pipeline import BatchLoader
     from sgg_torch.train.trainer import Trainer
@@ -3482,7 +3511,7 @@ def gan_train(torch, splits):
           f"{len(gan0)} G and D parameters moved", flush=True)
     del trainer, model, gan, item
     torch.cuda.empty_cache()
-    return n, host
+    return n, host, steps * TRAIN_BATCH / loop_s
 
 
 def gan_kernels(torch, peaks, host):
@@ -3627,13 +3656,14 @@ def _gan_parts(names):
     return parts
 
 
-def gan_card_vs_cpu(torch, splits):
-    """11c: one f32 GAN step of 2 images at full width, card (kernels)
-    against CPU (plain versions), same weights, the same sampled edges and
-    perturbed classes, dropout off, TF32 off: losses within
-    ``GAN_LOSS_LIMIT`` relative, the gradients each optimizer receives,
-    and their global norms, within ``GAN_GRAD_LIMIT`` in norm by part (G's
-    and the rec update's within ``GAN_G_LIMIT``)."""
+def gan_card_vs_cpu(torch, splits, bank=None, phase="11"):
+    """11c (and 12d with ``bank``): one f32 GAN step of 2 images at full
+    width, card (kernels) against CPU (plain versions), same weights, the
+    same sampled edges and perturbed classes (and, with ``bank``, a
+    ``vis_cond`` G and the same sample of the bank), dropout off, TF32
+    off: losses within ``GAN_LOSS_LIMIT`` relative, the gradients each
+    optimizer receives, and their global norms, within ``GAN_GRAD_LIMIT``
+    in norm by part (G's and the rec update's within ``GAN_G_LIMIT``)."""
     import copy
 
     from sgg_torch import constants
@@ -3656,7 +3686,8 @@ def gan_card_vs_cpu(torch, splits):
         if isinstance(mod, Dropout):
             mod.p = 0.0
     gan = init_gan_weights(GANModel(train.num_classes, train.num_predicates,
-                                    fmap_sz=CANVAS // 16, largeD=True), 2)
+                                    fmap_sz=CANVAS // 16, largeD=True,
+                                    vis_cond=bank is not None), 2)
     batch = next(iter(BatchLoader(train, batch_size=2, max_nodes=TRAIN_NODES,
                                   max_edges=TRAIN_EDGES, shuffle=False,
                                   im_scale=constants.IM_SCALE)))
@@ -3665,6 +3696,9 @@ def gan_card_vs_cpu(torch, splits):
                          host.rel_mask, host.node_mask, max_out=TRAIN_EDGES)
     fake = host.classes.clone()
     fake[host.node_mask] = fake[host.node_mask] % (train.num_classes - 1) + 1
+    vis = None if bank is None else torch.from_numpy(
+        bank.sample(fake.numpy(), host.node_mask.numpy()))
+
     def run(dev):
         m = copy.deepcopy(rel).to(dev)
         gm = copy.deepcopy(gan).to(dev)
@@ -3674,8 +3708,8 @@ def gan_card_vs_cpu(torch, splits):
         got = _grads_received(torch, {"sgg": opt, "G": g_opt, "D": d_opt})
         step = make_gan_train_step(m, gm, cfg, opt, g_opt, d_opt)
         t0 = time.perf_counter()
-        metrics = {k: float(v) for k, v in step(batch, fake, None,
-                                                edges=edges).items()}
+        metrics = {k: float(v) for k, v in step(
+            batch, fake, None, edges=edges, vis_features=vis).items()}
         return metrics, got, time.perf_counter() - t0
 
     out, grads, secs = {}, {}, {}
@@ -3696,8 +3730,9 @@ def gan_card_vs_cpu(torch, splits):
             for p, e in _part_err(torch, g, w, _gan_parts(w)).items():
                 grad_err[f"{tag}{i}:{p}"] = e
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:6]
-    print(f"phase 11 GAN step card vs CPU (f32, 2 images, full width, "
-          f"largeD, same edges and classes, TF32 off): losses rel err "
+    print(f"phase {phase} GAN step card vs CPU (f32, 2 images, full width, "
+          f"largeD{', vis_cond' if bank else ''}, same edges and classes"
+          f"{' and vis' if bank else ''}, TF32 off): losses rel err "
           f"{json.dumps({k: float(f'{v:.3g}') for k, v in loss_err.items()})}"
           f"; gradients rel err in norm, the largest of "
           f"{len(grad_err)} parts {json.dumps({k: float(f'{v:.3g}') for k, v in worst})}"
@@ -3730,7 +3765,8 @@ def gan_card_vs_cpu(torch, splits):
         gm = copy.deepcopy(gan).to(dev).train()
         fmap = gm.generate(fake.to(dev), (host.boxes / float(CANVAS)).to(dev),
                            host.rels.to(dev), host.node_mask.to(dev),
-                           host.rel_mask.to(dev))
+                           host.rel_mask.to(dev),
+                           None if vis is None else vis.to(dev))
         (fmap * gfix.to(dev)).sum().backward()
         alone[dev] = {n: p.grad.float().cpu()
                       for n, p in gm.named_parameters() if n.startswith("G.")}
@@ -3738,7 +3774,7 @@ def gan_card_vs_cpu(torch, splits):
     torch.cuda.empty_cache()
     fmt = lambda d: json.dumps(  # noqa: E731
         {k: float(f"{v:.3g}") for k, v in sorted(d.items())})
-    print(f"phase 11 where G's gap comes from, rel err in norm by part: "
+    print(f"phase {phase} where G's gap comes from, rel err in norm by part: "
           f"the step with K1-bwd-fmap's plain version on the card "
           f"{fmt(_part_err(torch, plain_g, grads['cpu']['G'][0], _gan_parts(plain_g)))}"
           f"; G's backward alone from one fixed map gradient "
@@ -3749,13 +3785,422 @@ def gan_card_vs_cpu(torch, splits):
 def phase_gan(torch, peaks, rows, splits):
     """Phase 11: GAN-augmented training at full width."""
     t0 = time.perf_counter()
-    n, host = gan_train(torch, splits)
+    n, host, rate = gan_train(torch, splits)
     for name, m in gan_kernels(torch, peaks, host).items():
         rows[name]["gan"] = m
     gan_card_vs_cpu(torch, splits)
     print(f"phase 11 GAN training in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return {"gan_train_epoch": n}
+    return {"gan_train_epoch": n}, rate
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the GAN's feature-bank conditioning (-vis_cond) and its analysis
+
+VIS_DEADLINE_S = 300
+EXTRACT_BATCH = 8  # extract_features' batch
+# the extraction forward, card against CPU (f32, TF32 off, 2 images): the
+# pools' largest difference over their largest magnitude
+POOL_LIMIT = 1e-4
+# the distance matrices card against CPU, squared (near 0 the square root
+# magnifies the rounding of |a|^2 + |b|^2 - 2ab), relative to the largest
+DIST_LIMIT = 1e-4
+# per step as phase 11: the bank's features add no kernel launch
+VIS_ROUTES = GAN_ROUTES
+# an extraction batch: K2 once and K1 twice (nodes and unions), bf16
+EXTRACT_ROUTES = {"roi_align": {"bf16": 2}, "roi_align_bwd_fmap": {},
+                  "roi_align_bwd_boxes": {}, "vgg_conv1": {"bf16": 1},
+                  "vgg_conv1_bwd": {}}
+
+
+def vis_extract(torch, splits):
+    """12a: ``extract_features``' forward (batch 8, bf16) over the train
+    split on the card, counted, with images/s and the pools' copy to the
+    host; the pools card against CPU on 2 images (f32); one forward under
+    ``set_sync_debug_mode("error")``. Returns the launches and the pools by
+    class name, (n, 7 * 7 * 512) float32 rows as the writer stores them."""
+    import copy
+
+    import numpy as np
+
+    from sgg_torch import constants
+    from sgg_torch.config import config_from_args
+    from sgg_torch.data.pipeline import BatchLoader, to_image_dtype
+    from sgg_torch.extract_features import batch_pools, make_pools_step
+    from sgg_torch.models.relhead import RelModelIMP, init_weights
+    from sgg_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config_from_args(["-m", "sgcls", "-max_nodes", str(TRAIN_NODES),
+                            "-max_edges", str(TRAIN_EDGES)])
+    trainer = Trainer(cfg, splits)
+    train = splits["train"]
+    list(batch_pools(trainer, n_batches=1, batch_size=EXTRACT_BATCH))
+    torch.cuda.synchronize()
+    by_class = {}
+    t0 = time.perf_counter()
+
+    def run():
+        for pools, classes, mask in batch_pools(trainer,
+                                                batch_size=EXTRACT_BATCH):
+            for c in np.unique(classes[mask]):
+                by_class.setdefault(train.ind_to_classes[c], []).append(
+                    pools[mask & (classes == c)].reshape(-1, 7 * 7 * 512))
+
+    _, n, routes = _counted(torch, run)
+    secs = time.perf_counter() - t0
+    pools = {k: np.concatenate(v) for k, v in by_class.items()}
+    n_rows = sum(len(v) for v in pools.values())
+    batches = math.ceil(len(train) / EXTRACT_BATCH)
+    want = {k: {r: c * batches for r, c in v.items()}
+            for k, v in EXTRACT_ROUTES.items()}
+    check(routes == want, f"extraction launched {routes}; want {want}")
+    check(n_rows == sum(len(c) for c in train.gt_classes)
+          and all(np.isfinite(v).all() for v in pools.values()),
+          f"{n_rows} pooled rows, not finite or not one an object")
+
+    host = next(iter(BatchLoader(train, batch_size=EXTRACT_BATCH,
+                                 max_nodes=TRAIN_NODES,
+                                 max_edges=TRAIN_EDGES, shuffle=False,
+                                 im_scale=constants.IM_SCALE)))
+    host = to_image_dtype(host, cfg.compute_dtype)
+    step = make_pools_step(trainer.model, "cuda")
+    dev_pools = step(host)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dev_pools.cpu()
+    copy_ms = (time.perf_counter() - t1) * 1e3
+    step(host)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"phase 12 extract_features forward over {len(train)} images "
+          f"(batch {EXTRACT_BATCH}, bf16): {secs:.3f} s = "
+          f"{len(train) / secs:.2f} images/s with the host; {n_rows} pooled "
+          f"objects in {len(pools)} classes; launches {json.dumps(n)} by "
+          f"route {json.dumps(routes)}; the copy of a batch's pools to the "
+          f"host ({dev_pools.numel() * 4 / 2**20:.1f} MiB f32) {copy_ms:.3f} "
+          f"ms; a forward under set_sync_debug_mode('error'): no host sync",
+          flush=True)
+    del trainer, step, dev_pools
+
+    torch.backends.cudnn.allow_tf32 = False
+    two = next(iter(BatchLoader(train, batch_size=2, max_nodes=TRAIN_NODES,
+                                max_edges=TRAIN_EDGES, shuffle=False,
+                                im_scale=constants.IM_SCALE)))
+    model = init_weights(RelModelIMP(num_classes=train.num_classes,
+                                     num_predicates=train.num_predicates), 3)
+    got = make_pools_step(copy.deepcopy(model).cuda(), "cuda")(two).cpu()
+    want = make_pools_step(model, "cpu")(two)
+    err = rel_err(torch, got, want)
+    print(f"phase 12 extraction forward card vs CPU (f32, 2 images, TF32 "
+          f"off): pools max|err| / max|pool| {err:.3g} (limit {POOL_LIMIT})",
+          flush=True)
+    check(err <= POOL_LIMIT, f"extraction pools card vs CPU: {err}")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return n, pools
+
+
+def vis_bank(torch, splits, pools, seed):
+    """12b: the reservoirs filled from 12a's pools through the draw that
+    ``FeatureBank`` runs after its h5 read; one ``sample`` at 24 x 40 and
+    its pinned copy, timed."""
+    import numpy as np
+
+    from sgg_torch import constants
+    from sgg_torch.augment.feature_bank import FeatureBank
+    from sgg_torch.data.pipeline import BatchLoader
+
+    train = splits["train"]
+    t0 = time.perf_counter()
+    bank = FeatureBank._from_pools(pools, train.ind_to_classes, seed=seed)
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    host = next(iter(BatchLoader(train, batch_size=TRAIN_BATCH,
+                                 max_nodes=TRAIN_NODES,
+                                 max_edges=TRAIN_EDGES, shuffle=False,
+                                 im_scale=constants.IM_SCALE)))
+    classes, mask = np.asarray(host.classes), np.asarray(host.node_mask)
+    sample_ms, pin_ms, copy_ms = [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        vis = bank.sample(classes, mask)
+        t1 = time.perf_counter()
+        pinned = torch.from_numpy(vis).pin_memory()
+        t2 = time.perf_counter()
+        pinned.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        sample_ms.append((t1 - t0) * 1e3)
+        pin_ms.append((t2 - t1) * 1e3)
+        copy_ms.append((t3 - t2) * 1e3)
+    check(vis.shape == (TRAIN_BATCH, TRAIN_NODES, 7, 7, 512)
+          and vis[mask].any(axis=(1, 2, 3)).all() and not vis[~mask].any(),
+          "bank samples: a valid node without features or padding with")
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    print(f"phase 12 bank from 12a's pools: {len(bank.reservoir)} classes, "
+          f"{sum(len(r) for r in bank.reservoir.values())} reservoir rows, "
+          f"filled in {fill_ms:.1f} ms; one sample at {TRAIN_BATCH} x "
+          f"{TRAIN_NODES} ({vis.nbytes / 1e6:.1f} MB f32), median of 5: "
+          f"{med(sample_ms):.2f} ms numpy gather, {med(pin_ms):.2f} ms into "
+          f"pinned memory, {med(copy_ms):.2f} ms copy to the card", flush=True)
+    return bank
+
+
+def vis_train(torch, splits, bank, gan_rate):
+    """12c: ``Trainer`` with phase 11's command and ``-vis_cond`` (the bank
+    of 12b in place of the file's read): a warm-up epoch, one counted and
+    timed epoch, a step under ``set_sync_debug_mode("error")``, a step
+    timed by phase with its peak memory, what moved."""
+    import sgg_torch.augment.feature_bank as fb
+    from sgg_torch import constants
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gan_config(vis_cond="<12b's bank>")
+    real_bank = fb.FeatureBank
+    fb.FeatureBank = lambda path, names, pool_sz, n_ch, seed: bank
+    try:
+        trainer = Trainer(cfg, splits)
+    finally:
+        fb.FeatureBank = real_bank
+    model, gan = trainer.model, trainer.gan
+    steps = trainer.steps_per_epoch
+    check(trainer.feature_bank is bank and gan.G.vis_cond
+          and gan.G.proj.in_channels == gan.n_ch + gan.G.hidden_dim,
+          "the conditioned GAN is not wired to the bank")
+    trunk0 = _snapshot(model, lambda n: n.startswith("trunk."))
+    proj0 = gan.G.proj.weight.detach().clone()
+    host_s = []
+    real_inputs = trainer._gan_host_inputs
+
+    def timed_inputs(batch, epoch):
+        t0 = time.perf_counter()
+        out = real_inputs(batch, epoch)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer._gan_host_inputs = timed_inputs
+    trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    host_s.clear()
+    t0 = time.perf_counter()
+    losses, n, routes = _counted(torch, lambda: trainer.train_epoch(1))
+    loop_s = time.perf_counter() - t0
+    rate = steps * TRAIN_BATCH / loop_s
+    print(f"phase 12 conditioned GAN train_epoch: {steps} steps x "
+          f"{TRAIN_BATCH} images in {loop_s:.3f} s = {rate:.2f} train "
+          f"images/s (host included), phase 11's unconditioned "
+          f"{gan_rate:.2f} in this run ({100 * (rate / gan_rate - 1):+.1f}%); "
+          f"the host's perturbation and bank sample "
+          f"{1e3 * sum(host_s) / len(host_s):.2f} ms a batch; losses "
+          f"{json.dumps(losses)}; launches {json.dumps(n)} by route "
+          f"{json.dumps(routes)}", flush=True)
+    check(all(k in losses and math.isfinite(losses[k]) for k in GAN_KEYS),
+          f"conditioned GAN losses missing or not finite: {losses}")
+    want = {k: {r: c * steps for r, c in v.items()}
+            for k, v in VIS_ROUTES.items()}
+    check(routes == want and n == {k: sum(v.values())
+                                   for k, v in want.items()},
+          f"{steps} conditioned GAN steps launched {n} by route {routes}; "
+          f"want {want}")
+    # the host inputs in the trainer's thread against inline in this one
+    # (the trainer's ``background`` replaced by the identity), in turns
+    import sgg_torch.train.trainer as trainer_mod
+    threaded = trainer_mod.background
+    turns = {"thread": [], "inline": []}
+    for i, mode in enumerate(("thread", "inline", "inline", "thread")):
+        if mode == "inline":
+            trainer_mod.background = lambda items, size=2: items
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for epoch in (2 + 2 * i, 3 + 2 * i):  # 2 epochs a turn
+                trainer.train_epoch(epoch)
+            torch.cuda.synchronize()
+            turns[mode].append(2 * steps * TRAIN_BATCH
+                               / (time.perf_counter() - t0))
+        finally:
+            trainer_mod.background = threaded
+    print(f"phase 12 conditioned GAN epochs in turns (thread, inline, "
+          f"inline, thread), train images/s with the host: the host inputs "
+          f"in the trainer's thread {[round(r, 2) for r in turns['thread']]}"
+          f", inline in the loop's {[round(r, 2) for r in turns['inline']]}",
+          flush=True)
+
+    host = next(iter(BatchLoader(
+        splits["train"], batch_size=TRAIN_BATCH, max_nodes=TRAIN_NODES,
+        max_edges=TRAIN_EDGES, shuffle=False, im_scale=constants.IM_SCALE,
+        image_format=cfg.image_format)))
+    item = real_inputs(host, 2).to("cuda")
+    check(item.vis is not None
+          and item.vis.device == item.fake_classes.device,
+          "the bank's sample did not reach the card with the batch")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step = lambda **kw: trainer.gan_step(  # noqa: E731
+        item.batch, item.fake_classes, gen, vis_features=item.vis, **kw)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    by_phase = {"F": [], "G": [], "D": [], "wall": []}
+    for _ in range(5):
+        ev = {k: torch.cuda.Event(enable_timing=True)
+              for k in ("start", "F", "G", "D")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev["start"].record()
+        step(mark=lambda phase, ev=ev: ev[phase].record())
+        torch.cuda.synchronize()
+        by_phase["wall"].append((time.perf_counter() - t0) * 1e3)
+        for a, b in (("start", "F"), ("F", "G"), ("G", "D")):
+            by_phase[b].append(ev[a].elapsed_time(ev[b]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: sorted(v)[len(v) // 2] for k, v in by_phase.items()}
+    print(f"phase 12 one conditioned GAN step on a batch on the card, median "
+          f"of 5 by phase (CUDA events): F {med['F']:.3f} ms, G "
+          f"{med['G']:.3f} ms, D {med['D']:.3f} ms; the step "
+          f"{med['wall']:.3f} ms wall; peak device memory {peak:.2f} GiB; a "
+          f"step under set_sync_debug_mode('error'): no host sync",
+          flush=True)
+    changed = [k for k, t in _snapshot(model, trunk0.__contains__).items()
+               if not torch.equal(t, trunk0[k])]
+    check(not changed, f"trunk changed: {changed[:5]}")
+    check(not torch.equal(gan.G.proj.weight.detach(), proj0),
+          "G's projection did not move")
+    print(f"phase 12 trunk bit-unchanged ({len(trunk0)} tensors); G's "
+          f"{tuple(proj0.shape)} projection moved", flush=True)
+    gan.eval()
+    return n, trainer
+
+
+def vis_analysis(torch, splits, bank, trainer, e):
+    """12e: FID and PRDC between the bank's real node pools and K1's node
+    pools of the trained G's fake maps over the train split (each pool's
+    7 x 7 mean, 512-d), the distance matrices on the card against the CPU;
+    and the on-device Recall@K on phase 4's eval batch ``e`` against the
+    numpy evaluator."""
+    import numpy as np
+
+    from sgg_torch import constants
+    from sgg_torch.augment import gan_eval
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.eval.recall_jit import batch_recall
+    from sgg_torch.eval.sgg_eval import SGGEvaluator
+    from sgg_torch.eval.surgery import filter_dets
+    from sgg_torch.ops import roi_align as K1
+
+    gan = trainer.gan
+    fake_rows = []
+    loader = BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
+                         max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                         shuffle=False, im_scale=constants.IM_SCALE)
+    with torch.no_grad():
+        for host in loader:
+            item = trainer._gan_host_inputs(host, 3).to("cuda")
+            b = item.batch
+            fmap = gan.generate(item.fake_classes, b.boxes / float(CANVAS),
+                                b.rels, b.node_mask, b.rel_mask,
+                                item.vis)
+            pools = K1.roi_align(fmap, b.boxes.float().contiguous(),
+                                 spatial_scale=1 / 16)
+            fake_rows.append(pools[b.node_mask].mean(dim=(1, 2)).cpu())
+    fake = torch.cat(fake_rows).numpy()
+    real = np.concatenate([r.reshape(-1, 49, 512).mean(1)
+                           for r in bank.reservoir.values()])
+    fid = gan_eval.compute_fid(fake, real)
+    prdc = {dev: gan_eval.compute_prdc(real, fake, device=dev)
+            for dev in ("cuda", "cpu")}
+    err = 0.0
+    for a, b_ in ((real, None), (real, fake), (fake, None)):
+        d = {dev: gan_eval._pairwise_distance(a, b_, device=dev).astype(
+            np.float64) ** 2 for dev in ("cuda", "cpu")}
+        err = max(err, float(np.abs(d["cuda"] - d["cpu"]).max()
+                             / d["cpu"].max()))
+    print(f"phase 12 FID {fid:.4f} and PRDC {json.dumps(prdc['cuda'])} of "
+          f"{len(fake)} fake node pools (K1 on the trained G's maps) "
+          f"against {len(real)} real ones (the bank), 512-d pool means; the "
+          f"squared distances card vs CPU max rel err {err:.3g} (limit "
+          f"{DIST_LIMIT}); PRDC card "
+          f"{'==' if prdc['cuda'] == prdc['cpu'] else '!='} CPU", flush=True)
+    check(math.isfinite(fid) and fid >= 0, f"FID {fid}")
+    check(err <= DIST_LIMIT, f"distances card vs CPU: {err}")
+    check(prdc["cuda"] == prdc["cpu"],
+          f"PRDC card {prdc['cuda']} vs CPU {prdc['cpu']}")
+
+    ks = (20, 50, 100)
+    h = {k: v.cpu().numpy() for k, v in e.items()}
+    # the sgcls regime as evaluated, and predcls on the same relation
+    # scores (the GT classes, unit object scores), where there are hits
+    regimes = {"sgcls": (e["obj_preds"], e["obj_scores"]),
+               "predcls": (e["classes"], torch.ones_like(e["obj_scores"]))}
+    for mode, (cls, scores) in regimes.items():
+        args = (e["boxes"], cls, scores, e["pairs"], e["pair_mask"],
+                e["rel_dists"], e["boxes"], e["classes"], e["rels"],
+                e["rel_mask"])
+        got = batch_recall(*args, ks=ks)
+        rec_ms = time_ms(lambda: batch_recall(*args, ks=ks), iters=10)
+        hc, hs = cls.cpu().numpy(), scores.cpu().numpy()
+        t0 = time.perf_counter()
+        host_r, imgs = {k: [] for k in ks}, []
+        for i in range(len(h["boxes"])):
+            n_i, rm = int(h["node_mask"][i].sum()), h["rel_mask"][i]
+            if not rm.any():
+                continue
+            pm = h["pair_mask"][i]
+            ev = SGGEvaluator(mode, ks=ks)
+            ev.add_image({"gt_relations": h["rels"][i][rm],
+                          "gt_boxes": h["boxes"][i][:n_i],
+                          "gt_classes": h["classes"][i][:n_i]},
+                         filter_dets(h["boxes"][i][:n_i], hs[i][:n_i],
+                                     hc[i][:n_i], h["pairs"][i][pm],
+                                     h["rel_dists"][i][pm],
+                                     np.ones(pm.sum(), bool)))
+            imgs.append(i)
+            for k in ks:
+                host_r[k].append(ev.recalls[k][0])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_r = {k: got[k].cpu().numpy()[imgs] for k in ks}
+        print(f"phase 12 on-device graph-constrained recall ({mode} regime) "
+              f"over phase 4's eval batch ({len(imgs)} images with "
+              f"relations): R@20/50/100 "
+              f"{[float(dev_r[k].mean()) for k in ks]}, the numpy "
+              f"evaluator's {[float(np.mean(host_r[k])) for k in ks]}; "
+              f"batch_recall {rec_ms:.3f} ms on the card, the host evaluator "
+              f"{host_ms:.1f} ms", flush=True)
+        check(imgs and all(np.allclose(dev_r[k], host_r[k], atol=1e-6)
+                           for k in ks),
+              f"{mode}: on-device recall {dev_r} != the evaluator's "
+              f"{host_r}")
+
+
+def phase_vis_cond(torch, splits, gan_rate, eval_batch):
+    """Phase 12: the GAN's feature-bank conditioning and its analysis at
+    full width (``eval_batch``: phase 4's, for the recall)."""
+    t0 = time.perf_counter()
+    n_extract, pools = vis_extract(torch, splits)
+    bank = vis_bank(torch, splits, pools, seed=gan_config().seed)
+    del pools
+    n_train, trainer = vis_train(torch, splits, bank, gan_rate)
+    vis_analysis(torch, splits, bank, trainer, eval_batch)
+    del trainer
+    torch.cuda.empty_cache()
+    gan_card_vs_cpu(torch, splits, bank=bank, phase="12")
+    print(f"phase 12 feature-bank conditioning in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"extract_features": n_extract,
+            "gan_vis_cond_train_epoch": n_train}
 
 
 def main() -> None:
@@ -3776,7 +4221,8 @@ def main() -> None:
         rows = phase_kernels(torch, peaks)
         from sgg_torch.data.synthetic import synthetic_splits
         splits = synthetic_splits(num_train=4 * TRAIN_BATCH, num_eval=64)
-        paths = {"eval": phase_slice(torch, splits)}
+        paths = {}
+        paths["eval"], eval_batch = phase_slice(torch, splits)
         paths.update(phase_train(torch, splits))
         with Deadline(PARITY_DEADLINE_S, "phase 6"):
             phase_parity(torch, splits)
@@ -3789,7 +4235,11 @@ def main() -> None:
         with Deadline(REAL_DEADLINE_S, "phase 10"):
             paths.update(phase_real_inputs(torch))
         with Deadline(GAN_DEADLINE_S, "phase 11"):
-            paths.update(phase_gan(torch, peaks, rows, splits))
+            gan_paths, gan_rate = phase_gan(torch, peaks, rows, splits)
+            paths.update(gan_paths)
+        with Deadline(VIS_DEADLINE_S, "phase 12"):
+            paths.update(phase_vis_cond(torch, splits, gan_rate,
+                                        eval_batch))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -353,37 +353,47 @@ class BatchLoader:
                                          n + self.batch_size,
                                          self.batch_size)
         chunks = [order[max(0, e - self.batch_size):min(e, n)] for e in ends]
+        yield from background((self._assemble(chunk, epoch)
+                               for chunk in chunks), self.prefetch)
 
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
 
-        def producer():
-            # a producer failure must surface in the consumer, not silently
-            # end the epoch
-            try:
-                for chunk in chunks:
-                    if stop.is_set():
-                        return
-                    q.put(self._assemble(chunk, epoch))
-                q.put(None)
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                q.put(e)
+def background(iterable: Iterable, size: int = 2) -> Iterator:
+    """The items of ``iterable``, in order, computed up to ``size`` ahead in
+    a thread of its own (work that releases the interpreter lock, such as
+    numpy copies and pinning, then overlaps the consumer's). A failure in
+    the thread is raised in the consumer; closing the consumer stops the
+    thread."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    stop = threading.Event()
+    done = object()
 
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
+    def producer():
+        # a producer failure must surface in the consumer, not silently
+        # end the epoch
         try:
-            while True:
-                item = q.get()
-                if item is None:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            # unblock a producer waiting on a full queue, then reap it
-            while t.is_alive():
-                try:
-                    q.get_nowait()
-                except queue.Empty:
-                    t.join(timeout=0.1)
+            for item in iterable:
+                if stop.is_set():
+                    return
+                q.put(item)
+            q.put(done)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            q.put(e)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        # unblock a producer waiting on a full queue, then reap it
+        while t.is_alive():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                t.join(timeout=0.1)

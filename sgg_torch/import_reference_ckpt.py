@@ -17,9 +17,10 @@ frequency bias, trunk) onto a ``RelModelIMP``; ``resnet_fpn`` maps a
 torchvision ``maskrcnn``/``fasterrcnn_resnet50_fpn`` backbone onto a
 ``ResNet50FPN``; ``gan`` maps a reference ``GAN`` state (the ``gan`` entry
 of a ``vgrel.pth``, or a bare GAN state dict: the generator and the three
-spectral-norm discriminators) onto a ``GANModel`` whose widths, GCN depth
-and ``largeD`` are read off the checkpoint. Names the checkpoint lacks keep
-seeded random values (seed 0); the skipped names are printed.
+spectral-norm discriminators) onto a ``GANModel`` whose widths, GCN depth,
+``largeD`` and ``vis_cond`` are read off the checkpoint. Names the
+checkpoint lacks keep seeded random values (seed 0); the skipped names are
+printed.
 
 Each writes ``<out_dir>/vgrel-0.pth`` (``train/checkpoint.py``), holding
 ``{"step", "params", "batch_stats", "epoch"}`` keyed by ``state_dict``
@@ -69,14 +70,11 @@ def gan_shape(sd) -> dict:
     """A reference GAN state dict's ``GANModel`` arguments, read off its
     tensors as ``tools/import_reference_ckpt.py`` reads them: vocabulary,
     embedding and hidden widths, the maps' channels, the GCN's depth and
-    output (hence the pool size), BatchNorms and ``largeD``."""
+    output (hence the pool size), BatchNorms, ``largeD`` and ``vis_cond``
+    (a projection that reads more than the hidden width)."""
     n_gcn = 1 + max(int(k.split(".")[2]) for k in sd
                     if k.startswith("G_gcn.gconvs."))
     hidden = int(sd["G_proj.weight"].shape[0])
-    if int(sd["G_proj.weight"].shape[1]) > hidden:
-        raise NotImplementedError(
-            "a GAN trained with -vis_cond: the feature bank is not ported "
-            "to sgg_torch yet (ROADMAP Queue A)")
     d0 = sd.get("D_global.0.weight_orig", sd.get("D_global.0.weight"))
     net2 = f"G_gcn.gconvs.{n_gcn - 1}.net2."
     last = max(int(k.split(".")[4]) for k in sd if k.startswith(net2)
@@ -89,6 +87,7 @@ def gan_shape(sd) -> dict:
                 pool_sz=int(round((gcn_out / (hidden // 2)) ** 0.5)),
                 n_layers_G=n_gcn,
                 batch_norm="G_gcn.gconvs.0.net1.1.running_mean" in sd,
+                vis_cond=int(sd["G_proj.weight"].shape[1]) > hidden,
                 largeD=any(k.startswith("D_global.2.") for k in sd))
 
 

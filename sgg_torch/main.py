@@ -12,10 +12,17 @@ backbone (``FasterRCNNVGG`` or ``FasterRCNNFPN``) from ``-ckpt`` (a
 detections; ``-nepoch 0`` only evaluates (the test sweep).
 
 ``-gan`` trains with the GAN's compositional augmentation (the ICCV 2021
-command, without the feature bank, which is not ported yet)::
+command); ``-vis_cond`` conditions its generator on a feature bank that
+``python -m sgg_torch.extract_features`` writes (it needs ``h5py``)::
 
     python -m sgg_torch.main -m sgcls -loss dnorm -b 24 -gan -largeD \
         -perturb graphn -L 0.2 -topk 5 -graphn_a 2 -split synthetic
+    python -m sgg_torch.main -m sgcls -loss dnorm -b 24 -gan -largeD \
+        -vis_cond <dir>/features.hdf5 -perturb graphn -L 0.2 -topk 5 \
+        -graphn_a 2
+
+``-wandb <project>`` logs the losses and results to Weights & Biases
+(``utils/logging.py``; the console alone where ``wandb`` is missing).
 
 ``-split stanford|gqa|vte`` read the datasets under ``-data``
 (``data/visual_genome.py``, ``gqa.py``, ``vtranse.py``; gqa and vte need
@@ -36,23 +43,29 @@ _NEEDS = {"stanford": ("h5py", "PIL"), "vte": ("h5py", "PIL"),
           "gqa": ("PIL",), "synthetic": ()}
 
 
-def load_splits(config) -> dict:
-    """Train and eval splits of ``config.split`` (``main.py:32-70`` of the
-    JAX package). A split whose packages are missing raises
-    ``ImportError`` naming them before anything is read."""
+def require(what: str, packages: Sequence[str]) -> None:
+    """Raise ``ImportError`` naming those of ``packages`` that this Python
+    lacks, before any work starts."""
     import importlib
-    import os
-
-    from sgg_torch import constants
     missing = []
-    for name in _NEEDS[config.split]:
+    for name in packages:
         try:
             importlib.import_module(name)
         except ImportError:
             missing.append(name)
     if missing:
-        raise ImportError(f"-split {config.split} needs "
-                          f"{' and '.join(missing)}, which this Python lacks")
+        raise ImportError(f"{what} needs {' and '.join(missing)}, which "
+                          f"this Python lacks")
+
+
+def load_splits(config) -> dict:
+    """Train and eval splits of ``config.split`` (``main.py:32-70`` of the
+    JAX package). A split whose packages are missing raises
+    ``ImportError`` naming them before anything is read."""
+    import os
+
+    from sgg_torch import constants
+    require(f"-split {config.split}", _NEEDS[config.split])
     if config.split == "synthetic":
         # val_size sizes the generated eval sets only when small: its
         # default of 5000 (a subsample cap for the real 26k val split)
@@ -89,14 +102,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from sgg_torch.config import config_from_args
     from sgg_torch.train.checkpoint import load_detector
     from sgg_torch.train.trainer import Trainer
+    from sgg_torch.utils.logging import make_logger
 
     config = config_from_args(argv)
     print("~~~~~~~~ Hyperparameters: ~~~~~~~")
     for k, v in sorted(vars(config).items()):
         print(f"{k} : {v}")
-    if config.wandb is not None:
-        raise NotImplementedError("W&B logging is not ported to sgg_torch")
+    if config.gan and config.vis_cond is not None:
+        require("-vis_cond (the feature bank)", ("h5py",))
     splits = load_splits(config)
+    log_fn = make_logger(config)
     detector = det_state = None
     if config.mode == "sgdet":
         # sgdet refuses to start without a pretrained detector (reference
@@ -109,7 +124,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         detector = cls(num_classes=splits["train"].num_classes)
         print(f"loaded detector checkpoint from epoch {epoch}")
     results = Trainer(config, splits, detector=detector,
-                      det_state=det_state).fit()
+                      det_state=det_state, log_fn=log_fn).fit()
     for k, v in sorted(results.items()):
         if not k.startswith("_"):
             print(f"{k}: {v:.4f}")

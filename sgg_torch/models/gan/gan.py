@@ -13,7 +13,8 @@ The per-image "dummy node" that the reference appends (``gan.py:262-289``)
 is a static extra node slot ``N`` with two-way edges to every node, masked
 by node validity. The parameters are partitioned by name prefix, ``G`` and
 ``D_`` (reference ``pytorch_misc.py:100-114``), for the two optimizers.
-The feature-bank conditioning (``vis_cond``) is not ported yet.
+With ``vis_cond`` the generator also takes real per-class features from
+the feature bank (``augment/feature_bank.py``) ahead of its projection.
 """
 
 from __future__ import annotations
@@ -67,7 +68,9 @@ class Generator(nn.Module):
     """Scene graph -> fake global feature map (reference GAN.forward,
     gan.py:174-208). ``init_embed_objs``/``init_embed_rels``: optional
     (num_classes, embed_dim) / (num_predicates, embed_dim) tables to start
-    the embeddings from (reference ``-init_embed``, gan.py:146-159)."""
+    the embeddings from (reference ``-init_embed``, gan.py:146-159).
+    ``vis_cond``: the projection also reads ``n_ch`` channels of real
+    features a node (reference ``-vis_cond``, gan.py:192-199)."""
 
     def __init__(self, num_classes: int, num_predicates: int,
                  embed_dim: int = 200, hidden_dim: int = 64,
@@ -77,12 +80,8 @@ class Generator(nn.Module):
                  init_embed_objs: Optional[np.ndarray] = None,
                  init_embed_rels: Optional[np.ndarray] = None):
         super().__init__()
-        if vis_cond:
-            raise NotImplementedError(
-                "vis_cond (the feature bank, sgg_tpu/augment/"
-                "feature_bank.py) is not ported to sgg_torch yet "
-                "(ROADMAP Queue A)")
         self.hidden_dim, self.pool_sz = hidden_dim, pool_sz
+        self.vis_cond = vis_cond
         self.fmap_sz = fmap_sz
         self.init_embed = (init_embed_objs, init_embed_rels)
         self.obj_embed = nn.Embedding(num_classes, embed_dim)
@@ -94,14 +93,18 @@ class Generator(nn.Module):
         self.node_conv0 = nn.Conv2d(hidden_dim // 2, hidden_dim, 3,
                                     padding=1)
         self.node_conv1 = nn.Conv2d(hidden_dim, hidden_dim, 3, padding=1)
-        self.proj = nn.Conv2d(hidden_dim, hidden_dim, 1)
+        self.proj = nn.Conv2d(hidden_dim + (n_ch if vis_cond else 0),
+                              hidden_dim, 1)
         self.refine = RefinementNetwork(
             (hidden_dim, n_ch // 4, n_ch // 2, n_ch))
 
-    def forward(self, classes, boxes01, rels, node_mask, rel_mask
-                ) -> torch.Tensor:
+    def forward(self, classes, boxes01, rels, node_mask, rel_mask,
+                vis_features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """classes (B, N), boxes01 (B, N, 4) in [0, 1], rels (B, E, 3),
-        masks -> (B, fmap_sz, fmap_sz, n_ch) float32, contiguous."""
+        masks, and with ``vis_cond`` ``vis_features`` (B, N, p, p, n_ch)
+        -> (B, fmap_sz, fmap_sz, n_ch) float32, contiguous."""
+        if self.vis_cond and vis_features is None:
+            raise ValueError("a vis_cond generator needs vis_features")
         B, N = classes.shape
         p, h = self.pool_sz, self.hidden_dim
         classes_d, boxes_d, edges, node_mask_d, edge_mask = add_dummy_nodes(
@@ -115,6 +118,11 @@ class Generator(nn.Module):
         x = nodes[:, :N].reshape(B * N, h // 2, p, p)
         x = F.relu(self.node_conv0(x))
         x = F.relu(self.node_conv1(x))
+        if self.vis_cond:
+            # [vis, nodes] on the channel axis, as the JAX package's NHWC
+            # concatenation
+            vis = vis_features.float().reshape(B * N, p, p, -1)
+            x = torch.cat([vis.permute(0, 3, 1, 2), x], dim=1)
         x = self.proj(x)
         x = x.reshape(B, N, h, p, p).permute(0, 1, 3, 4, 2)  # (B,N,p,p,h)
         layout = boxes_to_layout(x, boxes01.float(), node_mask, self.fmap_sz,
@@ -154,8 +162,10 @@ class GANModel(nn.Module):
         return [(n, p) for n, p in self.named_parameters()
                 if n.startswith(prefix)]
 
-    def generate(self, classes, boxes01, rels, node_mask, rel_mask):
-        return self.G(classes, boxes01, rels, node_mask, rel_mask)
+    def generate(self, classes, boxes01, rels, node_mask, rel_mask,
+                 vis_features: Optional[torch.Tensor] = None):
+        return self.G(classes, boxes01, rels, node_mask, rel_mask,
+                      vis_features)
 
     def disc_nodes(self, feats, labels, update_stats: bool = False):
         return self.D_nodes(conditioned_features(feats, labels,

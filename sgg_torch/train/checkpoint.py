@@ -285,7 +285,8 @@ def _gan_rows(n_layers: int, batch_norm: bool, crn_stages: int,
     528-640``): the generator's embeddings, GCN MLPs (``build_mlp``: Linear
     at 0 and 3, BatchNorm1d at 1 and 4 with ``mlp_normalization='batch'``,
     the last layer's MLPs without the trailing BatchNorm; Linear at 0 and 2
-    without), spatializing convs, projection and CRN
+    without), spatializing convs, projection (with ``vis_cond`` its input
+    holds the bank's channels first, in both layouts) and CRN
     (``refinement_modules.{i}.net``: conv 0, bn 1, conv 3, bn 4), then the
     spectral-norm convs of the Ds (patch Ds at 0/2/4/6; ``D_global`` at
     0/5/10/15, with ``largeD`` also its 1x1 convs at 2/7/12)."""

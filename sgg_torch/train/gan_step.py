@@ -6,12 +6,13 @@ Counterpart of ``sgg_tpu/train/gan_step.py`` (reference
 
 1. **F**: the SGG losses update the relation model (clipped SGD), its
    forward also returning the real map and its RoIAlign pools.
-2. **G**: the generator paints fake maps from the (perturbed) scene graph;
-   the relation model pools them (K1 on the f32 map, K1-bwd-fmap in the
-   backward); adversarial losses against the three Ds (target real) and
-   the reconstruction losses (``rec``: the SGG losses on predictions from
-   the fake map) update G with Adam, and with ``rec`` the relation model
-   again with its clipped SGD (``main.py:152-178``).
+2. **G**: the generator paints fake maps from the (perturbed) scene graph
+   (with ``vis_cond``, also from the feature bank's real features of its
+   classes); the relation model pools them (K1 on the f32 map, K1-bwd-fmap
+   in the backward); adversarial losses against the three Ds (target
+   real) and the reconstruction losses (``rec``: the SGG losses on
+   predictions from the fake map) update G with Adam, and with ``rec`` the
+   relation model again with its clipped SGD (``main.py:152-178``).
 3. **D**: BCE real against fake on node patches, edge patches and whole
    maps updates the Ds with Adam (``main.py:181-194``); then one pass with
    the updated Ds writes their spectral-norm vectors.
@@ -97,16 +98,19 @@ def no_grad_for(params):
 def make_gan_train_step(model, gan: GANModel, config: Config,
                         optimizer: Optimizer, g_opt: Adam, d_opt: Adam):
     """Returns ``gan_step(batch, fake_classes, generator, edges=None,
-    mark=None) -> metrics`` on ``config.device``.
+    mark=None, vis_features=None) -> metrics`` on ``config.device``.
 
     ``fake_classes`` (B, N): the (perturbed) object classes that G paints
-    (the batch's own when not perturbing). ``generator`` draws the sampled
-    edges, then dropout; the two fake forwards draw the same dropout masks,
-    as the JAX step gives both one key. ``edges``, a ``(sampled, mask)``
-    pair, replaces the sampler, as in ``train/step.py``. ``mark``, if
-    given, is called with "F", "G" and "D" as each phase has been issued
-    (a caller may record CUDA events there to time the phases). ``model``,
-    ``gan`` and the three optimizers are updated in place.
+    (the batch's own when not perturbing). ``vis_features`` (B, N, p, p,
+    n_ch): the feature bank's samples of those classes, which a
+    ``vis_cond`` G reads in both of its generate calls. ``generator``
+    draws the sampled edges, then dropout; the two fake forwards draw the
+    same dropout masks, as the JAX step gives both one key. ``edges``, a
+    ``(sampled, mask)`` pair, replaces the sampler, as in
+    ``train/step.py``. ``mark``, if given, is called with "F", "G" and "D"
+    as each phase has been issued (a caller may record CUDA events there
+    to time the phases). ``model``, ``gan`` and the three optimizers are
+    updated in place.
 
     The metrics are device scalars with the JAX step's keys: ``obj_loss``,
     ``rel_loss``, ``grad_norm``; with ``G`` ``G_obj``, ``G_rel``,
@@ -132,10 +136,12 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
     def gan_step(batch: GraphBatch, fake_classes,
                  generator: Optional[torch.Generator],
                  edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 mark=None) -> Dict[str, torch.Tensor]:
+                 mark=None, vis_features=None) -> Dict[str, torch.Tensor]:
         mark = mark or (lambda phase: None)
         batch = batch.to(dev)
         fake = torch.as_tensor(fake_classes).to(dev, torch.long)
+        vis = None if vis_features is None else torch.as_tensor(
+            vis_features).to(dev)
         model.train()
         gan.train()
         if edges is None:
@@ -173,7 +179,8 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
                   else max(batch.fmaps.shape[1], batch.fmaps.shape[2])
                   * STRIDE)
         boxes01 = batch.boxes / torch.full((), float(canvas), device=dev)
-        gen = (fake, boxes01, batch.rels, batch.node_mask, batch.rel_mask)
+        gen = (fake, boxes01, batch.rels, batch.node_mask, batch.rel_mask,
+               vis)
 
         # ---- G: adversarial and reconstruction losses --------------------
         if use_G or use_rec:

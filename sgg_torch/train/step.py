@@ -36,12 +36,18 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
     edges.
 
     The metrics (``obj_loss``, ``rel_loss``, ``total``, ``grad_norm``) are
-    device scalars: the step does not wait for the device. The JAX step's
-    per-module ``grad/<module>`` norms come with W&B logging, which is not
-    ported.
+    device scalars: the step does not wait for the device. With W&B logging
+    (``config.wandb``) they also hold ``grad/<module>``, the gradient norm
+    of each top-level module (the flax top-level parameter keys; a frozen
+    module's is 0), before clipping: the JAX step's counterpart of the
+    reference's ``wandb.watch(model, log='all')`` (main.py:93-97).
     """
     dev = resolve_device(config.device)
     loss_weights = (config.alpha, config.beta, config.gamma)
+    modules = {}
+    if config.wandb is not None:
+        for name, p in model.named_parameters():
+            modules.setdefault(name.split(".")[0], []).append(p)
 
     def train_step(batch: GraphBatch, generator: Optional[torch.Generator],
                    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -67,10 +73,22 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
         total.backward()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
+        for mod, params in modules.items():  # before the clip
+            metrics[f"grad/{mod}"] = module_grad_norm(params)
         metrics["grad_norm"] = optimizer.apply_gradients()
         return metrics
 
     return train_step
+
+
+@torch.no_grad()
+def module_grad_norm(params) -> torch.Tensor:
+    """The global norm of ``params``' gradients (``optax.global_norm``; a
+    parameter without one counts 0), a float32 device scalar."""
+    sq = [p.grad.float().square().sum() for p in params if p.grad is not None]
+    if not sq:
+        return torch.zeros((), device=params[0].device)
+    return torch.stack(sq).sum().sqrt()
 
 
 def make_eval_step(model, mode: str = None, max_pairs: int = None,

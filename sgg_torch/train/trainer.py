@@ -20,9 +20,12 @@ again) and the loaders stream them instead of images. With
 ``config.gan`` each batch takes the GAN step (``train/gan_step.py``: the
 SGG, generator and discriminator updates) on a ``GANModel`` built from the
 train split's vocabulary, its classes perturbed on the host first
-(``-perturb``, ``augment/perturb.py``). Not ported yet, each raising
-``NotImplementedError`` that names it: the GAN's feature-bank conditioning
-(``-vis_cond``) and multi-device training.
+(``-perturb``, ``augment/perturb.py``); with ``config.vis_cond`` G also
+reads real features of those classes, sampled on the host from the
+feature bank (``augment/feature_bank.py``) and copied with the batch.
+``log_fn`` (``utils/logging.py::make_logger``) receives the interval
+losses and the evaluation results. Not ported yet, raising
+``NotImplementedError``: multi-device training.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ from sgg_torch import constants
 from sgg_torch.config import Config
 from sgg_torch.data.datasets import SGGDataset
 from sgg_torch.data.graph_batch import GraphBatch
-from sgg_torch.data.pipeline import (BatchLoader, device_prefetch,
-                                     to_image_dtype)
+from sgg_torch.data.pipeline import (BatchLoader, background,
+                                     device_prefetch, to_image_dtype)
 from sgg_torch.device import resolve_device
 from sgg_torch.eval.driver import val_epoch
 from sgg_torch.data.word_vectors import normalized_class_embeddings
@@ -102,9 +105,10 @@ def _not_ported(what: str) -> NotImplementedError:
 def build_gan(config: Config, train_data: SGGDataset, *, device="cuda",
               seed: int = 1) -> GANModel:
     """The GAN of ``-gan`` (reference main.py:65-76): the train split's
-    vocabulary, a ``IM_SCALE // STRIDE`` map (read at call time), ``largeD``
-    and, with ``init_embed``, word-vector tables for both embeddings;
-    seeded random weights, float32, on ``device``."""
+    vocabulary, a ``IM_SCALE // STRIDE`` map (read at call time), ``largeD``,
+    ``vis_cond`` with ``-vis_cond`` and, with ``init_embed``, word-vector
+    tables for both embeddings; seeded random weights, float32, on
+    ``device``."""
     emb_o = emb_r = None
     if config.init_embed:
         emb_o = normalized_class_embeddings(train_data.ind_to_classes,
@@ -114,6 +118,7 @@ def build_gan(config: Config, train_data: SGGDataset, *, device="cuda",
     gan = GANModel(num_classes=train_data.num_classes,
                    num_predicates=train_data.num_predicates,
                    fmap_sz=constants.IM_SCALE // constants.STRIDE,
+                   vis_cond=config.vis_cond is not None,
                    largeD=config.largeD, init_embed_objs=emb_o,
                    init_embed_rels=emb_r)
     return init_gan_weights(gan, seed).to(resolve_device(device))
@@ -121,19 +126,47 @@ def build_gan(config: Config, train_data: SGGDataset, *, device="cuda",
 
 @dataclasses.dataclass
 class GANBatch:
-    """A batch and the classes the generator paints for it, for
-    ``device_prefetch``."""
+    """A batch, the classes the generator paints for it and, with
+    ``-vis_cond``, the feature bank's samples of those classes, for
+    ``device_prefetch``: its copies to a card are pinned and
+    ``non_blocking``, so they run on the prefetch stream beside a step."""
 
     batch: GraphBatch
     fake_classes: object
+    vis: object = None
+
+    def pinned(self) -> "GANBatch":
+        """The classes and the samples as tensors in pinned memory (a
+        later ``to`` a card copies them without pinning them again)."""
+        return GANBatch(self.batch, _host(self.fake_classes, np.int64, True),
+                        _host(self.vis, np.float32, True))
 
     def to(self, device) -> "GANBatch":
-        fake = self.fake_classes
-        if not isinstance(fake, torch.Tensor):
-            fake = torch.from_numpy(np.ascontiguousarray(fake, np.int64))
-        if torch.device(device).type == "cuda" and fake.device.type == "cpu":
-            fake = fake.pin_memory().to(device, non_blocking=True)
-        return GANBatch(self.batch.to(device), fake.to(device))
+        cuda = torch.device(device).type == "cuda"
+
+        def place(x, dtype):
+            x = _host(x, dtype, cuda)
+            if x is None:
+                return None
+            if cuda and x.device.type == "cpu":
+                return x.to(device, non_blocking=True)
+            return x.to(device)
+
+        return GANBatch(self.batch.to(device),
+                        place(self.fake_classes, np.int64),
+                        place(self.vis, np.float32))
+
+
+def _host(x, dtype, pin: bool):
+    """A host array as a tensor, pinned if ``pin``; a tensor as it is, a
+    host one pinned if ``pin`` (a no-op when it already is)."""
+    if x is None:
+        return None
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype))
+    if pin and x.device.type == "cpu":
+        x = x.pin_memory()
+    return x
 
 
 class Trainer:
@@ -148,20 +181,22 @@ class Trainer:
 
     With ``config.gan`` the trainer also owns the ``GANModel`` (``gan``,
     or ``build_gan``'s with seed ``config.seed + 1``), its two Adams and the
-    perturber; the relation model's SGD then takes two updates a batch
+    perturber, and with ``config.vis_cond`` the ``FeatureBank`` read from
+    that file; the relation model's SGD then takes two updates a batch
     under ``rec``, and the schedule's boundaries count both
     (``sgg_tpu/train/trainer.py:308-317``). Checkpoints carry the GAN
-    under ``gan``."""
+    under ``gan``.
+
+    ``with_images=False`` gives every loader blank canvases in place of a
+    dataset's image files (feature-level runs, as the JAX trainer's)."""
 
     def __init__(self, config: Config, splits: Dict[str, SGGDataset],
                  model: Optional[RelModelIMP] = None, detector=None,
                  det_state: Optional[Dict] = None,
-                 gan: Optional[GANModel] = None):
+                 gan: Optional[GANModel] = None, with_images: bool = True,
+                 log_fn=None):
         if config.mode == "sgdet" and detector is None:
             raise ValueError("sgdet training needs a (pretrained) detector")
-        if config.gan and config.vis_cond is not None:
-            raise _not_ported("-vis_cond (the GAN's feature bank, "
-                              "sgg_tpu/augment/feature_bank.py)")
         if config.gan and config.mode == "sgdet":
             raise ValueError("-gan trains on the GT boxes of predcls/sgcls; "
                              "mode sgdet has no trunk of its own to pool "
@@ -171,6 +206,8 @@ class Trainer:
         self.config = config
         self.splits = splits
         self.train_data = splits["train"]
+        self.with_images = with_images
+        self.log_fn = log_fn or (lambda d, **kw: None)
         self.device = resolve_device(config.device)
         self.model = (model.to(self.device) if model is not None else
                       build_model(config, self.train_data,
@@ -197,7 +234,7 @@ class Trainer:
         upd_per_batch = 2 if config.gan and "rec" in config.ganlosses else 1
         self.optimizer = Optimizer(config, self.model,
                                    self.steps_per_epoch * upd_per_batch)
-        self.gan = self.perturber = None
+        self.gan = self.perturber = self.feature_bank = None
         if config.gan:
             self._init_gan(gan)
         if config.mode == "sgdet":
@@ -215,12 +252,20 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _init_gan(self, gan: Optional[GANModel]) -> None:
-        """The GAN, its optimizers, step and perturber (reference
-        main.py:65-76, the perturber at :131)."""
+        """The GAN, its optimizers, step, feature bank and perturber
+        (reference main.py:65-76, the perturber at :131). The bank's draws
+        come from ``RandomState(cfg.seed)`` as the JAX trainer's, which
+        also draws one batch from it to shape its initialization; the port's
+        modules need no example input, so its draws start there."""
         cfg, td = self.config, self.train_data
         self.gan = (gan.to(self.device) if gan is not None else
                     build_gan(cfg, td, device=self.device,
                               seed=cfg.seed + 1))
+        if cfg.vis_cond is not None:
+            from sgg_torch.augment.feature_bank import FeatureBank
+            self.feature_bank = FeatureBank(
+                cfg.vis_cond, td.ind_to_classes, pool_sz=self.gan.pool_sz,
+                n_ch=self.gan.n_ch, seed=cfg.seed)
         self.g_opt, self.d_opt = create_gan_optimizers(cfg, self.gan)
         self.gan_step = make_gan_train_step(self.model, self.gan, cfg,
                                             self.optimizer, self.g_opt,
@@ -362,7 +407,7 @@ class Trainer:
             path, dataset, trunk_fn, stride=stride,
             batch_size=min(8, len(dataset)), im_scale=constants.IM_SCALE,
             image_format=cfg.image_format, fingerprint=fp,
-            n_orient=want_orient).close()
+            with_images=self.with_images, n_orient=want_orient).close()
         print(f"[feature_cache] extracted {split_name} ({len(dataset)} "
               f"images) in {time.time() - t0:.1f}s")
         cache = FeatureCache(path)
@@ -379,6 +424,7 @@ class Trainer:
                              max_nodes=cfg.max_nodes,
                              max_edges=cfg.max_edges, seed=cfg.seed,
                              num_workers=cfg.num_workers,
+                             with_images=self.with_images,
                              image_format=cfg.image_format,
                              im_scale=constants.IM_SCALE,  # read per call
                              feature_cache=self._feature_cache_for(
@@ -387,8 +433,13 @@ class Trainer:
         loader._epoch = epoch
         source = (to_image_dtype(b, cfg.compute_dtype) for b in loader)
         if self.gan is not None:
-            # the perturbation runs on the host batch, before its copy
-            source = (self._gan_host_inputs(b, epoch) for b in source)
+            # the perturbation, the bank's samples and their pinning run on
+            # the host batch, before its copy, in a thread of their own
+            # beside this one's issue of the steps
+            pin = self.device.type == "cuda"
+            source = background(
+                self._gan_host_inputs(b, epoch).pinned() if pin
+                else self._gan_host_inputs(b, epoch) for b in source)
         # the next batches' copies to the device run while a step does
         batches = device_prefetch(source, self.device)
         generator = torch.Generator(device=self.device).manual_seed(
@@ -399,7 +450,7 @@ class Trainer:
         for b_i, item in enumerate(batches):
             if self.gan is not None:
                 metrics = self.gan_step(item.batch, item.fake_classes,
-                                        generator)
+                                        generator, vis_features=item.vis)
             else:
                 metrics = self.train_step(item, generator)
             self.global_iter += 1
@@ -418,8 +469,11 @@ class Trainer:
                     epoch_means[k].append(v)
                 dt = (time.time() - t0) / cfg.print_interval
                 print(f"e{epoch} b{b_i + 1} "
-                      + " ".join(f"{k}={v:.4f}" for k, v in means.items())
+                      + " ".join(f"{k}={v:.4f}" for k, v in means.items()
+                                 if not k.startswith("grad/"))
                       + f" {dt:.3f}s/batch", flush=True)
+                self.log_fn({f"loss/{k}": v for k, v in means.items()},
+                            step=self.global_iter)
                 accum.clear()
                 t0 = time.time()
         if accum:
@@ -428,8 +482,9 @@ class Trainer:
         return {k: sum(v) / len(v) for k, v in epoch_means.items()}
 
     def _gan_host_inputs(self, batch: GraphBatch, epoch: int) -> GANBatch:
-        """The batch and the classes G paints for it, computed on the host
-        batch (``sgg_tpu/train/trainer.py:522-550``). Each image's
+        """The batch, the classes G paints for it and, with a feature bank,
+        its samples of those classes under the node mask, computed on the
+        host batch (``sgg_tpu/train/trainer.py:522-550``). Each image's
         perturbation draws from a ``RandomState`` seeded by the crc32 of its
         int32 classes and float32 boxes, mixed with the epoch and the run's
         seed: the same image perturbs the same way whatever batch or
@@ -445,7 +500,10 @@ class Trainer:
             fake = self.perturber.perturb_batch(
                 fake, np.asarray(batch.rels), np.asarray(batch.node_mask),
                 np.asarray(batch.rel_mask), seeds=seeds)
-        return GANBatch(batch, fake)
+        vis = None
+        if self.feature_bank is not None:
+            vis = self.feature_bank.sample(fake, np.asarray(batch.node_mask))
+        return GANBatch(batch, fake, vis)
 
     @staticmethod
     def _means(accum) -> Dict[str, float]:
@@ -465,7 +523,13 @@ class Trainer:
                 self.model, ds, self.config, name, train=self.train_data,
                 verbose=verbose, collect_entries=collect_entries,
                 detector=self.detector, device=self.device,
-                feature_cache=self._feature_cache_for(name, ds))
+                with_images=self.with_images,
+                feature_cache=self._feature_cache_for(name, ds),
+                # summaries, repeated at test time against W&B's loss of
+                # trailing values (reference lib/eval.py:108-110)
+                log_fn=lambda d, test=name.startswith("test"): self.log_fn(
+                    d, step=self.global_iter, is_summary=True,
+                    log_repeats=5 if test else 1))
             if collect_entries and "_entries" in res:
                 results.setdefault("_entries", {})[name] = res.pop("_entries")
             for extra in ("_counters", "_throughput", "_detections"):

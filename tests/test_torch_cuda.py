@@ -925,7 +925,7 @@ def test_roi_align_backward_fmap_f32_gather_at_a_crowded_gan_shape(dev):
     assert dict(troi.KERNEL_BWD_FMAP.routes) == {"f32-gather": 4}
 
 
-def _tiny_gan_step(device, seed=0):
+def _tiny_gan_step(device, seed=0, vis_cond=False):
     from sgg_torch.config import Config
     from sgg_torch.models.backbone import Dropout
     from sgg_torch.models.gan import GANModel, init_gan_weights
@@ -939,8 +939,8 @@ def _tiny_gan_step(device, seed=0):
         if isinstance(mod, Dropout):
             mod.p = 0.0
     gan = init_gan_weights(GANModel(9, 6, embed_dim=16, hidden_dim=8,
-                                    fmap_sz=8, n_layers_G=2, largeD=True),
-                           seed + 1)
+                                    fmap_sz=8, n_layers_G=2, largeD=True,
+                                    vis_cond=vis_cond), seed + 1)
     model, gan = model.to(device), gan.to(device)
     cfg = Config(device=str(device), mode="sgcls", loss="dnorm",
                  batch_size=2, max_nodes=8, max_edges=12,
@@ -1003,3 +1003,115 @@ def test_tiny_gan_step_card_matches_cpu_and_counts_routes(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def test_tiny_conditioned_gan_step_card_matches_cpu_and_does_not_wait(dev):
+    """The ``vis_cond`` GAN step on the same vis tensor, card against CPU
+    (the losses within 1e-4 relative, the relation model after within
+    phase 6's limits), the routes of the unconditioned step, and a step
+    under ``set_sync_debug_mode("error")``."""
+    from sgg_torch.train.assign import sample_edges
+    batch = _gan_batch()
+    edges = sample_edges(torch.Generator().manual_seed(0),
+                         *(torch.from_numpy(a) for a in (
+                             batch.rels, batch.rel_mask, batch.node_mask)),
+                         max_out=12)
+    fake = torch.from_numpy(batch.classes.astype(np.int64))
+    vis = torch.relu(torch.randn(2, 8, 7, 7, 512,
+                                 generator=torch.Generator().manual_seed(2)))
+    vis *= torch.from_numpy(batch.node_mask)[:, :, None, None, None]
+    (cpu, _), cpu_step = _tiny_gan_step("cpu", vis_cond=True)
+    (card, card_gan), card_step = _tiny_gan_step(dev, vis_cond=True)
+    kernels = (troi.KERNEL, troi.KERNEL_BWD_FMAP, troi.KERNEL_BWD_BOXES,
+               vgg_stem.KERNEL, vgg_stem.KERNEL_BWD)
+    for k in kernels:
+        k.reset_counts()
+    got = card_step(batch, fake, None, edges=edges, vis_features=vis)
+    torch.cuda.synchronize()
+    assert [dict(k.routes) for k in kernels] == [
+        {"f32": 6}, {"f32-gather": 2}, {}, {"f32": 1}, {}]
+    want = cpu_step(batch, fake, None, edges=edges, vis_features=vis)
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], atol=0,
+                                   rtol=1e-4)
+    theirs = cpu.state_dict()
+    for k, v in card.state_dict().items():
+        torch.testing.assert_close(v.cpu(), theirs[k], atol=1e-6, rtol=1e-5)
+    on_card, fake, vis = batch.to(dev), fake.to(dev), vis.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = card_step(on_card, fake,
+                            torch.Generator(device=dev).manual_seed(1),
+                            vis_features=vis)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def test_extraction_forward_card_matches_cpu_and_does_not_wait(dev):
+    """``extract_features``' pools step (f32, tiny heads, 128 px), card
+    against CPU within 1e-4 of the pools' largest magnitude; K2 once and K1
+    twice; no host sync until the pools are read."""
+    import copy
+
+    from sgg_torch.extract_features import make_pools_step
+    from sgg_torch.models.relhead import RelModelIMP, init_weights
+    model = init_weights(RelModelIMP(num_classes=9, num_predicates=6,
+                                     hidden_dim=16, obj_dim=32), 4)
+    batch = _gan_batch()
+    want = make_pools_step(model, "cpu")(batch)
+    step = make_pools_step(copy.deepcopy(model).to(dev), dev)
+    troi.KERNEL.reset_counts()
+    vgg_stem.KERNEL.reset_counts()
+    got = step(batch)
+    torch.cuda.synchronize()
+    assert (troi.KERNEL.launches, vgg_stem.KERNEL.launches) == (2, 1)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+    on_card = batch.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = step(on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again, got)
+
+
+def test_batch_recall_and_distances_card_match_cpu(dev):
+    """``batch_recall`` on the card gives the CPU's recalls exactly (ties
+    among the scores included); ``_pairwise_distance``'s squares within
+    1e-4 of the largest, and PRDC equal."""
+    from sgg_torch.augment import gan_eval
+    from sgg_torch.eval.recall_jit import batch_recall
+    g = torch.Generator().manual_seed(5)
+    B, N, E, G = 3, 9, 72, 6
+    boxes = torch.rand(B, N, 2, generator=g) * 80
+    boxes = torch.cat([boxes, boxes + 10 + torch.rand(B, N, 2, generator=g)
+                       * 40], -1)
+    classes = torch.randint(1, 6, (B, N), generator=g)
+    pairs = torch.randint(0, N, (B, E, 2), generator=g)
+    pair_mask = torch.rand(B, E, generator=g) < 0.9
+    rel = torch.round(torch.rand(B, E, 5, generator=g) * 3)  # ties
+    scores = torch.round(torch.rand(B, N, generator=g) * 2) / 2 + 0.5
+    gt_rels = torch.cat([pairs[:, :G], torch.randint(1, 5, (B, G, 1),
+                                                     generator=g)], -1)
+    gt_mask = torch.rand(B, G, generator=g) < 0.8
+    args = (boxes, classes, scores, pairs, pair_mask, rel, boxes, classes,
+            gt_rels, gt_mask)
+    want = batch_recall(*args, ks=(5, 20, 50))
+    got = batch_recall(*(a.to(dev) for a in args), ks=(5, 20, 50))
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    rng = np.random.RandomState(6)
+    real = rng.randn(300, 512).astype(np.float32)
+    fake = (rng.randn(200, 512) + 0.2).astype(np.float32)
+    for a, b in ((real, None), (real, fake)):
+        d = {x: gan_eval._pairwise_distance(a, b, device=x).astype(
+            np.float64) ** 2 for x in ("cuda", "cpu")}
+        assert np.abs(d["cuda"] - d["cpu"]).max() <= 1e-4 * d["cpu"].max()
+    assert gan_eval.compute_prdc(real, fake, device="cuda") == \
+        gan_eval.compute_prdc(real, fake, device="cpu")

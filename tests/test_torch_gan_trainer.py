@@ -3,8 +3,9 @@ graphn`` on a tiny relation model and GAN (an epoch, finite losses, every
 key; the LR boundaries counting two SGD updates a batch under ``rec``, as
 the JAX trainer's), a checkpoint round trip with the ``gan`` entry, the
 tentpole command through ``python -m sgg_torch.main`` in-process (``-device
-cpu``, 128-pixel canvases, tiny widths), the refusals (``-vis_cond``,
-``-gan -m sgdet``); and one GAN step from images (the trunk runs) against
+cpu``, 128-pixel canvases, tiny widths), the refusal of ``-gan -m sgdet``
+and ``-vis_cond`` reading its bank (``test_torch_gan_vis_cond.py`` trains
+with one); and one GAN step from images (the trunk runs) against
 the JAX step, 1e-5 relative."""
 
 import dataclasses
@@ -142,10 +143,11 @@ def test_lr_boundaries_count_both_sgd_updates(ganlosses, per_batch):
     assert lrs.index(lrs[0] * 0.5) == 3 * per_batch
 
 
-def test_refusals():
+def test_refusals(tmp_path):
     splits = _splits()
-    with pytest.raises(NotImplementedError, match="feature bank"):
-        Trainer(_config(vis_cond="features.hdf5"), splits,
+    # -vis_cond is ported: the trainer opens the bank it names
+    with pytest.raises(FileNotFoundError, match="features.hdf5"):
+        Trainer(_config(vis_cond=str(tmp_path / "features.hdf5")), splits,
                 model=_tiny_model(_config(), splits["train"], device="cpu"))
     with pytest.raises(ValueError, match="sgdet"):
         Trainer(_config(mode="sgdet"), splits,

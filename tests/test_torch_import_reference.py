@@ -7,7 +7,8 @@ seeded):
   bitwise, key by key, for the VGG16 relation model, the VGG16 Faster
   R-CNN, the reference relation model, the ResNet50-FPN backbone (alone
   and inside a ``FasterRCNNFPN``) and the GAN (generator, spectral-norm
-  discriminators with their power-iteration vectors);
+  discriminators with their power-iteration vectors), with and without
+  ``vis_cond`` (a projection that also reads the feature bank's channels);
 * the skipped names (state entries not filled, checkpoint tensors without a
   home) are the JAX importer's under the port's names, and a damaged dict
   (names left out, a tensor of another shape, a name the model lacks)
@@ -90,12 +91,13 @@ def _case(kind):
         return (JResNet(dtype=jnp.float32), (jnp.zeros((1, IMG, IMG, 3)),),
                 ResNet50FPN(), jckpt.import_torch_resnet50_fpn,
                 ckpt.import_torch_resnet50_fpn, "resnet_fpn")
-    if kind == "gan":
+    if kind in ("gan", "gan_vis_cond"):
         nm = jnp.ones((1, 3), bool)
         args = (jnp.ones((1, 3), jnp.int32), jnp.full((1, 3, 4), 0.5),
                 jnp.zeros((1, 4, 3), jnp.int32), nm, jnp.ones((1, 4), bool))
-        return (JGAN(num_classes=C, num_predicates=P, **GAN_KW), args,
-                GANModel(C, P, **GAN_KW),
+        kw = {**GAN_KW, "vis_cond": kind == "gan_vis_cond"}
+        return (JGAN(num_classes=C, num_predicates=P, **kw), args,
+                GANModel(C, P, **kw),
                 functools.partial(jckpt.import_torch_gan, num_gcn_layers=2,
                                   largeD=True),
                 functools.partial(ckpt.import_torch_gan, num_gcn_layers=2,
@@ -126,9 +128,11 @@ def _import_into_backbone(template, sd, return_stats):
 @functools.lru_cache(maxsize=None)
 def _variables(kind):
     jm, args = _case(kind)[:2]
-    if kind == "gan":  # GANModel.init_all creates the Ds too
+    if kind.startswith("gan"):  # GANModel.init_all creates the Ds too
+        vis = jnp.zeros((1, 3, 7, 7, GAN_KW["n_ch"])) if jm.vis_cond \
+            else None
         jm = types.SimpleNamespace(init=functools.partial(
-            jm.init, method=JGAN.init_all))
+            jm.init, method=JGAN.init_all, vis_features=vis))
     return random_variables(jm, args, seed=3)
 
 
@@ -138,7 +142,8 @@ def _reference_dict(kind, port_model, damaged):
         else port_model
     sd = tool.reference_state_dict(ref_kind, shape_src,
                                    torch.Generator().manual_seed(7),
-                                   **(GAN_SHAPE if kind == "gan" else {}))
+                                   **(GAN_SHAPE if kind.startswith("gan")
+                                      else {}))
     if damaged:
         names = sorted(sd)
         for k in names[::5]:  # names the checkpoint lacks
@@ -183,7 +188,8 @@ def _jax_import(monkeypatch, importer, variables, sd_np, params_only):
 @pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("damaged", [False, True], ids=["full", "damaged"])
 @pytest.mark.parametrize("kind", ["vgg", "detector", "relmodel",
-                                  "resnet_fpn", "fpn_detector", "gan"])
+                                  "resnet_fpn", "fpn_detector", "gan",
+                                  "gan_vis_cond"])
 def test_importer_matches_jax_bitwise(monkeypatch, kind, damaged):
     _, _, port_model, jimport, timport, _ = _case(kind)
     variables = _variables(kind)
@@ -309,6 +315,27 @@ def test_tool_writes_strict_payloads(tmp_path, kind):
     assert flat
     for name, src in flat.items():
         assert torch.equal(fresh.state_dict()[name], src), name
+
+
+def test_tool_reads_a_vis_cond_gan(tmp_path):
+    """``gan_shape`` reads ``vis_cond`` off ``G_proj``'s input width, and
+    the tool imports such a GAN strictly, its projection bit for bit."""
+    model = _case("gan_vis_cond")[2]
+    sd = tool.reference_state_dict("gan", model,
+                                   torch.Generator().manual_seed(4),
+                                   **GAN_SHAPE)
+    shape = tool.gan_shape(sd)
+    assert shape["vis_cond"] and shape["hidden_dim"] == GAN_KW["hidden_dim"]
+    assert not tool.gan_shape(_reference_dict("gan", _case("gan")[2],
+                                              False))["vis_cond"]
+    pth = tmp_path / "gan.pth"
+    torch.save({"gan": sd}, pth)
+    out = tool.main(["gan", str(pth), str(tmp_path / "out")])
+    assert out["stats"]["unused"] == [] and out["model"].G.vis_cond
+    w = out["model"].state_dict()["G.proj.weight"]
+    assert w.shape == (GAN_KW["hidden_dim"],
+                       GAN_KW["n_ch"] + GAN_KW["hidden_dim"], 1, 1)
+    assert torch.equal(w, sd["G_proj.weight"])
 
 
 @pytest.mark.usefixtures("tiny_tool")

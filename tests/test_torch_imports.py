@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``sgg_torch`` and no line of
 ``chip_smoke.py`` or ``bench_kernels.py`` imports JAX, flax or ``sgg_tpu``; importing the package
-builds nothing; importing its entry point, data modules and import tool
-loads neither ``h5py`` nor PIL."""
+builds nothing; importing its entry points, data modules, import tool,
+feature bank and analysis modules loads none of ``h5py``, PIL,
+``transformers`` and ``wandb``."""
 
 import pathlib
 import re
@@ -46,16 +47,21 @@ def test_package_imports_without_jax():
     "sgg_torch.main", "sgg_torch.data.visual_genome",
     "sgg_torch.data.vtranse", "sgg_torch.data.gqa",
     "sgg_torch.data.fixtures", "sgg_torch.data.feature_cache",
-    "sgg_torch.data.pipeline", "sgg_torch.import_reference_ckpt"])
+    "sgg_torch.data.pipeline", "sgg_torch.import_reference_ckpt",
+    "sgg_torch.extract_features", "sgg_torch.augment.feature_bank",
+    "sgg_torch.augment.bert", "sgg_torch.augment.gan_eval",
+    "sgg_torch.utils.logging", "sgg_torch.train.trainer"])
 def test_no_h5py_or_pil_at_import(module):
-    """The card's machine has neither ``h5py`` nor PIL: importing the
-    port's modules loads neither (they are imported where a file is read
-    or decoded)."""
+    """The card's machine has neither ``h5py`` nor ``transformers`` (nor,
+    in general, ``wandb``): importing the port's modules loads none of
+    them, nor PIL (they are imported where a file is read or decoded, a
+    model is loaded or a run is logged)."""
     code = (f"import sys\n"
             f"before = set(sys.modules)\n"
             f"import {module}\n"
             f"bad = [m for m in set(sys.modules) - before\n"
-            f"       if m.split('.')[0] in ('h5py', 'PIL')]\n"
+            f"       if m.split('.')[0] in ('h5py', 'PIL', 'transformers',\n"
+            f"                              'wandb')]\n"
             f"assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

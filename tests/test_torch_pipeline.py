@@ -166,3 +166,29 @@ def test_trainer_hands_the_step_its_image_format(image_format, compute,
     assert len(seen) == 2
     assert all(isinstance(x, torch.Tensor) and x.dtype == want
                and x.shape == (2, 64, 64, 3) for x in seen)
+
+
+def test_background_keeps_order_raises_and_stops():
+    """``background``: the items in order; a failure in its thread raised
+    in the consumer after the items before it; closing the consumer early
+    stops the thread."""
+    import threading
+
+    from sgg_torch.data.pipeline import background
+
+    assert list(background(iter(range(7)), size=2)) == list(range(7))
+
+    def failing():
+        yield 1
+        raise KeyError("in the thread")
+
+    got = []
+    with pytest.raises(KeyError, match="in the thread"):
+        for x in background(failing()):
+            got.append(x)
+    assert got == [1]
+    before = threading.active_count()
+    it = background(iter(range(1000)), size=1)
+    assert next(it) == 0
+    it.close()
+    assert threading.active_count() == before

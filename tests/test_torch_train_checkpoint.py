@@ -5,6 +5,7 @@ sgg_torch.main -split synthetic`` end to end."""
 
 import json
 import os
+import sys
 
 import pytest
 import torch
@@ -134,12 +135,27 @@ def test_cli_trains_and_writes_test_results(tmp_path, monkeypatch,
     assert ckpt.latest_epoch(run) == 0
 
 
-def test_cli_refuses_splits_that_are_not_ported():
+def test_cli_refuses_splits_that_are_not_ported(monkeypatch, capsys):
     """Every split is ported now: ``-split stanford`` reads its tree (a
     missing one is the parser's ``FileNotFoundError``); W&B logging is
-    still refused."""
+    ported too: ``-wandb`` without the ``wandb`` package logs to the
+    console alone and hands the trainer its ``log_fn``."""
     with pytest.raises(FileNotFoundError):
         cli.main(["-split", "stanford", "-data", "no_such_data_dir",
                   "-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="W&B"):
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def trainer(config, splits, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import wandb fails
+    monkeypatch.setattr(trainer_mod, "Trainer", trainer)
+    monkeypatch.setattr(cli, "load_splits", lambda config: {})
+    with pytest.raises(Stop):
         cli.main(["-split", "synthetic", "-wandb", "run", "-device", "cpu"])
+    assert "wandb logging disabled" in capsys.readouterr().out
+    seen["log_fn"]({"x": 1.0}, step=0)  # the console fallback: a no-op
