@@ -188,7 +188,25 @@ non-zero exit and without the result line:
    equal), and ``recall_jit.batch_recall`` on the card over phase 4's eval
    batch (the sgcls regime and predcls on its scores) equal to the numpy
    evaluator's R@20/50/100; 12d one f32 conditioned GAN step of 2 images
-   card against CPU with the same vis tensor, under phase 11's limits.
+   card against CPU with the same vis tensor, under phase 11's limits;
+13. data-parallel training and evaluation (``sgg_torch.parallel``) under its
+   own deadline: 13a phase 5's training (bf16, batch 24, dropout on, the
+   sampler drawing) for an epoch and one sgcls ``val_epoch`` batch under a
+   1-rank NCCL group (every collective runs) and with no group, from the
+   same state under deterministic algorithms: the same bits in the losses,
+   every relation-model tensor and momentum buffer and the metrics, 2 K1 +
+   1 K2 a step on the bf16 routes, train images/s beside phase 5's; 13b two
+   ranks sharing the card over gloo (``parallel.spawn``: spawned
+   processes, a file store in a temporary directory, each joined within
+   ``DP_JOIN_S``; a rank's failure fails the phase), f32 with TF32 off, 12
+   images a rank against one process on the same 24 from the same state:
+   the sgcls step (losses within ``DP_LOSS_LIMIT`` relative, the updated
+   parameters and BatchNorm statistics within ``DP_UPDATE_LIMIT`` of the
+   largest update, both ranks' states the same bits) and a ``-gan -largeD
+   -perturb graphn`` step (every F, G and D loss within ``DP_GAN_LIMIT``),
+   the launches counted on each rank (K1 and K2 on ``f32``; the GAN's K1
+   ``f32`` on the fake map and K1-bwd-fmap ``f32-gather``), a rank's step
+   ms (not a scaling figure: two ranks share one card).
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
@@ -196,7 +214,8 @@ forward row's numbers at the training shapes, the eval shapes' under
 pool level's under ``fpn``, the GAN step's under ``gan``; the backward
 rows' at the pretraining shape, their FPN levels' under ``fpn``,
 K1-bwd-fmap's GAN shape under ``gan``; ``launches`` summed over the paths
-of phases 4, 5, 7, 8, 9, 10, 11 and 12) and, last, the result line
+of phases 4, 5, 7, 8, 9, 10, 11, 12 and 13, the data-parallel paths'
+launches summed over their ranks) and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -640,7 +659,8 @@ def phase_train(torch, splits):
     """Training at full width on the card (``main.py -m sgcls -loss dnorm
     -b 24``): ``Trainer.train_epoch`` twice (a warm-up epoch, then the
     counted and timed one), a one-batch overfit of 10 steps, where the
-    step's time goes, and a checkpoint round trip."""
+    step's time goes, and a checkpoint round trip. Returns the launches
+    by path and the counted epoch's train images/s."""
     import shutil
     import tempfile
     from torch.profiler import ProfilerActivity, profile
@@ -876,7 +896,8 @@ def phase_train(torch, splits):
         shutil.rmtree(ckdir)
     del trainer, model, opt, batch
     torch.cuda.empty_cache()
-    return {"train_epoch": n_epoch, "overfit": n_fit}
+    return ({"train_epoch": n_epoch, "overfit": n_fit},
+            steps * TRAIN_BATCH / loop_s)
 
 
 def phase_parity(torch, splits):
@@ -4202,6 +4223,306 @@ def phase_vis_cond(torch, splits, gan_rate, eval_batch):
     return {"extract_features": n_extract,
             "gan_vis_cond_train_epoch": n_train}
 
+# ---------------------------------------------------------------------------
+# phase 13: data-parallel training and evaluation (sgg_torch.parallel)
+
+DP_DEADLINE_S = 300
+# each spawned rank ends within this, or the phase fails
+DP_JOIN_S = 240
+# 13b: two ranks of 12 images against one process of 24, f32 with TF32
+# off: the losses relative; the updated tensors' largest difference over
+# the largest update (cuBLAS may tile a 12-row and a 24-row product
+# differently); the GAN's losses relative (tests/test_distributed.py's)
+DP_LOSS_LIMIT, DP_UPDATE_LIMIT, DP_GAN_LIMIT = 1e-5, 1e-5, 2e-4
+# an sgcls step in f32: K2 once, K1 twice; a GAN step in f32 adds four K1
+# launches on the fake map and K1-bwd-fmap twice
+DP_ROUTES = {"roi_align": {"f32": 2}, "vgg_conv1": {"f32": 1}}
+DP_GAN_ROUTES = {"roi_align": {"f32": 6},
+                 "roi_align_bwd_fmap": {"f32-gather": 2},
+                 "vgg_conv1": {"f32": 1}}
+
+
+def _state(trainer):
+    """Every trainable tensor, BatchNorm statistic and momentum buffer of
+    the relation model (the frozen trunk left out), cloned."""
+    out = {n: t.detach().clone() for n, t in
+           list(trainer.model.named_parameters())
+           + list(trainer.model.named_buffers())
+           if not n.startswith("trunk.")}
+    out.update({f"momentum/{n}": t.clone()
+                for n, t in trainer.optimizer.state_dict().items()})
+    return out
+
+
+def _bits(torch, t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def dp_one_rank(torch, splits, train_rate):
+    """13a: phase 5's training (bf16, batch 24) and one sgcls
+    ``val_epoch`` batch under a 1-rank NCCL group and with no group, from
+    the same state, under deterministic algorithms: the same bits."""
+    import shutil
+    import tempfile
+
+    from sgg_torch import parallel
+    from sgg_torch.config import Config
+    from sgg_torch.eval.driver import val_epoch
+    from sgg_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="sgg_dp1_")
+    # the host group's gloo meets on the loopback: one host, no network
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    group = parallel.init_group(f"file://{tmp}/store", 1, 0,
+                                torch.device("cuda", 0), "nccl",
+                                timeout_s=DP_DEADLINE_S)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        config = Config(mode="sgcls", loss="dnorm", batch_size=TRAIN_BATCH,
+                        max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                        compute_dtype="bfloat16", device="cuda",
+                        print_interval=2, num_workers=4)
+        t0 = time.perf_counter()
+        trainer = Trainer(config, splits, group=group)
+        build_s = time.perf_counter() - t0
+        steps = trainer.steps_per_epoch
+        snap = _snapshot_all(trainer)
+        trainer.train_epoch(0)  # warm-up of the group's collectives
+        runs = {}
+        for name, g in (("group", group), ("none", None)):
+            _restore_all(trainer, snap)
+            trainer.group = g
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, n, routes = _counted(
+                torch, lambda: trainer.train_epoch(0))
+            dt = time.perf_counter() - t0
+            res, n_eval, _ = _counted(torch, lambda: val_epoch(
+                trainer.model, splits["test_alls"], config, "test_alls",
+                n_batches=1, verbose=False, device="cuda", group=g))
+            runs[name] = {"losses": losses, "state": _state(trainer),
+                          "metrics": {k: v for k, v in res.items()
+                                      if not k.startswith("_")},
+                          "n": n, "routes": routes, "n_eval": n_eval,
+                          "s": dt}
+        a, b = runs["group"], runs["none"]
+        differ = [k for k, t in a["state"].items()
+                  if not torch.equal(_bits(torch, t),
+                                     _bits(torch, b["state"][k]))]
+        rate = {k: steps * TRAIN_BATCH / r["s"] for k, r in runs.items()}
+        print(f"phase 13a 1-rank NCCL group against no group ({steps} "
+              f"steps x {TRAIN_BATCH} images, bf16, dropout on, the sampler "
+              f"drawing; deterministic algorithms): losses "
+              f"{json.dumps(a['losses'])} group, "
+              f"{json.dumps(b['losses'])} none; {len(a['state'])} tensors, "
+              f"{len(differ)} differ in bits; sgcls val_epoch (1 batch of "
+              f"16) metrics {'==' if a['metrics'] == b['metrics'] else '!='};"
+              f" launches train {json.dumps(a['n'])} by route "
+              f"{json.dumps(a['routes'])}, eval {json.dumps(a['n_eval'])}; "
+              f"trainer built in {build_s:.1f} s", flush=True)
+        print(f"phase 13a train images/s (host included) group "
+              f"{rate['group']:.2f} ({a['s'] / steps * 1e3:.1f} ms a step),"
+              f" no group {rate['none']:.2f} "
+              f"({b['s'] / steps * 1e3:.1f} ms), both under deterministic "
+              f"algorithms; phase 5's in this run {train_rate:.2f}",
+              flush=True)
+        check(a["losses"] == b["losses"],
+              f"losses differ: {a['losses']} vs {b['losses']}")
+        check(not differ, f"state differs in bits: {differ[:5]}")
+        check(a["metrics"] == b["metrics"] and a["metrics"],
+              "val_epoch metrics differ under the group")
+        check(a["n"] == b["n"] == {**{k: 0 for k in a["n"]},
+                                   "roi_align": 2 * steps,
+                                   "vgg_conv1": steps}
+              and a["routes"]["roi_align"] == {"bf16": 2 * steps}
+              and a["routes"]["vgg_conv1"] == {"bf16": steps},
+              f"{steps} steps launched {a['n']} by route {a['routes']}")
+        check(a["n_eval"] == b["n_eval"] and a["n_eval"]["vgg_conv1"] == 2
+              and a["n_eval"]["roi_align"] == 4,
+              f"one eval batch, two regimes: launches {a['n_eval']}")
+        del trainer
+        torch.cuda.empty_cache()
+        return {"dp_train_1rank": a["n"], "dp_eval_1rank": a["n_eval"]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        parallel.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _snapshot_all(trainer):
+    """Everything a step changes (the models, the optimizers' states and
+    counts), copied."""
+    import copy
+    snap = {"model": trainer.model.state_dict(),
+            "opt": trainer.optimizer.state_dict(),
+            "count": trainer.optimizer.count}
+    if trainer.gan is not None:
+        snap.update(gan=trainer.gan.state_dict(),
+                    g_opt=trainer.g_opt.state_dict(),
+                    d_opt=trainer.d_opt.state_dict())
+    return copy.deepcopy(snap)
+
+
+def _restore_all(trainer, snap):
+    trainer.model.load_state_dict(snap["model"])
+    trainer.optimizer.load_state_dict(snap["opt"])
+    trainer.optimizer.count = snap["count"]
+    if trainer.gan is not None:
+        trainer.gan.load_state_dict(snap["gan"])
+        trainer.g_opt.load_state_dict(snap["g_opt"])
+        trainer.d_opt.load_state_dict(snap["d_opt"])
+
+
+def _dp_step(torch, trainer):
+    """One counted, timed epoch (one step) of ``trainer``: the losses, the
+    launches, their routes, the seconds and the state after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, n, routes = _counted(torch, lambda: trainer.train_epoch(0))
+    dt = time.perf_counter() - t0
+    after = _state(trainer)
+    if trainer.gan is not None:
+        after.update({f"gan/{k}": v.detach().clone()
+                      for k, v in trainer.gan.state_dict().items()})
+    return {"losses": losses, "n": n, "routes": routes, "s": dt,
+            "after": after}
+
+
+def _update_err(before, dp, ref, keep):
+    """Over the relation model's tensors that ``keep`` names: the largest
+    difference from one process over the largest update, and where."""
+    diff, upd, where = 0.0, 0.0, ""
+    for k, want in ref.items():
+        if not keep(k):
+            continue
+        upd = max(upd, float((want - before[k]).abs().max()))
+        d = float((dp[k] - want).abs().max())
+        if d > diff:
+            diff, where = d, k
+    return diff / max(upd, 1e-30), where
+
+
+def dp_rank(group):
+    """13b, one rank of two sharing the card over gloo: the sgcls step,
+    then the GAN step, each on the rank's 12 rows of a 24-image batch;
+    rank 0 then takes the same step from the same state as one process
+    on all 24 and compares. Returns what the parent prints and checks."""
+    import torch
+    from sgg_torch import parallel
+    from sgg_torch.config import Config
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    splits = synthetic_splits(num_train=TRAIN_BATCH, num_eval=4)
+    one_step = dict(compute_dtype="float32", device="cuda:0",
+                    print_interval=1, val_size=0, notest=True)
+    cfg = Config(mode="sgcls", loss="dnorm", batch_size=TRAIN_BATCH,
+                 max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES, num_workers=4,
+                 **one_step)
+    gcfg = gan_config(**one_step)
+    out = {}
+    for kind, c in (("sgcls", cfg), ("gan", gcfg)):
+        t0 = time.perf_counter()
+        trainer = Trainer(c, splits, group=group)
+        build_s = time.perf_counter() - t0
+        snap, before = _snapshot_all(trainer), _state(trainer)
+        dp = _dp_step(torch, trainer)
+        # both ranks hold the same state after the step
+        differ = sum(not parallel.bits_equal_to_rank0(t, group)
+                     for t in dp["after"].values())
+        out[kind] = {"losses": dp["losses"], "n": dp["n"],
+                     "routes": dp["routes"], "s": dp["s"],
+                     "build_s": build_s, "differ_from_rank0": differ}
+        if group.rank == 0:
+            _restore_all(trainer, snap)
+            trainer.group = None
+            ref = _dp_step(torch, trainer)
+            # the updated parameters and BatchNorm statistics; and the
+            # momentum buffers (the clipped gradients plus weight decay)
+            def stats(k):
+                return not (k.startswith(("momentum/", "gan/"))
+                            or "num_batches" in k)
+
+            out[kind].update(
+                ref_losses=ref["losses"], ref_s=ref["s"],
+                update_err=_update_err(before, dp["after"], ref["after"],
+                                       stats),
+                momentum_err=_update_err(
+                    before, dp["after"], ref["after"],
+                    lambda k: k.startswith("momentum/")))
+        del trainer
+        torch.cuda.empty_cache()
+        parallel.sync_processes(f"dp_{kind}")
+    return out
+
+
+def dp_two_ranks(torch):
+    """13b: two ranks sharing the one card over gloo (spawned; a file store
+    in a temporary directory), f32 with TF32 off, against one process on
+    the same global batch: the sgcls step and a ``-gan -largeD -perturb
+    graphn`` step."""
+    from sgg_torch import parallel
+
+    t0 = time.perf_counter()
+    res = parallel.spawn(dp_rank, 2, device="cuda:0", backend="gloo",
+                         timeout_s=DP_JOIN_S,
+                         collective_timeout_s=DP_JOIN_S)
+    paths = {}
+    for kind, routes_a_step, limit in (("sgcls", DP_ROUTES, DP_LOSS_LIMIT),
+                                       ("gan", DP_GAN_ROUTES, DP_GAN_LIMIT)):
+        r0 = res[0][kind]
+        ref = r0["ref_losses"]
+        errs = {k: abs(r0["losses"][k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                for k in ref if not k.startswith("grad")}
+        print(f"phase 13b {kind} step, 2 ranks x {TRAIN_BATCH // 2} images "
+              f"against 1 process x {TRAIN_BATCH} (f32, TF32 off, dropout "
+              f"on, the sampler drawing): losses rel err "
+              f"{json.dumps(errs)} (limit {limit}); the updated relation "
+              f"model's parameters and BatchNorm statistics: the largest "
+              f"difference from one process over the largest update "
+              f"{r0['update_err'][0]:.3g} (at {r0['update_err'][1]}; limit "
+              f"{DP_UPDATE_LIMIT}), its momentum buffers' "
+              f"{r0['momentum_err'][0]:.3g} (at {r0['momentum_err'][1]}); "
+              f"trainers built in "
+              f"{json.dumps([round(r[kind]['build_s'], 1) for r in res])} s;"
+              f" launches "
+              f"a rank {json.dumps([r[kind]['n'] for r in res])} by route "
+              f"{json.dumps([r[kind]['routes'] for r in res])}; step "
+              f"{json.dumps([round(r[kind]['s'] * 1e3, 1) for r in res])} "
+              f"ms a rank, 1 process {r0['ref_s'] * 1e3:.1f} ms (2 ranks on "
+              f"one card over gloo: not a scaling figure)", flush=True)
+        check(res[0][kind]["losses"] == res[1][kind]["losses"],
+              f"{kind}: the ranks log different losses")
+        check(all(r[kind]["differ_from_rank0"] == 0 for r in res),
+              f"{kind}: the ranks' states differ after the step")
+        check(all(e <= limit for e in errs.values()),
+              f"{kind}: losses {r0['losses']} vs one process {ref}")
+        if kind == "sgcls":
+            check(r0["update_err"][0] <= DP_UPDATE_LIMIT,
+                  f"update differs from one process: {r0['update_err']}")
+        for rk, r in enumerate(res):
+            want = {k: routes_a_step.get(k, {}) for k in r[kind]["routes"]}
+            check(r[kind]["routes"] == want,
+                  f"{kind} rank {rk} launched by route "
+                  f"{r[kind]['routes']}, want {want}")
+        paths[f"dp_{kind}_2ranks"] = {
+            k: sum(r[kind]["n"][k] for r in res) for k in res[0][kind]["n"]}
+    print(f"phase 13b two ranks in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
+def phase_data_parallel(torch, splits, train_rate):
+    """Phase 13: data-parallel training and evaluation."""
+    t0 = time.perf_counter()
+    paths = dp_one_rank(torch, splits, train_rate)
+    paths.update(dp_two_ranks(torch))
+    print(f"phase 13 data parallel in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
 
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
@@ -4223,7 +4544,8 @@ def main() -> None:
         splits = synthetic_splits(num_train=4 * TRAIN_BATCH, num_eval=64)
         paths = {}
         paths["eval"], eval_batch = phase_slice(torch, splits)
-        paths.update(phase_train(torch, splits))
+        train_paths, train_rate = phase_train(torch, splits)
+        paths.update(train_paths)
         with Deadline(PARITY_DEADLINE_S, "phase 6"):
             phase_parity(torch, splits)
         with Deadline(SGDET_DEADLINE_S, "phase 7"):
@@ -4240,6 +4562,8 @@ def main() -> None:
         with Deadline(VIS_DEADLINE_S, "phase 12"):
             paths.update(phase_vis_cond(torch, splits, gan_rate,
                                         eval_batch))
+        with Deadline(DP_DEADLINE_S, "phase 13"):
+            paths.update(phase_data_parallel(torch, splits, train_rate))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -38,10 +38,13 @@ class Config:
     save_scores: bool = False
 
     # Execution (reference config.py:161-164)
-    num_devices: int = 0  # 0 = all visible devices (reference: num_gpus == 1)
+    # the data-parallel ranks, one process a card under torchrun
+    # (sgg_torch.parallel); 0 = the launcher's world size
+    num_devices: int = 0
     num_workers: int = 2
     seed: int = 111
-    device: str = "cuda"  # {cuda, cpu}; cpu only when asked for
+    # {cuda, cpu}; cpu only when asked for; a rank's ``cuda:<local rank>``
+    device: str = "cuda"
 
     # Main learning args (reference config.py:168-181)
     lr: float = 1e-3
@@ -155,7 +158,9 @@ class Config:
         """Reference flag-combination validation (config.py:70-94)."""
         assert self.val_size >= 0, self.val_size
         assert self.mode in constants.MODES, self.mode
-        assert self.device in ("cuda", "cpu"), self.device
+        assert self.device in ("cuda", "cpu") or (
+            self.device.startswith("cuda:")
+            and self.device[5:].isdigit()), self.device
         # 'synthetic' (ours): generated data for the full CLI path without
         # the 60 GB downloads (data/synthetic.py:synthetic_splits)
         assert self.split in ("stanford", "vte", "gqa",
@@ -217,7 +222,10 @@ def setup_parser() -> ArgumentParser:
     p.add_argument("-save_dir", dest="save_dir", type=str, default=None)
     p.add_argument("-notest", dest="notest", action="store_true")
     p.add_argument("-save_scores", dest="save_scores", action="store_true")
-    p.add_argument("-ndev", "-ngpu", dest="num_devices", type=int, default=0)
+    p.add_argument("-ndev", "-ngpu", dest="num_devices", type=int, default=0,
+                   help="data-parallel ranks, one process a card: launch "
+                        "N > 1 with torchrun --nproc_per_node N (0: the "
+                        "launcher's world size)")
     p.add_argument("-nwork", dest="num_workers", type=int, default=2)
     p.add_argument("-seed", dest="seed", type=int, default=111)
     p.add_argument("-device", dest="device", type=str, default="cuda",

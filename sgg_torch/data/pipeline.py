@@ -28,7 +28,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -235,7 +235,8 @@ class BatchLoader:
                  prefetch: int = 2, seed: int = 0,
                  with_images: bool = True, im_scale: int = IM_SCALE,
                  image_format: str = "float32", feature_cache=None,
-                 cache_orientations: Optional[int] = None):
+                 cache_orientations: Optional[int] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         """``image_format``: ``float32`` canvases normalized on the host,
         or ``uint8`` canvases normalized on the device (4x fewer bytes to
         copy).
@@ -244,7 +245,15 @@ class BatchLoader:
         this dataset at ``im_scale``; batches then carry its trunk maps as
         ``fmaps`` and no images. ``cache_orientations`` is the run's
         setting: 1 pins the flip off in training even when the file stores
-        both orientations; None defers to the file."""
+        both orientations; None defers to the file.
+
+        ``shard``: ``(rank, world)`` of a data-parallel run
+        (``sgg_torch.parallel``): every rank computes the same shuffled
+        order (same seed and epoch) and loads only its contiguous
+        ``batch_size / world`` rows of each batch; the flips stay keyed on
+        (seed, epoch, image index), so the ranks' rows together are the
+        one-process batch. A tail batch that the ranks do not divide is
+        padded by repeating its images (``sgg_tpu``'s rule)."""
         if image_format not in ("float32", "uint8"):
             raise ValueError(f"image_format {image_format!r}: float32 or "
                              f"uint8")
@@ -278,6 +287,14 @@ class BatchLoader:
                                  f"incomplete: extract it again")
             self.feature_cache = cache
         self.cache_orientations = cache_orientations
+        if shard is not None:
+            rank, world = shard
+            if not 0 <= rank < world:
+                raise ValueError(f"shard {shard}: rank outside the world")
+            if batch_size % world:
+                raise ValueError(f"batch_size {batch_size} is not divisible "
+                                 f"by {world} ranks")
+        self.shard = shard
         self._epoch = 0
 
     def __len__(self):
@@ -353,6 +370,12 @@ class BatchLoader:
                                          n + self.batch_size,
                                          self.batch_size)
         chunks = [order[max(0, e - self.batch_size):min(e, n)] for e in ends]
+        if self.shard is not None:
+            rank, world = self.shard
+            chunks = [np.resize(c, -(-len(c) // world) * world)
+                      for c in chunks]
+            chunks = [c[rank * (len(c) // world):
+                        (rank + 1) * (len(c) // world)] for c in chunks]
         yield from background((self._assemble(chunk, epoch)
                                for chunk in chunks), self.prefetch)
 

@@ -34,6 +34,7 @@ from sgg_torch.eval.sgg_eval import MeanRecallEvaluator, SGGEvaluator
 from sgg_torch.eval.surgery import filter_dets
 from sgg_torch.models.frequency_bias import count_matrices
 from sgg_torch.models.sgdet import sgdet_eval_with_retry
+from sgg_torch.parallel import Group, all_agree, gather_rows, shard_rows
 from sgg_torch.train.step import make_eval_step
 from sgg_torch.utils import counters
 
@@ -60,13 +61,16 @@ def apply_predicate_weights(rel_scores: np.ndarray,
 
 
 def _to_numpy(out) -> Dict[str, np.ndarray]:
-    return {
+    host = {
         "obj_scores": out["obj_scores"].float().cpu().numpy(),
         "obj_preds": out["obj_preds"].cpu().numpy(),
         "rel_dists": out["rel_dists"].float().cpu().numpy(),
         "pairs": out["pairs"].cpu().numpy(),
         "pair_mask": out["pair_mask"].cpu().numpy(),
     }
+    if "dedup_ok" in out:
+        host["dedup_ok"] = out["dedup_ok"].cpu().numpy()
+    return host
 
 
 def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
@@ -75,7 +79,8 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
               with_images: bool = True, collect_entries: bool = False,
               log_fn=None, verbose: bool = True, pair_ladder=None,
               detector=None, device="cuda",
-              feature_cache=None) -> Dict[str, float]:
+              feature_cache=None, group: Optional[Group] = None
+              ) -> Dict[str, float]:
     """Evaluate one split of ``model`` (a ``RelModelIMP``) on ``device``
     (the card unless the caller asks for the CPU). In mode sgdet pass the
     frozen ``detector`` (a ``FasterRCNNVGG`` or ``FasterRCNNFPN``).
@@ -97,6 +102,15 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
     ``pair_ladder``: candidate-pair budgets (ascending, ``None`` = dense
     N*(N-1)); default ``[128, 512, 2048, None]``. Per batch the smallest
     rung covering every image's valid pairs is used (exact).
+
+    ``group``: a data-parallel group (``sgg_torch.parallel``). Every rank
+    loads the whole eval batch; when the ranks divide it, each runs its
+    rows and the host outputs are gathered over the group's host link
+    (otherwise each runs the whole batch). The pair budget is chosen from
+    the whole batch and the dedup fall-back is decided on the gathered
+    outputs (or agreed over the ranks), so every rank takes the same
+    branch, runs the same collectives and computes the same metrics. SGDet
+    batches are not split, as in the JAX package.
     """
     dev = resolve_device(device)
     sgdet = config.mode == "sgdet"
@@ -197,17 +211,25 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
                 counters.bump("eval_ladder_batches")
                 counters.bump("eval_ladder_dense" if budget is None
                               else f"eval_ladder_rung_{budget}")
-                dev_batch = batch.to(dev)
+                sharded = (group is not None
+                           and batch.batch_size % group.world == 0)
+                dev_batch = (shard_rows(batch, group.rank, group.world)
+                             if sharded else batch).to(dev)
                 for dedup in (True, False):
-                    out = get_eval_step(m, budget, dedup)(dev_batch)
+                    out = _to_numpy(get_eval_step(m, budget, dedup)(
+                        dev_batch))
+                    if sharded:
+                        out = gather_rows(out)
                     # the all-pairs enumerations are swap-closed, so this
                     # never fires in practice; the fall-back keeps eval
                     # exact anyway
-                    if dedup and not bool(out["dedup_ok"].all()):
+                    ok = not dedup or bool(out["dedup_ok"].all())
+                    if group is not None and not sharded:
+                        ok = all_agree(ok)
+                    if not ok:
                         counters.bump("eval_dedup_fallback")
                         continue
                     break
-                out = _to_numpy(out)
                 node_mask, boxes = gt_node_mask, gt_boxes_b
             obj_scores, obj_preds = out["obj_scores"], out["obj_preds"]
             rel_dists, pairs = out["rel_dists"], out["pairs"]

@@ -24,6 +24,14 @@ command); ``-vis_cond`` conditions its generator on a feature bank that
 ``-wandb <project>`` logs the losses and results to Weights & Biases
 (``utils/logging.py``; the console alone where ``wandb`` is missing).
 
+Data-parallel training and evaluation (predcls/sgcls, ``-gan``) run one
+process a card under ``torchrun``, each rank on ``cuda:<LOCAL_RANK>``
+(``sgg_torch.parallel``; ``-b`` is the global batch, which the ranks must
+divide; rank 0 logs and writes the checkpoints and results)::
+
+    torchrun --standalone --nproc_per_node 4 -m sgg_torch.main -m sgcls \
+        -loss dnorm -b 24 -split synthetic -ndev 4
+
 ``-split stanford|gqa|vte`` read the datasets under ``-data``
 (``data/visual_genome.py``, ``gqa.py``, ``vtranse.py``; gqa and vte need
 ``-backbone resnet50``) and decode their images with PIL; both ``h5py``
@@ -99,19 +107,25 @@ def load_splits(config) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
+    from sgg_torch import parallel
     from sgg_torch.config import config_from_args
     from sgg_torch.train.checkpoint import load_detector
     from sgg_torch.train.trainer import Trainer
     from sgg_torch.utils.logging import make_logger
 
     config = config_from_args(argv)
+    group = None
+    if parallel.launched():
+        group = parallel.initialize(
+            device=parallel.local_device(config.device))
+        config = config.replace(device=str(group.device))
     print("~~~~~~~~ Hyperparameters: ~~~~~~~")
     for k, v in sorted(vars(config).items()):
         print(f"{k} : {v}")
     if config.gan and config.vis_cond is not None:
         require("-vis_cond (the feature bank)", ("h5py",))
     splits = load_splits(config)
-    log_fn = make_logger(config)
+    log_fn = make_logger(config) if parallel.rank() == 0 else None
     detector = det_state = None
     if config.mode == "sgdet":
         # sgdet refuses to start without a pretrained detector (reference
@@ -123,8 +137,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cls = FasterRCNNVGG if config.backbone == "vgg16" else FasterRCNNFPN
         detector = cls(num_classes=splits["train"].num_classes)
         print(f"loaded detector checkpoint from epoch {epoch}")
-    results = Trainer(config, splits, detector=detector,
-                      det_state=det_state, log_fn=log_fn).fit()
+    try:
+        results = Trainer(config, splits, detector=detector,
+                          det_state=det_state, log_fn=log_fn,
+                          group=group).fit()
+    finally:
+        if group is not None:
+            parallel.shutdown()
     for k, v in sorted(results.items()):
         if not k.startswith("_"):
             print(f"{k}: {v:.4f}")

@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sgg_torch.ops.vgg_stem import vgg_conv1
+from sgg_torch.parallel.mesh import global_rand
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -47,7 +48,10 @@ class Dropout(nn.Module):
     ``forward`` (on the input's device), so a seeded generator repeats a
     step exactly; without one it comes from the device's default
     generator. The JAX package draws other bits: the two agree in law,
-    not element by element, and parity tests set ``p = 0``.
+    not element by element, and parity tests set ``p = 0``. Under a
+    data-parallel group the mask is the rank's rows of one drawn at the
+    global batch's shape (``parallel.global_rand``; the leading axis is the
+    batch's).
     """
 
     def __init__(self, p: float = 0.5):
@@ -59,8 +63,7 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep
+        mask = global_rand(x.shape, generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sgg_torch.parallel.mesh import all_reduce, all_reduce_scalars
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over the valid elements of (..., C) inputs, with flax's
@@ -50,9 +52,12 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(x.dim() - 1))
             m = mask.float()[..., None]
-            n = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum(dim=dims) / n
-            var = (((x - mean) ** 2) * m).sum(dim=dims) / n
+            # under a data-parallel group: the global batch's masked
+            # moments, from sums and counts all-reduced over the ranks
+            # (each rank holds its own number of valid elements)
+            n = torch.clamp(all_reduce_scalars(m.sum())[0], min=1.0)
+            mean = all_reduce((x * m).sum(dim=dims)) / n
+            var = all_reduce((((x - mean) ** 2) * m).sum(dim=dims)) / n
             with torch.no_grad():
                 unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
                 mo = self.momentum

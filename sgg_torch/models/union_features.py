@@ -38,6 +38,7 @@ from sgg_torch.constants import BATCHNORM_MOMENTUM
 from sgg_torch.ops.boxes import scale_boxes_01
 from sgg_torch.ops.grid_sample import box01_extents, paint_weights
 from sgg_torch.ops.rects import draw_union_rects
+from sgg_torch.parallel import all_reduce, current
 
 EDGE_MODELS = ("motifs", "raw_boxes")
 
@@ -73,7 +74,10 @@ class BatchNorm(nn.BatchNorm2d):
     Train mode: ``var = max(E[x^2] - E[x]^2, 0)`` over N, H, W (the biased
     variance), used to normalize and folded into the running statistics as
     ``(1 - m) * running + m * batch``, ``m = momentum``. Eval mode: the
-    running statistics. ``sgg_tpu/models/union_features.py:89-97``.
+    running statistics. ``sgg_tpu/models/union_features.py:89-97``. Under
+    a data-parallel group the batch moments are those of the global batch
+    (a differentiable all-reduce of the ranks'), so the running statistics
+    stay equal on every rank, as flax's over the global array.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -84,8 +88,14 @@ class BatchNorm(nn.BatchNorm2d):
         xf = x.float()
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            sq = (xf * xf).mean(dim=(0, 2, 3))
+            group = current()
+            if group is not None:
+                # every rank holds as many rows: the global moments are
+                # the means of the ranks'
+                mean, sq = (all_reduce(torch.stack([mean, sq]))
+                            / group.world).unbind()
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_((1.0 - m) * self.running_mean

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from sgg_torch.constants import REL_FG_FRACTION
+from sgg_torch.parallel.mesh import global_rand
 
 
 def select_edges(u_fg: torch.Tensor, u_bg: torch.Tensor, rels: torch.Tensor,
@@ -94,12 +95,16 @@ def sample_edges(generator: Optional[torch.Generator], rels: torch.Tensor,
     ``RELS_PER_IMG``); budgets are per image, not pooled over the batch as
     in the reference (``proposal_assignments_gtbox.py:47-56``), like the
     JAX package.
+
+    Under a data-parallel group each draw is made at the global batch's
+    shape and the rank keeps its rows (``parallel.global_rand``): the rank
+    samples what the run of one process samples for its images.
     """
     B, E = rel_mask.shape
     N = node_mask.shape[1]
     dev = rel_mask.device
-    u_fg = torch.rand((B, E), generator=generator, device=dev)
-    u_bg = torch.rand((B, N * N), generator=generator, device=dev)
+    u_fg = global_rand((B, E), generator, dev)
+    u_bg = global_rand((B, N * N), generator, dev)
     return select_edges(u_fg, u_bg, rels, rel_mask, node_mask,
                         max_out=max_out, fg_fraction=fg_fraction)
 

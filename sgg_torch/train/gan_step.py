@@ -25,6 +25,12 @@ vectors and write nothing. The relation model's union BatchNorms advance
 as in the JAX step: once on the real forward and once on the fake one; the
 detached ``rec`` forward normalizes with its batch statistics but leaves
 the running ones as it found them. Nothing waits for the device.
+
+Under a data-parallel group (``sgg_torch.parallel``) each optimizer's
+gradients are summed over the ranks right after the backward that makes
+them, before its norm and clip; every mean over the batch is the rank's
+share of the global batch's (``masked_bce``, ``train/losses.py``, the
+masked BatchNorms), and the metrics are the global values on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from sgg_torch.constants import STRIDE
 from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.device import resolve_device
 from sgg_torch.models.gan import GANModel
+from sgg_torch.parallel import (GradReducer, all_reduce_metrics,
+                                all_reduce_scalars, current)
 from sgg_torch.train.assign import sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
 from sgg_torch.train.state import Adam, Optimizer
@@ -58,13 +66,18 @@ def create_gan_optimizers(config: Config, gan: GANModel
 def masked_bce(logits: torch.Tensor, target: float,
                mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean BCE-with-logits against a constant 0/1 target over the valid
-    slots (reference loss_fn, gan.py:162-171), in optax's form."""
+    slots (reference loss_fn, gan.py:162-171), in optax's form. Under a
+    data-parallel group, the rank's share of the global batch's mean: its
+    sum over the global count."""
     per = -target * F.logsigmoid(logits) - (1.0 - target) * F.logsigmoid(
         -logits)
     if mask is None:
-        return per.mean()
+        group = current()
+        # every rank holds as many rows
+        return per.mean() if group is None else per.mean() / group.world
     m = mask.to(per.dtype).reshape(*per.shape[:-1], 1)
-    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per * m).sum() / torch.clamp(all_reduce_scalars(m.sum())[0],
+                                         min=1.0)
 
 
 @contextlib.contextmanager
@@ -125,6 +138,8 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
     use_rec = "rec" in config.ganlosses
     ganw = config.ganw
     d_params = [p for _, p in gan.partition("D")]
+    reduce_f, reduce_g, reduce_d = (GradReducer(o.params)
+                                    for o in (optimizer, g_opt, d_opt))
 
     def sgg_losses(out, classes, rel_labels, batch, pair_mask, sfx=""):
         losses = node_losses(out["obj_logits"], classes, batch.node_mask,
@@ -163,6 +178,7 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
         losses = sgg_losses(real, batch.classes, rel_labels, batch,
                             pair_mask)
         sum(losses.values()).backward()
+        reduce_f()
         metrics.update({k: v.detach() for k, v in losses.items()})
         metrics["grad_norm"] = optimizer.apply_gradients()
         real_nodes = real["node_pool"].detach()
@@ -213,6 +229,9 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
                     g_losses.update(sgg_losses(out_rec, fake, rel_labels,
                                                batch, pair_mask, "_rec"))
                 sum(g_losses.values()).backward()
+            reduce_g()
+            if use_rec:
+                reduce_f()
             metrics["grad_norm_G"] = g_opt.apply_gradients()
             if use_rec:
                 # reconstruction updates the SGG model too (main.py:173-176)
@@ -250,11 +269,14 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
                     masked_bce(gan.disc_global(real_fmap), 1.0, None)
                     + masked_bce(gan.disc_global(fmaps_fake), 0.0, None))}
             sum(d_losses.values()).backward()
+            reduce_d()
             metrics.update({k: v.detach() for k, v in d_losses.items()})
             metrics["grad_norm_D"] = d_opt.apply_gradients()
             gan.update_disc_stats(real_nodes, batch.classes, real_edges,
                                   rel_labels, real_fmap)
         mark("D")
+        metrics = all_reduce_metrics(metrics, [
+            k for k in metrics if not k.startswith("grad_norm")])
         metrics["total"] = sum(v for k, v in metrics.items()
                                if not k.startswith("grad_norm"))
         return metrics

@@ -15,6 +15,12 @@ Counterpart of ``sgg_tpu/train/losses.py`` (reference ``lib/losses.py``):
 Batches are padded, so every count (M, M_FG, M_BG) is a mask-aware sum:
 padding adds zero loss and zero count. The CE is computed in float32, and
 every count and weight stays on the device (no host sync).
+
+Under a data-parallel group (``sgg_torch.parallel``) the counts are summed
+over the ranks and each rank returns its local sum over those global
+counts, its share of the global batch's loss: the ranks' losses (and
+gradients) sum to the one-process loss (and gradient). A per-rank mean
+would not: the dnorm weights depend on the whole batch's graph density.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from sgg_torch.parallel.mesh import all_reduce_scalars
 
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -48,9 +56,9 @@ def edge_losses(rel_logits: torch.Tensor, rel_labels: torch.Tensor,
     ce = _masked_ce(rel_logits, rel_labels, rel_mask)
     is_fg = rel_mask & (rel_labels > 0)
     is_bg = rel_mask & (rel_labels == 0)
-    m_fg = is_fg.sum().float()
-    m_bg = is_bg.sum().float()
-    m = rel_mask.sum().float()
+    m_fg, m_bg, m = all_reduce_scalars(is_fg.sum().float(),
+                                      is_bg.sum().float(),
+                                      rel_mask.sum().float())
 
     if loss_type == "baseline":
         if not alpha == beta == 1:
@@ -80,5 +88,5 @@ def node_losses(obj_logits: torch.Tensor, obj_labels: torch.Tensor,
     """Mean CE over valid objects (reference losses.py:73-74), as
     ``{"obj_loss" + sfx: scalar}``."""
     ce = _masked_ce(obj_logits, obj_labels, node_mask)
-    n = torch.clamp(node_mask.sum().float(), min=1.0)
+    n = torch.clamp(all_reduce_scalars(node_mask.sum().float())[0], min=1.0)
     return {"obj_loss" + sfx: ce.sum() / n}

@@ -14,6 +14,7 @@ import torch
 from sgg_torch.config import Config
 from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.device import resolve_device
+from sgg_torch.parallel.mesh import GradReducer, all_reduce_metrics
 from sgg_torch.train.assign import all_pairs, compact_pairs, sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
 from sgg_torch.train.state import Optimizer
@@ -41,9 +42,17 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
     of each top-level module (the flax top-level parameter keys; a frozen
     module's is 0), before clipping: the JAX step's counterpart of the
     reference's ``wandb.watch(model, log='all')`` (main.py:93-97).
+
+    Under a data-parallel group (``sgg_torch.parallel``) the batch is the
+    rank's rows of the global batch: the losses are the rank's shares of
+    the global ones, the gradients are summed over the ranks right after
+    the backward (before the norms and the clip, which read global
+    gradients, as the JAX step's), and the metrics are the global values
+    on every rank.
     """
     dev = resolve_device(config.device)
     loss_weights = (config.alpha, config.beta, config.gamma)
+    reduce_grads = GradReducer(optimizer.params)
     modules = {}
     if config.wandb is not None:
         for name, p in model.named_parameters():
@@ -71,8 +80,11 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
                                   config.loss, loss_weights))
         total = sum(losses.values())
         total.backward()
+        # under a group: the ranks' gradients summed, before any norm
+        reduce_grads()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
+        metrics = all_reduce_metrics(metrics, list(metrics))
         for mod, params in modules.items():  # before the clip
             metrics[f"grad/{mod}"] = module_grad_norm(params)
         metrics["grad_norm"] = optimizer.apply_gradients()

@@ -24,13 +24,24 @@ train split's vocabulary, its classes perturbed on the host first
 reads real features of those classes, sampled on the host from the
 feature bank (``augment/feature_bank.py``) and copied with the batch.
 ``log_fn`` (``utils/logging.py::make_logger``) receives the interval
-losses and the evaluation results. Not ported yet, raising
-``NotImplementedError``: multi-device training.
+losses and the evaluation results.
+
+Under a data-parallel group (``sgg_torch.parallel``, one process a card,
+``torchrun --nproc_per_node N``) each rank loads its rows of every global
+batch (``BatchLoader(shard=)``), starts from rank 0's state
+(``replicate``) and steps with the ranks' gradients summed
+(``train/step.py``, ``train/gan_step.py``); rank 0 alone extracts the
+feature caches and writes the checkpoints and the test artifacts, each
+followed by a barrier, and every rank reads a checkpoint to resume and
+evaluates through the data-parallel ``val_epoch``
+(``sgg_tpu/train/trainer.py``'s multi-host paths). Not ported yet, raising
+``NotImplementedError``: multi-process SGDet training.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -56,6 +67,7 @@ from sgg_torch.models.frequency_bias import (count_matrices,
 from sgg_torch.models.gan import GANModel, init_gan_weights
 from sgg_torch.models.relhead import RelModelIMP, init_weights
 from sgg_torch.models.sgdet import make_sgdet_train_step
+from sgg_torch.parallel import Group, replicate, sync_processes, using
 from sgg_torch.train import checkpoint as ckpt
 from sgg_torch.train.gan_step import (create_gan_optimizers,
                                       make_gan_train_step)
@@ -95,6 +107,22 @@ def build_model(config: Config, train_data: SGGDataset, *,
 # the reference evaluates every 5 epochs: evaluation is slow and noisy
 # (main.py:258-259)
 VAL_EVERY = 5
+
+# how long the other ranks wait for rank 0's feature-cache extraction
+CACHE_WAIT_S = 6 * 3600
+
+
+def _in_group(method):
+    """Run a ``Trainer`` method with the trainer's group active."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with using(self.group):
+            return method(self, *args, **kw)
+    return run
+
+
+def _rank0(group: Optional[Group]) -> bool:
+    return group is None or group.rank == 0
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -188,21 +216,35 @@ class Trainer:
     under ``gan``.
 
     ``with_images=False`` gives every loader blank canvases in place of a
-    dataset's image files (feature-level runs, as the JAX trainer's)."""
+    dataset's image files (feature-level runs, as the JAX trainer's).
+
+    ``group``: the data-parallel group (``sgg_torch.parallel``; None for
+    one process); the trainer's loops run with it active.
+    ``config.num_devices`` N > 1 needs a group of N ranks.
+    """
 
     def __init__(self, config: Config, splits: Dict[str, SGGDataset],
                  model: Optional[RelModelIMP] = None, detector=None,
                  det_state: Optional[Dict] = None,
                  gan: Optional[GANModel] = None, with_images: bool = True,
-                 log_fn=None):
+                 log_fn=None, group: Optional[Group] = None):
         if config.mode == "sgdet" and detector is None:
             raise ValueError("sgdet training needs a (pretrained) detector")
         if config.gan and config.mode == "sgdet":
             raise ValueError("-gan trains on the GT boxes of predcls/sgcls; "
                              "mode sgdet has no trunk of its own to pool "
                              "the real map from")
-        if config.num_devices > 1:
-            raise _not_ported("multi-device training")
+        if config.num_devices > 1 and group is None:
+            raise ValueError(
+                f"-ndev {config.num_devices} trains on {config.num_devices} "
+                f"cards, one process each: launch under torchrun "
+                f"--nproc_per_node {config.num_devices} -m sgg_torch.main")
+        if group is not None and config.num_devices not in (0, group.world):
+            raise ValueError(f"-ndev {config.num_devices} but the process "
+                             f"group has {group.world} ranks")
+        if group is not None and config.mode == "sgdet":
+            raise _not_ported("multi-process SGDet training")
+        self.group = group
         self.config = config
         self.splits = splits
         self.train_data = splits["train"]
@@ -237,6 +279,10 @@ class Trainer:
         self.gan = self.perturber = self.feature_bank = None
         if config.gan:
             self._init_gan(gan)
+        # every rank starts from rank 0's weights
+        replicate(self.model, group)
+        if self.gan is not None:
+            replicate(self.gan, group)
         if config.mode == "sgdet":
             self.train_step = make_sgdet_train_step(
                 self.detector, self.model, config, self.optimizer)
@@ -298,8 +344,14 @@ class Trainer:
                 "d_opt": self.d_opt.state_dict()}
         return payload
 
+    @_in_group
     def save(self, epoch: int) -> None:
-        ckpt.save_payload(self.config.save_dir, self._payload(epoch), epoch)
+        """Rank 0 writes the checkpoint of ``epoch``; every rank waits for
+        it."""
+        if _rank0(self.group):
+            ckpt.save_payload(self.config.save_dir, self._payload(epoch),
+                              epoch)
+        sync_processes(f"save{epoch}")
 
     def _restore(self) -> None:
         # the payload is the relation model's alone: a frozen detector's
@@ -363,7 +415,10 @@ class Trainer:
         extracted on first use, and again when the stored fingerprint is
         not the trunk's (``sgg_tpu/train/trainer.py:_feature_cache_for``).
         None without a cache directory, for an empty split, and for the
-        val splits of mode sgdet, which the evaluator skips."""
+        val splits of mode sgdet, which the evaluator skips. Under a group
+        rank 0 alone opens or extracts it (the directory is shared); the
+        other ranks open it after a barrier, and raise if it is not the
+        one this trunk needs."""
         cfg = self.config
         if not cfg.feature_cache or len(dataset) == 0:
             return None
@@ -373,15 +428,41 @@ class Trainer:
         if cache is not None:
             return cache
         from sgg_torch.data.feature_cache import (FeatureCache,
-                                                  extract_trunk_cache,
                                                   params_fingerprint,
                                                   split_cache_path)
         path = split_cache_path(cfg.feature_cache, split_name)
-        trunk, trunk_fwd, stride = self._trunk()
-        fp = params_fingerprint(trunk.state_dict())
+        fp = params_fingerprint(self._trunk()[0].state_dict())
         # train splits store cfg.cache_orientations (1: half the disk, no
         # flips); eval splits never flip. More orientations on disk serve.
         want_orient = cfg.cache_orientations if dataset.is_train else 1
+
+        def fresh(cache):
+            return (cache.complete() and cache.fingerprint == fp
+                    and cache.n_orient >= want_orient
+                    and cache.im_scale == constants.IM_SCALE)
+
+        if not _rank0(self.group):
+            # rank 0 extracts: an hour or more for a full split
+            sync_processes(f"feature_cache_{split_name}", CACHE_WAIT_S)
+            cache = FeatureCache(path)
+            if not fresh(cache):
+                raise RuntimeError(f"rank {self.group.rank}: the feature "
+                                   f"cache {path} that rank 0 left is not "
+                                   f"this trunk's")
+            self._feature_caches[split_name] = cache
+            return cache
+        cache = self._open_or_extract(split_name, dataset, path, fp,
+                                      want_orient, fresh)
+        sync_processes(f"feature_cache_{split_name}", CACHE_WAIT_S)
+        return cache
+
+    def _open_or_extract(self, split_name, dataset, path, fp, want_orient,
+                         fresh):
+        """The cache at ``path`` when ``fresh``, else extracted there."""
+        from sgg_torch.data.feature_cache import (FeatureCache,
+                                                  extract_trunk_cache)
+        cfg = self.config
+        trunk, trunk_fwd, stride = self._trunk()
         if os.path.exists(path):
             try:
                 cache = FeatureCache(path)
@@ -389,9 +470,7 @@ class Trainer:
                 print(f"[feature_cache] {path} unreadable ({e}): "
                       f"extracting again")
             else:
-                if cache.complete() and cache.fingerprint == fp \
-                        and cache.n_orient >= want_orient \
-                        and cache.im_scale == constants.IM_SCALE:
+                if fresh(cache):
                     self._feature_caches[split_name] = cache
                     return cache
                 print(f"[feature_cache] {path} is stale (incomplete, or of "
@@ -415,6 +494,7 @@ class Trainer:
         return cache
 
     # ------------------------------------------------------------------
+    @_in_group
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch (reference train_epoch, main.py:196-236). Losses stay
         on the device between print intervals; a non-finite interval mean
@@ -429,8 +509,11 @@ class Trainer:
                              im_scale=constants.IM_SCALE,  # read per call
                              feature_cache=self._feature_cache_for(
                                  "train", self.train_data),
-                             cache_orientations=cfg.cache_orientations)
+                             cache_orientations=cfg.cache_orientations,
+                             shard=(None if self.group is None else
+                                    (self.group.rank, self.group.world)))
         loader._epoch = epoch
+        sync_processes(f"epoch{epoch}")
         source = (to_image_dtype(b, cfg.compute_dtype) for b in loader)
         if self.gan is not None:
             # the perturbation, the bank's samples and their pinning run on
@@ -512,6 +595,7 @@ class Trainer:
         return dict(zip(keys, means.tolist()))
 
     # ------------------------------------------------------------------
+    @_in_group
     def evaluate(self, split_names, verbose: bool = True,
                  collect_entries: bool = False) -> Dict[str, float]:
         results = {}
@@ -525,6 +609,7 @@ class Trainer:
                 detector=self.detector, device=self.device,
                 with_images=self.with_images,
                 feature_cache=self._feature_cache_for(name, ds),
+                group=self.group,
                 # summaries, repeated at test time against W&B's loss of
                 # trailing values (reference lib/eval.py:108-110)
                 log_fn=lambda d, test=name.startswith("test"): self.log_fn(
@@ -539,6 +624,7 @@ class Trainer:
         return results
 
     # ------------------------------------------------------------------
+    @_in_group
     def fit(self, val_names=("val_zs", "val_alls"),
             test_names=("test_zs", "test_10s", "test_100s", "test_alls")
             ) -> Dict[str, float]:
@@ -562,15 +648,24 @@ class Trainer:
         if not cfg.notest:
             results = self.evaluate(test_names,
                                     collect_entries=cfg.save_scores)
-            if cfg.save_dir and results:
-                with open(os.path.join(cfg.save_dir, "test_results.json"),
-                          "w") as f:
-                    json.dump({k: v for k, v in results.items()
-                               if not k.startswith("_")}, f, indent=2)
-            if cfg.save_scores and cfg.save_dir and "_entries" in results:
-                # test prediction entries (reference main.py:284-288)
-                import pickle
-                with open(os.path.join(cfg.save_dir,
-                                       "test_predictions.pkl"), "wb") as f:
-                    pickle.dump(results.pop("_entries"), f)
+            # every rank has the same results; rank 0 writes them
+            if _rank0(self.group):
+                self._write_results(results)
+            sync_processes("test_results")
         return results
+
+    def _write_results(self, results: Dict) -> None:
+        """``test_results.json`` and, with ``save_scores``, the pickled
+        test entries (popped from ``results``) in ``save_dir``."""
+        cfg = self.config
+        if cfg.save_dir and results:
+            with open(os.path.join(cfg.save_dir, "test_results.json"),
+                      "w") as f:
+                json.dump({k: v for k, v in results.items()
+                           if not k.startswith("_")}, f, indent=2)
+        if cfg.save_scores and cfg.save_dir and "_entries" in results:
+            # test prediction entries (reference main.py:284-288)
+            import pickle
+            with open(os.path.join(cfg.save_dir,
+                                   "test_predictions.pkl"), "wb") as f:
+                pickle.dump(results.pop("_entries"), f)

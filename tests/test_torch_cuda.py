@@ -1115,3 +1115,48 @@ def test_batch_recall_and_distances_card_match_cpu(dev):
         assert np.abs(d["cuda"] - d["cpu"]).max() <= 1e-4 * d["cpu"].max()
     assert gan_eval.compute_prdc(real, fake, device="cuda") == \
         gan_eval.compute_prdc(real, fake, device="cpu")
+
+
+def test_one_rank_nccl_step_is_the_no_group_step_bit_for_bit(dev, tmp_path):
+    """Two bf16 train steps (dropout on, the sampler drawing) under a
+    1-rank NCCL group (every collective runs) and with no group, from the
+    same weights, under deterministic algorithms: the same bits, and the
+    same launches on the rank (2 K1 + 1 K2 a step, bf16 routes)."""
+    import os
+
+    from sgg_torch import parallel
+    from sgg_torch.models.backbone import Dropout
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    runs = {}
+    group = parallel.init_group(f"file://{tmp_path}/store", 1, 0,
+                                torch.device("cuda", 0), "nccl",
+                                timeout_s=60)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, g in (("group", group), ("none", None)):
+            model, step = _tiny_train(dev, torch.bfloat16)
+            for mod in model.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.5
+            gen = torch.Generator(device=dev).manual_seed(0)
+            troi.KERNEL.reset_counts()
+            vgg_stem.KERNEL.reset_counts()
+            with parallel.using(g):
+                metrics = [step(_train_batch(), gen) for _ in range(2)]
+            torch.cuda.synchronize()
+            runs[name] = (metrics, model.state_dict(),
+                          dict(troi.KERNEL.routes),
+                          dict(vgg_stem.KERNEL.routes))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        parallel.shutdown()
+    (ma, sa, ka, va), (mb, sb, kb, vb) = runs["group"], runs["none"]
+    for a, b in zip(ma, mb):
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for k, v in sa.items():
+        assert torch.equal(v.reshape(-1).view(torch.uint8),
+                           sb[k].reshape(-1).view(torch.uint8)), k
+    assert ka == kb == {"bf16": 4} and va == vb == {"bf16": 2}
