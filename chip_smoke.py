@@ -206,7 +206,31 @@ non-zero exit and without the result line:
    -perturb graphn`` step (every F, G and D loss within ``DP_GAN_LIMIT``),
    the launches counted on each rank (K1 and K2 on ``f32``; the GAN's K1
    ``f32`` on the fake map and K1-bwd-fmap ``f32-gather``), a rank's step
-   ms (not a scaling figure: two ranks share one card).
+   ms (not a scaling figure: two ranks share one card);
+14. multi-process SGDet training and the (data x edge) mesh under its own
+   deadline: 14a phase 7's SGDet training (VGG16 detector, batch 6, bf16,
+   dropout on, the sampler drawing) for ``SGDET_DP_STEPS`` steps under a
+   1-rank NCCL group and with no group, from the same state under
+   deterministic algorithms: the same bits in the losses and every
+   relation-model tensor and momentum buffer, 3 K1 + 1 K2 a step on the
+   bf16 routes; two ranks sharing the card over gloo (spawned as in 13b),
+   f32 with TF32 off: 14b the SGDet step, 3 images a rank against one
+   process of 6 (the ranks' detections the process's rows bit for bit,
+   losses within ``MESH_LOSS_LIMIT`` relative, the updated relation model
+   within ``DP_UPDATE_LIMIT`` of the largest update, 3 K1 + 1 K2 ``f32`` a
+   rank), and 14c one step of phase 5's sgcls training shape on the 1 x 2
+   edge mesh (``parallel.make_mesh_2d``, ``shard_batch_edges``,
+   ``make_train_step``), each rank on 128 of the 256 edge slots of all 24
+   images, against one process on the same batch and generator seed
+   (losses, the update and the union BatchNorms' running statistics under
+   14b's limits; each rank's union K1 on 24 x 128 boxes, 2 K1 + 1 K2
+   ``f32`` a rank), each rank's step ms beside 13b's and the bytes of the
+   edge group's all-reduces. In f32 a ReLU input within rounding of 0 can
+   gate one way on the ranks and the other in one process: both 14b and
+   14c record the RoI heads' and IMP's ReLU inputs, require every gate
+   that differs to be a rounding flip (its input in one process within
+   its ReLU's largest input difference), and hold the update against one
+   process run with the ranks' gates (the plain one's is printed).
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
@@ -214,7 +238,7 @@ forward row's numbers at the training shapes, the eval shapes' under
 pool level's under ``fpn``, the GAN step's under ``gan``; the backward
 rows' at the pretraining shape, their FPN levels' under ``fpn``,
 K1-bwd-fmap's GAN shape under ``gan``; ``launches`` summed over the paths
-of phases 4, 5, 7, 8, 9, 10, 11, 12 and 13, the data-parallel paths'
+of phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 14, the data-parallel paths'
 launches summed over their ranks) and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -4458,6 +4482,13 @@ def dp_rank(group):
     return out
 
 
+def _loss_errs(got, want):
+    """Each loss's relative difference from one process's (the gradient
+    norms left out)."""
+    return {k: abs(got[k] - w) / max(abs(w), 1e-30) for k, w in want.items()
+            if not k.startswith("grad")}
+
+
 def dp_two_ranks(torch):
     """13b: two ranks sharing the one card over gloo (spawned; a file store
     in a temporary directory), f32 with TF32 off, against one process on
@@ -4474,8 +4505,7 @@ def dp_two_ranks(torch):
                                        ("gan", DP_GAN_ROUTES, DP_GAN_LIMIT)):
         r0 = res[0][kind]
         ref = r0["ref_losses"]
-        errs = {k: abs(r0["losses"][k] - ref[k]) / max(abs(ref[k]), 1e-30)
-                for k in ref if not k.startswith("grad")}
+        errs = _loss_errs(r0["losses"], ref)
         print(f"phase 13b {kind} step, 2 ranks x {TRAIN_BATCH // 2} images "
               f"against 1 process x {TRAIN_BATCH} (f32, TF32 off, dropout "
               f"on, the sampler drawing): losses rel err "
@@ -4511,16 +4541,511 @@ def dp_two_ranks(torch):
             k: sum(r[kind]["n"][k] for r in res) for k in res[0][kind]["n"]}
     print(f"phase 13b two ranks in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return paths
+    return paths, [r["sgcls"]["s"] * 1e3 for r in res]
 
 
 def phase_data_parallel(torch, splits, train_rate):
-    """Phase 13: data-parallel training and evaluation."""
+    """Phase 13: data-parallel training and evaluation. Returns the paths'
+    launches and 13b's sgcls step ms a rank."""
     t0 = time.perf_counter()
     paths = dp_one_rank(torch, splits, train_rate)
-    paths.update(dp_two_ranks(torch))
+    two, step_ms = dp_two_ranks(torch)
+    paths.update(two)
     print(f"phase 13 data parallel in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return paths, step_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 14: multi-process SGDet training and the (data x edge) mesh
+
+MESH_DEADLINE_S = 300
+# each spawned rank ends within this, or the phase fails
+MESH_JOIN_S = 240
+# 14a: SGDet steps under a 1-rank NCCL group, at phase 7's train shape
+SGDET_DP_STEPS = 2
+# 14b, 14c: two ranks against one process, f32 with TF32 off: the losses
+# relative; the updated tensors within DP_UPDATE_LIMIT (13b's) of the
+# largest update
+MESH_LOSS_LIMIT = 1e-6
+# a step a rank in f32: SGDet's K1 on the detector's RoIs, the nodes and
+# the unions, K2 once (the edge mesh's: 13b's DP_ROUTES, K1 on the nodes
+# and the rank's unions)
+SGDET_ROUTES = {"roi_align": {"f32": 3}, "vgg_conv1": {"f32": 1}}
+
+
+def _sgdet_config(**kw):
+    from sgg_torch.config import Config
+    return Config(mode="sgdet", loss="dnorm", batch_size=SGDET_TRAIN_BATCH,
+                  print_interval=1, num_workers=4, **kw)
+
+
+def sgdet_one_rank(torch):
+    """14a: phase 7's SGDet training (VGG16 detector, batch 6, bf16) for
+    ``SGDET_DP_STEPS`` steps under a 1-rank NCCL group and with no group,
+    from the same state, under deterministic algorithms: the same bits."""
+    import shutil
+    import tempfile
+
+    from sgg_torch import parallel
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.train.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="sgg_sgdet1_")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    group = parallel.init_group(f"file://{tmp}/store", 1, 0,
+                                torch.device("cuda", 0), "nccl",
+                                timeout_s=MESH_DEADLINE_S)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        splits = synthetic_splits(
+            num_train=SGDET_DP_STEPS * SGDET_TRAIN_BATCH, num_eval=4)
+        config = _sgdet_config(compute_dtype="bfloat16", device="cuda")
+        trainer = Trainer(config, splits, detector=sgdet_detector(
+            torch, splits["train"].num_classes), group=group)
+        steps = trainer.steps_per_epoch
+        snap = _snapshot_all(trainer)
+        runs = {}
+        for name, g in (("group", group), ("none", None)):
+            _restore_all(trainer, snap)
+            trainer.group = g
+            losses, n, routes = _counted(
+                torch, lambda: trainer.train_epoch(0))
+            runs[name] = {"losses": losses, "state": _state(trainer),
+                          "n": n, "routes": routes}
+        a, b = runs["group"], runs["none"]
+        differ = [k for k, t in a["state"].items()
+                  if not torch.equal(_bits(torch, t),
+                                     _bits(torch, b["state"][k]))]
+        print(f"phase 14a sgdet under a 1-rank NCCL group against no group "
+              f"({steps} steps x {SGDET_TRAIN_BATCH} images, VGG16 "
+              f"detector, bf16, dropout on, the sampler drawing; "
+              f"deterministic algorithms): losses {json.dumps(a['losses'])} "
+              f"group, {json.dumps(b['losses'])} none; {len(a['state'])} "
+              f"relation-model tensors and momentum buffers, {len(differ)} "
+              f"differ in bits; launches {json.dumps(a['n'])} by route "
+              f"{json.dumps(a['routes'])}", flush=True)
+        check(steps == SGDET_DP_STEPS, f"{steps} steps, want "
+              f"{SGDET_DP_STEPS}")
+        check(a["losses"] == b["losses"],
+              f"losses differ: {a['losses']} vs {b['losses']}")
+        check(not differ, f"state differs in bits: {differ[:5]}")
+        check(a["n"] == b["n"] == {"roi_align": 3 * steps,
+                                   "vgg_conv1": steps, **NO_BACKWARD}
+              and a["routes"]["roi_align"] == {"bf16": 3 * steps}
+              and a["routes"]["vgg_conv1"] == {"bf16": steps},
+              f"{steps} steps launched {a['n']} by route {a['routes']}")
+        del trainer
+        torch.cuda.empty_cache()
+        return {"sgdet_train_1rank": a["n"]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        parallel.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _recording_detector(trainer, out):
+    """Record the boxes and labels of each detector pass of ``trainer``
+    in ``out`` (host copies)."""
+    det = trainer.detector
+    forward = det.forward
+
+    def recorded(*a, **kw):
+        res = forward(*a, **kw)
+        out.append({k: res[k].cpu().numpy() for k in ("boxes", "labels")})
+        return res
+
+    det.forward = recorded
+
+
+class _ReluGates:
+    """Every ``F.relu`` of ``models/backbone.py`` and ``models/relhead.py``
+    on a (B, R, D) input (the RoI heads of the detector and of the
+    relation model, IMP's edge projection) inside the block: with
+    ``record``, each input is appended to it (a copy); with ``force``, a
+    list of masks in call order, each ReLU passes its input where the mask
+    holds and gives 0 elsewhere (a ReLU with those gates). In f32 an input
+    within rounding of 0 can gate one way on the ranks and the other in
+    one process; the one process's run with the ranks' gates computes
+    what the ranks compute, up to rounding."""
+
+    def __init__(self, torch, record=None, force=None):
+        self.torch, self.record, self.force = torch, record, force
+
+    def relu(self, x, *a, **kw):
+        if x.dim() != 3:
+            return self.F.relu(x, *a, **kw)
+        if self.record is not None:
+            self.record.append(x.detach().clone())
+        if self.force is not None:
+            return self.torch.where(next(self.forced), x,
+                                    self.torch.zeros_like(x))
+        return self.F.relu(x, *a, **kw)
+
+    def __enter__(self):
+        import types
+
+        import torch.nn.functional as F
+
+        from sgg_torch.models import backbone, relhead
+        self.F, self.mods = F, (backbone, relhead)
+        self.forced = iter(self.force or ())
+        ns = types.SimpleNamespace(**{k: getattr(F, k) for k in dir(F)
+                                      if not k.startswith("_")})
+        ns.relu = self.relu
+        for m in self.mods:
+            m.F = ns
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.F = self.F
+        return False
+
+
+def _gates_over_ranks(torch, rec, edge_slots=None):
+    """The ReLU inputs ``rec`` of every rank, assembled into the one
+    process's shapes (host float32 arrays): the ranks' rows concatenated,
+    or with ``edge_slots`` (a data-parallel mesh of one data coordinate)
+    the ranks' slots of the edge inputs (``edge_slots`` on axis 1), the
+    node inputs being every rank's alike. A collective."""
+    import numpy as np
+
+    from sgg_torch import parallel
+    out = []
+    for x in rec:
+        a = x.float().cpu().numpy()
+        if edge_slots is None:
+            out.append(parallel.gather_rows({"x": a})["x"])
+        elif a.shape[1] == edge_slots:
+            out.append(np.moveaxis(parallel.gather_rows(
+                {"x": np.moveaxis(a, 1, 0)})["x"], 0, 1))
+        else:
+            out.append(a)
+    return out
+
+
+def _gate_flips(mesh, ref):
+    """For each ReLU: its input's shape, the gates that differ between the
+    ranks' inputs ``mesh`` and one process's ``ref``, the largest |input|
+    at them in one process, and the largest difference of the inputs."""
+    import numpy as np
+    rows = []
+    for a, b in zip(mesh, ref):
+        b = b.float().cpu().numpy()
+        d = (a > 0) != (b > 0)
+        rows.append((list(a.shape), int(d.sum()),
+                     float(np.abs(b[d]).max()) if d.any() else 0.0,
+                     float(np.abs(a - b).max())))
+    return rows
+
+
+def _forced_ref(torch, mesh, run):
+    """``run()`` (one process) with the ranks' ReLU gates."""
+    masks = [torch.from_numpy(a > 0).to(device="cuda:0") for a in mesh]
+    with _ReluGates(torch, force=masks):
+        return run()
+
+
+def sgdet_rank(torch, group):
+    """14b on one rank: the SGDet step (``Trainer``, one step of 3 images
+    a rank) and, on rank 0, the same step from the same state as one
+    process of 6."""
+    from sgg_torch import parallel
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.train.trainer import Trainer
+
+    splits = synthetic_splits(num_train=SGDET_TRAIN_BATCH, num_eval=4)
+    cfg = _sgdet_config(compute_dtype="float32", device="cuda:0",
+                        val_size=0, notest=True)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, splits, detector=sgdet_detector(
+        torch, splits["train"].num_classes), group=group)
+    build_s = time.perf_counter() - t0
+    snap, before = _snapshot_all(trainer), _state(trainer)
+    dets, rec = [], []
+    _recording_detector(trainer, dets)
+    with _ReluGates(torch, record=rec):
+        dp = _dp_step(torch, trainer)
+    out = {"losses": dp["losses"], "n": dp["n"], "routes": dp["routes"],
+           "s": dp["s"], "build_s": build_s, "dets": list(dets),
+           "differ_from_rank0": sum(
+               not parallel.bits_equal_to_rank0(t, group)
+               for t in dp["after"].values())}
+    gates = _gates_over_ranks(torch, rec)
+    if group.rank == 0:
+        def ref_step():
+            _restore_all(trainer, snap)
+            trainer.group = None
+            return _dp_step(torch, trainer)
+
+        dets.clear()
+        ref_rec = []
+        with _ReluGates(torch, record=ref_rec):
+            ref = ref_step()
+        out["ref_dets"] = list(dets)
+        forced = _forced_ref(torch, gates, ref_step)
+        relation = lambda k: not (k.startswith("momentum/")  # noqa: E731
+                                  or "num_batches" in k)
+        out.update(ref_losses=ref["losses"], ref_s=ref["s"],
+                   flips=_gate_flips(gates, ref_rec),
+                   update_err=_update_err(before, dp["after"], ref["after"],
+                                          relation),
+                   forced_err=_update_err(before, dp["after"],
+                                          forced["after"], relation),
+                   momentum_err=_update_err(
+                       before, dp["after"], forced["after"],
+                       lambda k: k.startswith("momentum/")))
+    del trainer
+    torch.cuda.empty_cache()
+    parallel.sync_processes("mesh_sgdet")
+    return out
+
+
+def edge_rank(torch, group):
+    """14c on one rank of the 1 x 2 mesh: phase 5's sgcls training shape
+    (VGG16, batch 24, 40 nodes, 256 edges, dnorm, dropout on, the sampler
+    drawing) in f32 through ``make_train_step`` on the rank's 128 edge
+    slots of every image (a warm-up step, then the counted and timed one
+    from the same state and generator seed) and, on rank 0, the same step
+    as one process on all 256."""
+    import copy
+
+    from sgg_torch import parallel
+    from sgg_torch.config import Config
+    from sgg_torch.data.pipeline import BatchLoader
+    from sgg_torch.data.synthetic import synthetic_splits
+    from sgg_torch.models import relhead
+    from sgg_torch.train.state import Optimizer
+    from sgg_torch.train.step import make_train_step
+    from sgg_torch.train.trainer import build_model
+
+    mesh = parallel.make_mesh_2d(1, 2, group)
+    splits = synthetic_splits(num_train=TRAIN_BATCH, num_eval=4)
+    cfg = Config(mode="sgcls", loss="dnorm", batch_size=TRAIN_BATCH,
+                 max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
+                 compute_dtype="float32", device="cuda:0", num_workers=4)
+    batch = next(iter(BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
+                                  max_nodes=TRAIN_NODES,
+                                  max_edges=TRAIN_EDGES, seed=cfg.seed,
+                                  num_workers=4)))
+    model = build_model(cfg, splits["train"], device="cuda:0",
+                        seed=cfg.seed)
+    opt = Optimizer(cfg, model, steps_per_epoch=1)
+    step = make_train_step(model, cfg, opt)
+
+    def state():
+        return {n: t.detach().clone() for n, t in
+                list(model.named_parameters()) + list(model.named_buffers())
+                if not n.startswith("trunk.")}
+
+    def run(b, g):
+        """The step on ``b`` under ``g`` from the state before: the
+        metrics, the launches, the boxes each RoIAlign pooled, its ms."""
+        model.load_state_dict(snap)
+        opt.load_state_dict(opt_snap)
+        opt.count = count
+        pooled = []
+        roi_align = relhead.roi_align
+
+        def recorded(fmap, boxes, **kw):
+            pooled.append(tuple(boxes.shape))
+            return roi_align(fmap, boxes, **kw)
+
+        relhead.roi_align = recorded
+        try:
+            with parallel.using(g):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics, n, routes = _counted(torch, lambda: {
+                    k: float(v) for k, v in step(
+                        b, torch.Generator(device="cuda:0").manual_seed(
+                            cfg.seed)).items()})
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            relhead.roi_align = roi_align
+        return {"metrics": metrics, "n": n, "routes": routes,
+                "pooled": pooled, "ms": ms, "after": state()}
+
+    snap = copy.deepcopy(model.state_dict())
+    opt_snap, count = copy.deepcopy(opt.state_dict()), opt.count
+    before = state()
+    mine = parallel.shard_batch_edges(batch, mesh)
+    rec = []
+    # warm-up (the kernels, cuBLAS, the groups), its ReLU inputs recorded
+    with _ReluGates(torch, record=rec):
+        run(mine, mesh)
+    got = run(mine, mesh)
+    gates = _gates_over_ranks(torch, rec, TRAIN_EDGES // 2)
+    out = {k: got[k] for k in ("metrics", "n", "routes", "pooled", "ms")}
+    out["differ_from_rank0"] = sum(
+        not parallel.bits_equal_to_rank0(t, group)
+        for t in got["after"].values())
+    out["edge_bytes"] = (model.imp.mp_iter * TRAIN_BATCH * TRAIN_NODES
+                         * model.imp.node_gru.hidden_size * 4)
+    if group.rank == 0:
+        run(batch, None)  # warm-up at the one-process shapes
+        ref_rec = []
+        with _ReluGates(torch, record=ref_rec):
+            run(batch, None)
+        ref = run(batch, None)
+        forced = _forced_ref(torch, gates, lambda: run(batch, None))
+        bn = [k for k in ref["after"] if k.startswith("union_feats.bn")
+              and "running" in k]
+        relation = lambda k: "num_batches" not in k  # noqa: E731
+        out.update(
+            ref_metrics=ref["metrics"], ref_ms=ref["ms"],
+            ref_pooled=ref["pooled"], flips=_gate_flips(gates, ref_rec),
+            update_err=_update_err(before, got["after"], ref["after"],
+                                   relation),
+            forced_err=_update_err(before, got["after"], forced["after"],
+                                   relation),
+            bn_err=_update_err(before, got["after"], forced["after"],
+                               bn.__contains__))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    parallel.sync_processes("mesh_edge")
+    return out
+
+
+def mesh_rank(group):
+    """14b, then 14c, on one rank of two sharing the card over gloo, f32
+    with TF32 off."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"sgdet": sgdet_rank(torch, group),
+            "edge": edge_rank(torch, group)}
+
+
+def _flips_text(r):
+    """What ``_gate_flips`` found, for a phase 14 line."""
+    flips = [f for f in r["flips"] if f[1]]
+    return (f"ReLU gates that differ from one process "
+            f"{sum(f[1] for f in flips)} in {len(r['flips'])} RoI-head and "
+            f"IMP ReLUs (at each: its shape, the gates, the largest |input| "
+            f"there in one process, the largest input difference "
+            f"{json.dumps(flips)})")
+
+
+def _check_flips(what, r):
+    """Each gate that differs is a rounding flip: its input in one process
+    is within the largest difference of its ReLU's inputs."""
+    bad = [f for f in r["flips"] if f[1] and f[2] > f[3]]
+    check(not bad, f"{what}: ReLU gates differ beyond rounding: {bad}")
+
+
+def mesh_two_ranks(torch, dp_step_ms):
+    """14b and 14c: two ranks sharing the card over gloo (spawned; a file
+    store in a temporary directory) against one process."""
+    import numpy as np
+
+    from sgg_torch import parallel
+
+    t0 = time.perf_counter()
+    res = parallel.spawn(mesh_rank, 2, device="cuda:0", backend="gloo",
+                         timeout_s=MESH_JOIN_S,
+                         collective_timeout_s=MESH_JOIN_S)
+    s0 = res[0]["sgdet"]
+    errs = _loss_errs(s0["losses"], s0["ref_losses"])
+    per = SGDET_TRAIN_BATCH // 2
+    same_dets = all(
+        np.array_equal(mine[k], whole[k][r * per:(r + 1) * per])
+        for r, x in enumerate(res)
+        for mine, whole in zip(x["sgdet"]["dets"], s0["ref_dets"])
+        for k in ("boxes", "labels"))
+    print(f"phase 14b sgdet step, 2 ranks x {per} images against 1 process "
+          f"x {SGDET_TRAIN_BATCH} (VGG16 detector, f32, TF32 off, dropout "
+          f"on, the sampler drawing): losses rel err {json.dumps(errs)} "
+          f"(limit {MESH_LOSS_LIMIT}); the ranks' detections are the "
+          f"process's rows bit for bit: {same_dets}; {_flips_text(s0)}; "
+          f"the updated relation model's parameters and BatchNorm "
+          f"statistics: the largest difference from one process over the "
+          f"largest update {s0['update_err'][0]:.3g} (at "
+          f"{s0['update_err'][1]}), from one process with the ranks' gates "
+          f"{s0['forced_err'][0]:.3g} (at {s0['forced_err'][1]}; limit "
+          f"{DP_UPDATE_LIMIT}), its momentum buffers' "
+          f"{s0['momentum_err'][0]:.3g}; trainers built in "
+          f"{json.dumps([round(r['sgdet']['build_s'], 1) for r in res])} s;"
+          f" launches a rank {json.dumps([r['sgdet']['n'] for r in res])} "
+          f"by route {json.dumps([r['sgdet']['routes'] for r in res])}; "
+          f"step {json.dumps([round(r['sgdet']['s'] * 1e3, 1) for r in res])}"
+          f" ms a rank (one-step epochs, host included), 1 process "
+          f"{s0['ref_s'] * 1e3:.1f} ms", flush=True)
+    check(res[0]["sgdet"]["losses"] == res[1]["sgdet"]["losses"],
+          "sgdet: the ranks log different losses")
+    check(all(r["sgdet"]["differ_from_rank0"] == 0 for r in res),
+          "sgdet: the ranks' states differ after the step")
+    check(all(e <= MESH_LOSS_LIMIT for e in errs.values()),
+          f"sgdet: losses {s0['losses']} vs one process {s0['ref_losses']}")
+    _check_flips("sgdet", s0)
+    check(s0["forced_err"][0] <= DP_UPDATE_LIMIT,
+          f"sgdet: update differs from one process with the ranks' gates: "
+          f"{s0['forced_err']}")
+    e0 = res[0]["edge"]
+    errs = _loss_errs(e0["metrics"], e0["ref_metrics"])
+    half = TRAIN_EDGES // 2
+    print(f"phase 14c edge mesh 1 x 2, each rank {half} of {TRAIN_EDGES} "
+          f"edge slots of {TRAIN_BATCH} images (sgcls dnorm, VGG16, f32, "
+          f"TF32 off, dropout on, the sampler drawing) against 1 process on "
+          f"all: losses rel err {json.dumps(errs)} (limit {MESH_LOSS_LIMIT});"
+          f" {_flips_text(e0)}; the updated relation model against one "
+          f"process: the largest difference over the largest update "
+          f"{e0['update_err'][0]:.3g} (at {e0['update_err'][1]}), against "
+          f"one process with the ranks' gates {e0['forced_err'][0]:.3g} (at "
+          f"{e0['forced_err'][1]}; limit {DP_UPDATE_LIMIT}), the union "
+          f"BatchNorms' running statistics' {e0['bn_err'][0]:.3g}; RoIAlign "
+          f"boxes a rank {json.dumps([r['edge']['pooled'] for r in res])}, "
+          f"one process {json.dumps(e0['ref_pooled'])}; launches a rank "
+          f"{json.dumps([r['edge']['n'] for r in res])} by route "
+          f"{json.dumps([r['edge']['routes'] for r in res])}; step on a "
+          f"host batch {json.dumps([round(r['edge']['ms'], 1) for r in res])}"
+          f" ms a rank, 1 process {e0['ref_ms']:.1f} ms; 13b's sgcls "
+          f"data-parallel step (a one-step epoch, host included) "
+          f"{json.dumps([round(x, 1) for x in dp_step_ms])} ms a rank (2 "
+          f"ranks on one card over gloo: not a scaling figure); the edge "
+          f"group's all-reduces of vert_ctx move {e0['edge_bytes']} bytes "
+          f"a rank forward and as many backward a step", flush=True)
+    check(all(r["edge"]["differ_from_rank0"] == 0 for r in res),
+          "edge mesh: the ranks' states differ after the step")
+    check(res[0]["edge"]["metrics"] == res[1]["edge"]["metrics"],
+          "edge mesh: the ranks log different losses")
+    check(all(e <= MESH_LOSS_LIMIT for e in errs.values()),
+          f"edge mesh: losses {e0['metrics']} vs one process "
+          f"{e0['ref_metrics']}")
+    _check_flips("edge mesh", e0)
+    check(e0["forced_err"][0] <= DP_UPDATE_LIMIT
+          and e0["bn_err"][0] <= DP_UPDATE_LIMIT,
+          f"edge mesh: update differs from one process with the ranks' "
+          f"gates: {e0['forced_err']}, BatchNorm statistics "
+          f"{e0['bn_err']}")
+    check(all(r["edge"]["pooled"] == [(TRAIN_BATCH, TRAIN_NODES, 4),
+                                      (TRAIN_BATCH, half, 4)]
+              for r in res),
+          "edge mesh: a rank pooled other than its edge slots")
+    paths = {}
+    for kind, routes_a_step, name in (
+            ("sgdet", SGDET_ROUTES, "sgdet_2ranks"),
+            ("edge", DP_ROUTES, "edge_mesh_1x2")):
+        for rk, r in enumerate(res):
+            want = {k: routes_a_step.get(k, {}) for k in r[kind]["routes"]}
+            check(r[kind]["routes"] == want,
+                  f"{kind} rank {rk} launched by route {r[kind]['routes']}, "
+                  f"want {want}")
+        paths[name] = {k: sum(r[kind]["n"][k] for r in res)
+                       for k in res[0][kind]["n"]}
+    print(f"phase 14b, 14c two ranks in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
+def phase_mesh(torch, dp_step_ms):
+    """Phase 14: multi-process SGDet training and the edge mesh."""
+    t0 = time.perf_counter()
+    paths = sgdet_one_rank(torch)
+    paths.update(mesh_two_ranks(torch, dp_step_ms))
+    print(f"phase 14 sgdet data parallel and edge mesh in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
 
@@ -4563,7 +5088,11 @@ def main() -> None:
             paths.update(phase_vis_cond(torch, splits, gan_rate,
                                         eval_batch))
         with Deadline(DP_DEADLINE_S, "phase 13"):
-            paths.update(phase_data_parallel(torch, splits, train_rate))
+            dp_paths, dp_step_ms = phase_data_parallel(torch, splits,
+                                                       train_rate)
+            paths.update(dp_paths)
+        with Deadline(MESH_DEADLINE_S, "phase 14"):
+            paths.update(phase_mesh(torch, dp_step_ms))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

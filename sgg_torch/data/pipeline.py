@@ -236,10 +236,18 @@ class BatchLoader:
                  with_images: bool = True, im_scale: int = IM_SCALE,
                  image_format: str = "float32", feature_cache=None,
                  cache_orientations: Optional[int] = None,
-                 shard: Optional[Tuple[int, int]] = None):
+                 shard: Optional[Tuple[int, int]] = None, buckets=None):
         """``image_format``: ``float32`` canvases normalized on the host,
         or ``uint8`` canvases normalized on the device (4x fewer bytes to
         copy).
+
+        ``buckets``: ascending ``(max_nodes, max_edges)`` shape buckets
+        (``sgg_tpu``'s). Each image goes to the smallest bucket whose node
+        capacity holds it (the last one otherwise), in stream order, and
+        a bucket yields a batch when it holds ``batch_size`` images (its
+        remainders at the end unless ``drop_last``), padded to the
+        bucket's shape: small graphs stop paying the global padding.
+        None: one ``(max_nodes, max_edges)`` shape.
 
         ``feature_cache``: a complete ``FeatureCache`` (or its path) of
         this dataset at ``im_scale``; batches then carry its trunk maps as
@@ -253,7 +261,9 @@ class BatchLoader:
         ``batch_size / world`` rows of each batch; the flips stay keyed on
         (seed, epoch, image index), so the ranks' rows together are the
         one-process batch. A tail batch that the ranks do not divide is
-        padded by repeating its images (``sgg_tpu``'s rule)."""
+        padded by repeating its images (``sgg_tpu``'s rule). With
+        ``buckets`` every rank computes the same bucket sequence from the
+        same order and takes its rows of each bucket's batch."""
         if image_format not in ("float32", "uint8"):
             raise ValueError(f"image_format {image_format!r}: float32 or "
                              f"uint8")
@@ -262,6 +272,7 @@ class BatchLoader:
         self.batch_size = batch_size
         self.max_nodes = max_nodes
         self.max_edges = max_edges
+        self.buckets = sorted(buckets) if buckets else None
         # train loader shuffles and drops last (visual_genome.py:720-739)
         self.shuffle = dataset.is_train if shuffle is None else shuffle
         self.drop_last = dataset.is_train if drop_last is None else drop_last
@@ -339,7 +350,32 @@ class BatchLoader:
         ss = np.random.SeedSequence([self.seed, epoch, idx])
         return np.random.RandomState(ss.generate_state(4))
 
-    def _assemble(self, indices, epoch) -> GraphBatch:
+    def _bucket_for(self, idx: int):
+        n = len(self.ds.gt_classes[idx])
+        for b in self.buckets:
+            if n <= b[0]:
+                return b
+        return self.buckets[-1]
+
+    def _bucketed_chunks(self, order):
+        """``(bucket, indices)`` batches of ``batch_size`` images a bucket,
+        in stream order; the remainders at the end unless ``drop_last``."""
+        queues = {b: [] for b in self.buckets}
+        for idx in order:
+            b = self._bucket_for(idx)
+            queues[b].append(idx)
+            if len(queues[b]) == self.batch_size:
+                yield b, np.asarray(queues[b])
+                queues[b] = []
+        if not self.drop_last:
+            for b, q in queues.items():
+                if q:
+                    yield b, np.asarray(q)
+
+    def _assemble(self, indices, epoch, shape=None) -> GraphBatch:
+        """The padded batch of ``indices``, at ``shape`` (a bucket's
+        ``(max_nodes, max_edges)``) or the loader's."""
+        max_nodes, max_edges = shape or (self.max_nodes, self.max_edges)
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             examples = list(pool.map(
                 lambda i: self._make_example(i, self._example_rng(epoch, i)),
@@ -349,7 +385,7 @@ class BatchLoader:
             [e[1] for e in examples],
             [self.ds.gt_classes[i] for i in indices],
             [e[2] for e in examples],
-            max_nodes=self.max_nodes, max_edges=self.max_edges,
+            max_nodes=max_nodes, max_edges=max_edges,
             images=None if cached else np.stack([e[0] for e in examples]),
             im_hw=np.asarray([e[3] for e in examples], np.float32),
             im_scale_org=np.asarray([e[4] for e in examples], np.float32))
@@ -365,19 +401,24 @@ class BatchLoader:
         if self.shuffle:
             rng.shuffle(order)
         n = len(self.ds)
-        ends = range(self.batch_size, n + 1, self.batch_size) \
-            if self.drop_last else range(self.batch_size,
-                                         n + self.batch_size,
-                                         self.batch_size)
-        chunks = [order[max(0, e - self.batch_size):min(e, n)] for e in ends]
+        if self.buckets:
+            chunks = list(self._bucketed_chunks(order))
+        else:
+            ends = range(self.batch_size, n + 1, self.batch_size) \
+                if self.drop_last else range(self.batch_size,
+                                             n + self.batch_size,
+                                             self.batch_size)
+            chunks = [(None, order[max(0, e - self.batch_size):min(e, n)])
+                      for e in ends]
         if self.shard is not None:
             rank, world = self.shard
-            chunks = [np.resize(c, -(-len(c) // world) * world)
-                      for c in chunks]
-            chunks = [c[rank * (len(c) // world):
-                        (rank + 1) * (len(c) // world)] for c in chunks]
-        yield from background((self._assemble(chunk, epoch)
-                               for chunk in chunks), self.prefetch)
+            chunks = [(b, np.resize(c, -(-len(c) // world) * world))
+                      for b, c in chunks]
+            chunks = [(b, c[rank * (len(c) // world):
+                            (rank + 1) * (len(c) // world)])
+                      for b, c in chunks]
+        yield from background((self._assemble(chunk, epoch, bucket)
+                               for bucket, chunk in chunks), self.prefetch)
 
 
 def background(iterable: Iterable, size: int = 2) -> Iterator:

@@ -29,6 +29,9 @@ from sgg_torch.config import Config
 from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.device import resolve_device
 from sgg_torch.ops.boxes import box_iou
+from sgg_torch.parallel import (GradReducer, all_reduce_metrics,
+                                all_reduce_scalars, refuse_edge_axis,
+                                world_size)
 from sgg_torch.train.assign import (all_pairs, compact_pairs,
                                     unordered_union_index)
 from sgg_torch.train.losses import edge_losses, node_losses
@@ -333,12 +336,22 @@ def make_sgdet_train_step(detector, relmodel, config: Config,
     ``nms_converged_frac``: the share of images whose NMS provably gave the
     greedy result) are device scalars; the step does not wait for the
     card.
+
+    Under a data-parallel group (``sgg_torch.parallel``) the batch is the
+    rank's rows of the global batch, as in ``train/step.py``: the frozen
+    detector runs on them (no collective, no batch statistic), the
+    sampler's draws are the global batch's rows, the losses are the rank's
+    shares, the gradients are summed over the ranks after the backward and
+    the metrics (``nms_converged_frac`` over the global batch) are the
+    global values on every rank. A mesh with an edge axis raises.
     """
     dev = resolve_device(config.device)
     loss_weights = (config.alpha, config.beta, config.gamma)
+    reduce_grads = GradReducer(optimizer.params)
 
     def train_step(batch: GraphBatch, generator: Optional[torch.Generator],
                    rels=None) -> Dict[str, torch.Tensor]:
+        refuse_edge_axis("the SGDet train step")
         batch = batch.to(dev)
         detector.eval()
         with torch.no_grad():
@@ -369,10 +382,15 @@ def make_sgdet_train_step(detector, relmodel, config: Config,
                                   config.loss, loss_weights))
         total = sum(losses.values())
         total.backward()
+        # under a group: the ranks' gradients summed, before the clip
+        reduce_grads()
         optimizer.apply_gradients()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
-        metrics["nms_converged_frac"] = det["nms_converged"].float().mean()
+        metrics = all_reduce_metrics(metrics, list(metrics))
+        converged = det["nms_converged"].float()
+        metrics["nms_converged_frac"] = all_reduce_scalars(
+            converged.sum())[0] / (converged.numel() * world_size())
         return metrics
 
     return train_step

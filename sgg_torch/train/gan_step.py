@@ -47,7 +47,8 @@ from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.device import resolve_device
 from sgg_torch.models.gan import GANModel
 from sgg_torch.parallel import (GradReducer, all_reduce_metrics,
-                                all_reduce_scalars, current)
+                                all_reduce_scalars, current,
+                                refuse_edge_axis)
 from sgg_torch.train.assign import sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
 from sgg_torch.train.state import Adam, Optimizer
@@ -152,6 +153,7 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
                  generator: Optional[torch.Generator],
                  edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  mark=None, vis_features=None) -> Dict[str, torch.Tensor]:
+        refuse_edge_axis("the GAN step")
         mark = mark or (lambda phase: None)
         batch = batch.to(dev)
         fake = torch.as_tensor(fake_classes).to(dev, torch.long)

@@ -23,6 +23,7 @@ import torch
 
 from sgg_torch.constants import REL_FG_FRACTION
 from sgg_torch.ops.boxes import box_iou
+from sgg_torch.parallel.mesh import global_rand
 
 RELS_PER_IMAGE_DET = 64  # rel_assignments.py:109
 
@@ -130,15 +131,22 @@ def rel_assignments(generator: Optional[torch.Generator], det_boxes,
     package): draws the Gumbel noise (B, Eg, N, N), the FG-cap uniforms
     (B, Eg) and the BG uniforms (B, N*N), in that order, from
     ``generator`` (on the detections' device) and returns
-    ``select_rel_assignments`` of them."""
+    ``select_rel_assignments`` of them.
+
+    Under a data-parallel group each draw is made at the global batch's
+    shape and the rank keeps its rows (``parallel.global_rand``), as
+    ``sample_edges``: every other axis is fixed by the configuration (Eg
+    is the loader's padded GT edge count, N the detector's
+    ``detections_per_img``), so a rank draws what one process draws for
+    its images."""
     B, N = det_mask.shape
     Eg = gt_rels.shape[1]
     dev = det_mask.device
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand((B, Eg, N, N), generator=generator, device=dev)
+    u = global_rand((B, Eg, N, N), generator, dev)
     gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
-    u_cap = torch.rand((B, Eg), generator=generator, device=dev)
-    u_bg = torch.rand((B, N * N), generator=generator, device=dev)
+    u_cap = global_rand((B, Eg), generator, dev)
+    u_bg = global_rand((B, N * N), generator, dev)
     return select_rel_assignments(
         gumbel, u_cap, u_bg, det_boxes, det_labels, det_mask, gt_boxes,
         gt_classes, gt_rels, gt_rel_mask, max_out=max_out,

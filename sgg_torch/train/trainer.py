@@ -34,8 +34,14 @@ batch (``BatchLoader(shard=)``), starts from rank 0's state
 feature caches and writes the checkpoints and the test artifacts, each
 followed by a barrier, and every rank reads a checkpoint to resume and
 evaluates through the data-parallel ``val_epoch``
-(``sgg_tpu/train/trainer.py``'s multi-host paths). Not ported yet, raising
-``NotImplementedError``: multi-process SGDet training.
+(``sgg_tpu/train/trainer.py``'s multi-host paths), in every mode: in mode
+sgdet each rank runs the frozen detector on its rows
+(``models/sgdet.py``), rank 0 extracts the detector trunk's cache and the
+SGDet evaluation keeps its batches whole on every rank. The (data x edge)
+mesh of ``parallel.make_mesh_2d`` trains through
+``train/step.py::make_train_step`` from the API (the JAX package has no
+flag for it either); the trainer, whose evaluation has no edge axis,
+refuses it.
 """
 
 from __future__ import annotations
@@ -67,7 +73,8 @@ from sgg_torch.models.frequency_bias import (count_matrices,
 from sgg_torch.models.gan import GANModel, init_gan_weights
 from sgg_torch.models.relhead import RelModelIMP, init_weights
 from sgg_torch.models.sgdet import make_sgdet_train_step
-from sgg_torch.parallel import Group, replicate, sync_processes, using
+from sgg_torch.parallel import (Group, refuse_edge_axis, replicate,
+                                sync_processes, using)
 from sgg_torch.train import checkpoint as ckpt
 from sgg_torch.train.gan_step import (create_gan_optimizers,
                                       make_gan_train_step)
@@ -123,11 +130,6 @@ def _in_group(method):
 
 def _rank0(group: Optional[Group]) -> bool:
     return group is None or group.rank == 0
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to sgg_torch yet "
-                               f"(ROADMAP Queue A)")
 
 
 def build_gan(config: Config, train_data: SGGDataset, *, device="cuda",
@@ -219,8 +221,11 @@ class Trainer:
     dataset's image files (feature-level runs, as the JAX trainer's).
 
     ``group``: the data-parallel group (``sgg_torch.parallel``; None for
-    one process); the trainer's loops run with it active.
-    ``config.num_devices`` N > 1 needs a group of N ranks.
+    one process), in any mode; the trainer's loops run with it active.
+    ``config.num_devices`` N > 1 needs a group of N ranks. A mesh with an
+    edge axis (``parallel.make_mesh_2d(data, edge)``, edge > 1) raises a
+    ``ValueError``: it trains through ``train/step.py::make_train_step``,
+    and ``val_epoch`` has no edge axis.
     """
 
     def __init__(self, config: Config, splits: Dict[str, SGGDataset],
@@ -242,8 +247,7 @@ class Trainer:
         if group is not None and config.num_devices not in (0, group.world):
             raise ValueError(f"-ndev {config.num_devices} but the process "
                              f"group has {group.world} ranks")
-        if group is not None and config.mode == "sgdet":
-            raise _not_ported("multi-process SGDet training")
+        refuse_edge_axis("Trainer", group)
         self.group = group
         self.config = config
         self.splits = splits

@@ -16,8 +16,11 @@ no group.
   holds the JAX package's multi-process runs: the last interval loss within
   1e-5 relative, the test metrics within 1e-9, the GAN's F, G and D losses
   within 2e-4 relative (float32 sums taken in another order);
-* the refusals: ``-ndev 2`` without a group, SGDet under a group, a batch
-  the ranks do not divide; and a rank's failure failing the group.
+* mode sgdet under a group trains as with none (a 1-rank stand-in;
+  ``tests/test_torch_distributed_sgdet.py`` holds 2 ranks);
+* the refusals: ``-ndev 2`` without a group, ``-gan`` with sgdet under a
+  group, a batch the ranks do not divide; and a rank's failure failing
+  the group.
 
 Tiny models (``tests/multihost_trainer_common.py``'s: 9 classes, 5
 predicates, hidden 16, obj_dim 32, float32, 80-pixel synthetic images,
@@ -502,12 +505,29 @@ def test_ndev_without_a_group_names_torchrun():
         Trainer(cfg, _splits(), model=_model())
 
 
-def test_sgdet_under_a_group_is_refused():
+def test_sgdet_trains_under_a_group_and_gan_sgdet_is_refused(monkeypatch):
+    """Mode sgdet under a group (a 1-rank stand-in: every collective the
+    identity) trains as with none; ``-gan`` with sgdet is still refused
+    under a group of 2. ``tests/test_torch_distributed_sgdet.py`` holds 2
+    ranks against one process."""
+    from sgg_torch.models.detector import FasterRCNNVGG, init_detector_weights
+    monkeypatch.setattr(sgg_torch.constants, "IM_SCALE", IMG)
     cfg = Config(device="cpu", mode="sgdet", batch_size=B, max_nodes=N,
-                 max_edges=E, num_workers=1)
-    group = parallel.Group(0, 2, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="multi-process SGDet"):
-        Trainer(cfg, _splits(), detector=object(), group=group)
+                 max_edges=E, num_workers=1, print_interval=1,
+                 compute_dtype="float32")
+    losses = []
+    for group in (parallel.Group(0, 1, torch.device("cpu")), None):
+        det = init_detector_weights(FasterRCNNVGG(
+            C, rpn_pre_nms_top_n=64, rpn_post_nms_top_n=24,
+            detections_per_img=8, obj_dim=48, score_thresh=0.01), 0)
+        trainer = Trainer(cfg, _splits(), model=_model("sgdet", False),
+                          detector=det, group=group)
+        losses.append(trainer.train_epoch(0))
+    assert losses[0] == losses[1] and np.isfinite(losses[0]["total"])
+    with pytest.raises(ValueError, match="-gan trains on the GT boxes"):
+        Trainer(dataclasses.replace(cfg, gan=True), _splits(),
+                detector=object(),
+                group=parallel.Group(0, 2, torch.device("cpu")))
 
 
 def worker_fails(group):

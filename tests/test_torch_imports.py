@@ -2,7 +2,8 @@
 ``chip_smoke.py`` or ``bench_kernels.py`` imports JAX, flax or ``sgg_tpu``; importing the package
 builds nothing; importing its entry points, data modules, import tool,
 feature bank and analysis modules loads none of ``h5py``, PIL,
-``transformers`` and ``wandb``."""
+``transformers`` and ``wandb``; importing the drawing helpers and the
+downloader loads none of cv2, networkx and matplotlib."""
 
 import pathlib
 import re
@@ -62,6 +63,22 @@ def test_no_h5py_or_pil_at_import(module):
             f"bad = [m for m in set(sys.modules) - before\n"
             f"       if m.split('.')[0] in ('h5py', 'PIL', 'transformers',\n"
             f"                              'wandb')]\n"
+            f"assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("module", ["sgg_torch.utils.visualize",
+                                    "sgg_torch.data.download"])
+def test_drawing_and_download_load_lazily(module):
+    """The drawing helpers import cv2, networkx and matplotlib, and the
+    downloader opens a connection, only when called."""
+    code = (f"import sys\n"
+            f"before = set(sys.modules)\n"
+            f"import {module}\n"
+            f"bad = [m for m in set(sys.modules) - before\n"
+            f"       if m.split('.')[0] in ('cv2', 'networkx',\n"
+            f"                              'matplotlib')]\n"
             f"assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
