@@ -230,7 +230,28 @@ non-zero exit and without the result line:
    14c record the RoI heads' and IMP's ReLU inputs, require every gate
    that differs to be a rounding flip (its input in one process within
    its ReLU's largest input difference), and hold the update against one
-   process run with the ranks' gates (the plain one's is printed).
+   process run with the ranks' gates (the plain one's is printed);
+15. the port's tools and examples under its own deadline, each ``python -m
+   sgg_torch.tools.<name>`` (or ``sgg_torch.examples.<name>``) in a process
+   of its own, killed at ``TOOL_TIMEOUT_S``, its last line parsed: 15a the
+   six profilers at full width, each alone on the card (``profile_step``,
+   ``profile_trunk --quick``, ``profile_relhead``, ``profile_sgdet``,
+   ``profile_pretrain``, ``profile_gan``; ``TOOL_ITERS`` timed calls a
+   stage), then 15b ``e2e_throughput`` (24 x 6 images) and ``soak`` (48
+   images x 1 epoch): every stage's card and wall ms finite and positive,
+   no MFU over 100%, and each kernel a stage goes through launched in it
+   (``TOOL_LAUNCHES``); 15c, all at once: ``reprobe_gates`` (its three
+   gates, each stage a process; every stage must finish, its times read
+   beside the rehearsal's work), the dress rehearsal's GQA chain
+   (``dress_rehearsal.sh ... gqa``: ``pretrain_detector gqa``, ``-m sgcls
+   -split gqa -backbone resnet50 -exclude_left_right``, ``-m sgdet -split
+   gqa``) on a ``make_fixture_dataset gqa`` tree at 592 px, its
+   ``test_results.json`` finite, the preflight on a VG tree of placeholder
+   files (exit 1, the first BLOCKER naming ``h5py``, no traceback; the
+   card's machine has no ``h5py``), ``perturbations_demo`` and
+   ``gan_feature_quality`` (a finite FID). The tools' kernel launches
+   (their JSON lines' process totals) join the paths as
+   ``tool_<name>``.
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
@@ -238,8 +259,8 @@ forward row's numbers at the training shapes, the eval shapes' under
 pool level's under ``fpn``, the GAN step's under ``gan``; the backward
 rows' at the pretraining shape, their FPN levels' under ``fpn``,
 K1-bwd-fmap's GAN shape under ``gan``; ``launches`` summed over the paths
-of phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 14, the data-parallel paths'
-launches summed over their ranks) and, last, the result line
+of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15, the data-parallel
+paths' launches summed over their ranks, the tools' over their processes) and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -309,23 +330,10 @@ class Deadline:
         return False
 
 
-# Published peaks (NVIDIA data sheets, dense): HBM bytes/s, bf16 tensor
-# FLOP/s, f32 FLOP/s outside the tensor cores.
-PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
-         "H100 NVL": (3.9e12, 835e12, 60e12),
-         "H200": (4.8e12, 989e12, 67e12),
-         "H100": (3.35e12, 989e12, 67e12)}
-
-
-def card_peaks(name: str):
-    for key, peaks in PEAKS.items():
-        if all(part in name for part in key.split()):
-            return key, peaks
-    return "H100", PEAKS["H100"]
-
-
 def bound_ms(n_bytes: float, flops: float, peaks, bf16: bool):
-    bw, bf16_rate, f32_rate = peaks
+    """The least time for ``n_bytes`` and ``flops`` on a card of ``peaks``
+    (``sgg_torch.utils.profiling.card_peaks``), and which bounds it."""
+    bw, bf16_rate, f32_rate = peaks[:3]
     t_bytes = n_bytes / bw * 1e3
     t_ops = flops / (bf16_rate if bf16 else f32_rate) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -384,11 +392,8 @@ def phase_card(torch):
 def all_kernels():
     """Every CUDA kernel of the port by its row name in the ``kernels``
     line."""
-    from sgg_torch.ops import roi_align as K1
-    from sgg_torch.ops import vgg_stem as K2
-    return {"roi_align": K1.KERNEL, "roi_align_bwd_fmap": K1.KERNEL_BWD_FMAP,
-            "roi_align_bwd_boxes": K1.KERNEL_BWD_BOXES,
-            "vgg_conv1": K2.KERNEL, "vgg_conv1_bwd": K2.KERNEL_BWD}
+    from sgg_torch.utils.profiling import hand_written_kernels
+    return hand_written_kernels()
 
 
 def phase_build():
@@ -5049,6 +5054,252 @@ def phase_mesh(torch, dp_step_ms):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the tools and examples (sgg_torch/tools, sgg_torch/examples)
+
+TOOLS_DEADLINE_S = 480
+TOOL_TIMEOUT_S = 240
+TOOL_ITERS = "3"
+# per tool, the stages that must launch each kernel (at least once a call)
+TOOL_LAUNCHES = {
+    "profile_step": {"trunk fwd": ("vgg_conv1",), "K1 nodes": ("roi_align",),
+                     "K1 unions": ("roi_align",),
+                     "full forward": ("roi_align", "vgg_conv1"),
+                     "full train step": ("roi_align", "vgg_conv1")},
+    "profile_trunk": {"baseline": ("vgg_conv1",),
+                      "batch B=24": ("vgg_conv1",)},
+    "profile_relhead": {"K1 nodes": ("roi_align",),
+                        "K1 unions": ("roi_align",),
+                        "K1 unions (dedup'd half)": ("roi_align",)},
+    "profile_sgdet": {"trunk fwd": ("vgg_conv1",),
+                      "detector full (trunk+RPN+NMS+head)":
+                          ("roi_align", "vgg_conv1"),
+                      "detector sans trunk (fmap given)": ("roi_align",),
+                      "rel head (pair budget)": ("roi_align",),
+                      "full retry eval step": ("roi_align", "vgg_conv1")},
+    "profile_pretrain": {
+        "trunk fwd": ("vgg_conv1",),
+        "detector fwd (trunk+RPN+NMS+head)": ("roi_align", "vgg_conv1"),
+        "fwd + bwd (grad)": ("roi_align", "vgg_conv1", "roi_align_bwd_fmap",
+                             "roi_align_bwd_boxes", "vgg_conv1_bwd"),
+        "FULL pretrain step": ("roi_align", "vgg_conv1",
+                               "roi_align_bwd_fmap", "roi_align_bwd_boxes",
+                               "vgg_conv1_bwd")},
+    "profile_gan": {"phase F: SGG fwd+bwd+update": ("roi_align",
+                                                    "vgg_conv1"),
+                    "SGG fwd on fake fmap (per call)": ("roi_align",),
+                    "FULL GAN F/G/D step": ("roi_align", "vgg_conv1",
+                                            "roi_align_bwd_fmap")},
+    "e2e_throughput": {"epoch 1": ("roi_align", "vgg_conv1")},
+    "soak": {"fit": ("roi_align", "vgg_conv1")},
+}
+TOOL_ARGS = {"profile_step": ["--iters", TOOL_ITERS],
+             "profile_trunk": ["--quick", "--iters", TOOL_ITERS],
+             "profile_relhead": ["--iters", TOOL_ITERS],
+             "profile_sgdet": ["--iters", TOOL_ITERS],
+             "profile_pretrain": ["--iters", TOOL_ITERS],
+             "profile_gan": ["--iters", TOOL_ITERS],
+             "e2e_throughput": [],
+             "soak": ["48", "1"]}
+
+
+def run_processes(cmds, timeout: float):
+    """Run ``cmds`` (name -> argv) at once from the checkout's root, each
+    in its own session; returns name -> (exit code, output). Every process
+    is killed if one overruns ``timeout`` or the phase ends early."""
+    procs = {}
+    t0 = time.monotonic()
+    try:
+        for name, cmd in cmds.items():
+            procs[name] = subprocess.Popen(
+                cmd, cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        out = {}
+        for name, proc in procs.items():
+            left = max(timeout - (time.monotonic() - t0), 1)
+            try:
+                text, _ = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"{name} passed its {timeout:.0f} s")
+            out[name] = (proc.returncode, text)
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def _module(name: str):
+    return [sys.executable, "-m", f"sgg_torch.tools.{name}"]
+
+
+def _tool_line(name, rc, out):
+    check(rc == 0, f"{name} exited {rc}:\n{out[-3000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    for text in out.strip().splitlines()[:-1]:
+        print(f"  {name}| {text}", flush=True)
+    return line
+
+
+def check_tool(name, line):
+    """Every stage's times finite and positive, no MFU over 100%, and each
+    kernel the stage goes through launched."""
+    for stage, st in line["stages"].items():
+        for key in ("card_ms", "wall_ms"):
+            v = st[key]
+            check(v is None or (math.isfinite(v) and v > 0),
+                  f"{name} {stage}: {key} {v}")
+        check(st["mfu"] is None or st["mfu"] <= 1.0,
+              f"{name} {stage}: MFU {st['mfu']} over 100%")
+        for k in TOOL_LAUNCHES.get(name, {}).get(stage, ()):
+            check(st["launches"].get(k, 0) > 0,
+                  f"{name} {stage}: {k} launched nothing "
+                  f"({st['launches']})")
+    for stage in TOOL_LAUNCHES.get(name, {}):
+        check(stage in line["stages"], f"{name}: no stage {stage!r}")
+    return {k: v["launches"] for k, v in line["launches"].items()}
+
+
+def tools_profilers():
+    """15a, b: the six profilers at full width, then the end-to-end
+    throughput and the soak, each alone on the card."""
+    paths = {}
+    for name, args in TOOL_ARGS.items():
+        t0 = time.perf_counter()
+        (rc, out), = run_processes({name: _module(name) + args},
+                                   TOOL_TIMEOUT_S).values()
+        line = _tool_line(name, rc, out)
+        paths[f"tool_{name}"] = check_tool(name, line)
+        st = line["stages"]
+        extra = {k: line[k] for k in ("shares", "phases_ms",
+                                      "train_images_per_s", "results",
+                                      "detections", "variant_rel_err")
+                 if k in line}
+        print(f"phase 15 {name} ({time.perf_counter() - t0:.1f} s): "
+              f"{len(st)} stages, launches "
+              f"{json.dumps(paths[f'tool_{name}'])}; {json.dumps(extra)}",
+              flush=True)
+        print(f"phase 15 {name} json {json.dumps(line)}", flush=True)
+    return paths
+
+
+def _fake_vg_tree(root):
+    """The VG tree's files as placeholders: the preflight reaches the HDF5
+    read, which needs h5py."""
+    base = os.path.join(root, "VG", "stanford_filtered")
+    os.makedirs(base)
+    os.makedirs(os.path.join(root, "VG", "VG_100K"))
+    for f, text in (("VG-SGG.h5", ""), ("VG-SGG-dicts.json", "{}"),
+                    ("image_data.json", "[]")):
+        with open(os.path.join(base, f), "w") as fh:
+            fh.write(text)
+
+
+def _results_finite(path):
+    check(os.path.isfile(path), f"the dress rehearsal wrote no {path}")
+    with open(path) as f:
+        res = json.load(f)
+    nums = [v for v in res.values() if isinstance(v, (int, float))]
+    check(nums and all(math.isfinite(v) for v in nums),
+          f"{path}: not finite numbers")
+    return res
+
+
+def tools_host_and_chain():
+    """15c: at once, ``reprobe_gates`` (each stage its own process), the
+    dress rehearsal's GQA chain on a fixture tree at 592 px, the preflight
+    on a VG tree (no h5py here: a BLOCKER naming it), ``perturbations_demo``
+    and ``gan_feature_quality``. The gates' times are then read beside the
+    rehearsal's work on the card: the run checks that every gate finishes,
+    and the gates' clean times come from ``reprobe_gates`` run alone."""
+    import importlib.util
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="sgg_tools_")
+    paths = {}
+    try:
+        vg = os.path.join(tmp, "vg")
+        _fake_vg_tree(vg)
+        data, runs = os.path.join(tmp, "data"), os.path.join(tmp, "runs")
+        (rc, out), = run_processes({"fixture": _module(
+            "make_fixture_dataset") + [data, "gqa", "0.25"]}, 120).values()
+        check(rc == 0, f"make_fixture_dataset exit {rc}:\n{out[-2000:]}")
+        t0 = time.perf_counter()
+        res = run_processes({
+            "reprobe_gates": _module("reprobe_gates"),
+            "rehearsal": ["bash", os.path.join(
+                HERE, "sgg_torch", "tools", "dress_rehearsal.sh"), data,
+                runs, "gqa"],
+            "preflight": _module("preflight_real_data") + ["-data", vg],
+            "perturbations_demo": [sys.executable, "-m",
+                                   "sgg_torch.examples.perturbations_demo"],
+            "gan_feature_quality": [sys.executable, "-m",
+                                    "sgg_torch.examples.gan_feature_quality"]},
+            TOOL_TIMEOUT_S + 60)
+        gates = _tool_line("reprobe_gates", *res["reprobe_gates"])
+        print(f"phase 15 reprobe_gates, the dress rehearsal, the preflight "
+              f"and two examples at once in {time.perf_counter() - t0:.1f} "
+              f"s; the gates (beside the rehearsal's work): "
+              f"{json.dumps(gates['gates'])}", flush=True)
+        for gate, r in gates["gates"].items():
+            if "n/a" in r:
+                continue
+            for k, v in r.items():
+                if k.endswith("_ms"):
+                    check(isinstance(v, float) and v > 0,
+                          f"gate {gate} {k}: {v}")
+        check(gates["launches"].get("roi_align", 0) > 0
+              and gates["launches"].get("vgg_conv1", 0) > 0,
+              f"reprobe_gates launched {gates['launches']}")
+        paths["tool_reprobe_gates"] = gates["launches"]
+        rc, out = res["preflight"]
+        has_h5py = importlib.util.find_spec("h5py") is not None
+        blockers = [ln for ln in out.splitlines() if "BLOCKER:" in ln]
+        print(f"phase 15 preflight_real_data (h5py here: {has_h5py}): exit "
+              f"{rc}; {blockers}; verdict "
+              f"{out.strip().splitlines()[-len(blockers) - 1]}", flush=True)
+        check(rc == 1 and blockers and "Traceback" not in out,
+              f"preflight exit {rc}:\n{out[-2000:]}")
+        check(has_h5py or "h5py" in blockers[0],
+              f"the preflight's first BLOCKER names no h5py: {blockers}")
+        rc, out = res["perturbations_demo"]
+        check(rc == 0 and out.count("===") == 6 and "  ->  " in out,
+              f"perturbations_demo exit {rc}:\n{out[-2000:]}")
+        print(f"phase 15 perturbations_demo: {out.count('  ->  ')} "
+              f"triplets perturbed", flush=True)
+        rc, out = res["rehearsal"]
+        check(rc == 0 and out.rstrip().endswith("ALL GREEN"),
+              f"dress rehearsal exit {rc}:\n{out[-3000:]}")
+        got = _results_finite(os.path.join(runs, "gqa", "test_results.json"))
+        print(f"phase 15 dress rehearsal (gqa: pretrain_detector gqa -> "
+              f"-m sgcls -split gqa -backbone resnet50 -exclude_left_right "
+              f"-> -m sgdet -split gqa): "
+              f"{len(got)} results, avg/test_alls_R "
+              f"{got.get('avg/test_alls_R')}", flush=True)
+        rc, out = res["gan_feature_quality"]
+        fid = [ln for ln in out.splitlines() if ln.startswith("FID")]
+        check(rc == 0 and fid and math.isfinite(float(fid[0].split()[-1])),
+              f"gan_feature_quality exit {rc}:\n{out[-2000:]}")
+        print(f"phase 15 gan_feature_quality: {' '.join(out.split())}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
+def phase_tools(torch):
+    """Phase 15: the port's tools and examples, each a process of its own
+    (``python -m sgg_torch.tools.<name>``)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    paths = tools_profilers()
+    paths.update(tools_host_and_chain())
+    print(f"phase 15 tools and examples in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
         fail("sgg_torch/ not found beside chip_smoke.py; run from a checkout")
@@ -5060,6 +5311,7 @@ def main() -> None:
         t_all = time.perf_counter()
         phase_card(torch)
         phase_build()
+        from sgg_torch.utils.profiling import card_peaks
         peaks_name, peaks = card_peaks(torch.cuda.get_device_name(0))
         print(f"peaks assumed ({peaks_name}): {peaks[0] / 1e12:.2f} TB/s, "
               f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} "
@@ -5093,6 +5345,8 @@ def main() -> None:
             paths.update(dp_paths)
         with Deadline(MESH_DEADLINE_S, "phase 14"):
             paths.update(phase_mesh(torch, dp_step_ms))
+        with Deadline(TOOLS_DEADLINE_S, "phase 15"):
+            paths.update(phase_tools(torch))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from sgg_torch.ops._cuda import CudaKernel
+from sgg_torch.utils.profiling import (kernel_flops, roi_align_boxes_grad_flops,
+                                       roi_align_flops)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel(
@@ -404,17 +406,31 @@ class _RoIAlign(torch.autograd.Function):
         ctx.args = (spatial_scale, pooled, ratio)
         ctx.fmap_shape, ctx.fmap_dtype = tuple(fmap.shape), fmap.dtype
         ctx.save_for_backward(fmap, boxes)
-        if fmap.device.type == "cpu":
-            return roi_align_reference(fmap, boxes,
-                                       spatial_scale=spatial_scale,
-                                       pooled=pooled, ratio=ratio)
-        return _forward_kernel(fmap, boxes, spatial_scale, pooled, ratio)
+        n_out = boxes.shape[0] * boxes.shape[1] * pooled * pooled \
+            * fmap.shape[-1]
+        with kernel_flops(roi_align_flops(n_out, ratio)):
+            if fmap.device.type == "cpu":
+                return roi_align_reference(fmap, boxes,
+                                           spatial_scale=spatial_scale,
+                                           pooled=pooled, ratio=ratio)
+            return _forward_kernel(fmap, boxes, spatial_scale, pooled,
+                                   ratio)
 
     @staticmethod
     def backward(ctx, g):
         fmap, boxes = ctx.saved_tensors
         scale, pooled, ratio = ctx.args
         want_fmap, want_boxes = ctx.needs_input_grad[:2]
+        n_out = g.numel()
+        with kernel_flops(want_fmap * roi_align_flops(n_out, ratio)
+                          + want_boxes * roi_align_boxes_grad_flops(n_out,
+                                                                    ratio)):
+            return _RoIAlign._backward(ctx, g, fmap, boxes, scale, pooled,
+                                       ratio, want_fmap, want_boxes)
+
+    @staticmethod
+    def _backward(ctx, g, fmap, boxes, scale, pooled, ratio, want_fmap,
+                  want_boxes):
         grad_fmap = grad_boxes = None
         if fmap.device.type == "cpu":
             if want_fmap:

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from sgg_torch.ops._cuda import CudaKernel, refuse_grad
+from sgg_torch.utils.profiling import (kernel_flops, vgg_conv1_bwd_flops,
+                                       vgg_conv1_flops)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -125,8 +127,9 @@ class _VggConv1(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b):
-        out = (vgg_conv1_reference(x, w, b) if x.device.type == "cpu"
-               else _forward_kernel(x, w, b))
+        with kernel_flops(vgg_conv1_flops(x.shape[:3].numel())):
+            out = (vgg_conv1_reference(x, w, b) if x.device.type == "cpu"
+                   else _forward_kernel(x, w, b))
         ctx.save_for_backward(x, out)
         return out
 
@@ -135,10 +138,12 @@ class _VggConv1(torch.autograd.Function):
         x, out = ctx.saved_tensors
         if not any(ctx.needs_input_grad[1:]):
             return None, None, None
-        if x.device.type == "cpu":
-            gw, gb = vgg_conv1_backward_reference(x, out, g)
-        else:
-            gw, gb = _backward_kernel(x, out, g.to(x.dtype).contiguous())
+        with kernel_flops(vgg_conv1_bwd_flops(x.shape[:3].numel())):
+            if x.device.type == "cpu":
+                gw, gb = vgg_conv1_backward_reference(x, out, g)
+            else:
+                gw, gb = _backward_kernel(x, out,
+                                          g.to(x.dtype).contiguous())
         return None, gw, gb
 
 

@@ -83,12 +83,15 @@ from sgg_torch.train.step import make_train_step
 
 
 def build_model(config: Config, train_data: SGGDataset, *,
-                device="cuda", seed: int = 0) -> RelModelIMP:
+                device="cuda", seed: int = 0,
+                widths: Optional[Dict[str, int]] = None) -> RelModelIMP:
     """Flagship IMP model from config + dataset vocabulary (main.py:54-60),
     with seeded random weights, computing in the config's type over
     float32 master weights (the frozen trunk stored in that type), in eval
     mode on ``device`` (the card unless the caller asks for the CPU). In
-    mode sgdet it has no trunk: the detector's feature map feeds it."""
+    mode sgdet it has no trunk: the detector's feature map feeds it.
+    ``widths`` (``obj_dim``, ``hidden_dim``) overrides the heads' widths
+    (the tools' narrow CPU runs)."""
     dev = resolve_device(device)
     freq_table = None
     if config.use_bias:
@@ -97,14 +100,14 @@ def build_model(config: Config, train_data: SGGDataset, *,
                                 train_data.num_classes,
                                 train_data.num_predicates, must_overlap=True)
         freq_table = log_predicate_distribution(fg, bg)
-    obj_dim = 1024 if config.backbone == "resnet50" else 4096
+    widths = {"obj_dim": 1024 if config.backbone == "resnet50" else 4096,
+              **(widths or {})}
     model = RelModelIMP(
         num_classes=train_data.num_classes,
         num_predicates=train_data.num_predicates,
         mode=config.mode, use_bias=config.use_bias,
-        test_bias=config.test_bias, obj_dim=obj_dim,
-        backbone=config.backbone, edge_model=config.edge_model,
-        freq_table=freq_table)
+        test_bias=config.test_bias, backbone=config.backbone,
+        edge_model=config.edge_model, freq_table=freq_table, **widths)
     init_weights(model, seed)  # the bias table keeps its counts
     dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" \
         else torch.float32

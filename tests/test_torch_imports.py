@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``sgg_torch`` and no line of
-``chip_smoke.py`` or ``bench_kernels.py`` imports JAX, flax or ``sgg_tpu``; importing the package
+"""The port stands alone: no module of ``sgg_torch`` (its tools and
+examples included) and no line of ``chip_smoke.py`` or ``bench_kernels.py``
+imports JAX, flax, optax or ``sgg_tpu``; importing the package
 builds nothing; importing its entry points, data modules, import tool,
 feature bank and analysis modules loads none of ``h5py``, PIL,
 ``transformers`` and ``wandb``; importing the drawing helpers and the
@@ -13,7 +14,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|sgg_tpu)\b")
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|sgg_tpu)\b")
 
 
 def _port_files():
@@ -27,7 +28,8 @@ def test_no_jax_or_sgg_tpu_import(path):
     bad = [f"{path.name}:{i}: {line.strip()}"
            for i, line in enumerate(path.read_text().splitlines(), 1)
            if FORBIDDEN.match(line)
-           or re.search(r"import_module\(\s*['\"](jax|flax|sgg_tpu)", line)]
+           or re.search(r"import_module\(\s*['\"](jax|flax|optax|sgg_tpu)",
+                        line)]
     assert not bad, bad
 
 
@@ -79,6 +81,29 @@ def test_drawing_and_download_load_lazily(module):
             f"bad = [m for m in set(sys.modules) - before\n"
             f"       if m.split('.')[0] in ('cv2', 'networkx',\n"
             f"                              'matplotlib')]\n"
+            f"assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("package", ["sgg_torch.tools", "sgg_torch.examples"])
+def test_tools_and_examples_import_lightly(package):
+    """Every tool and example module imports without JAX, flax, optax or
+    ``sgg_tpu`` and without the packages that only some of them need when
+    they run (h5py, PIL, transformers, wandb, cv2, networkx,
+    matplotlib): the card's machine lacks several of them."""
+    code = (f"import sys, importlib, pkgutil\n"
+            f"before = set(sys.modules)\n"
+            f"import {package} as p\n"
+            f"names = [m.name for m in pkgutil.iter_modules(p.__path__,\n"
+            f"         '{package}.')]\n"
+            f"assert len(names) >= 4, names\n"
+            f"for n in names:\n"
+            f"    importlib.import_module(n)\n"
+            f"bad = [m for m in set(sys.modules) - before\n"
+            f"       if m.split('.')[0] in ('jax', 'flax', 'optax',\n"
+            f"       'sgg_tpu', 'h5py', 'PIL', 'transformers', 'wandb',\n"
+            f"       'cv2', 'networkx', 'matplotlib')]\n"
             f"assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
