@@ -251,7 +251,26 @@ non-zero exit and without the result line:
    card's machine has no ``h5py``), ``perturbations_demo`` and
    ``gan_feature_quality`` (a finite FID). The tools' kernel launches
    (their JSON lines' process totals) join the paths as
-   ``tool_<name>``.
+   ``tool_<name>``;
+16. the native host library (``sgg_torch.native``) under its own
+   deadline: 16a a fresh ``g++`` build, timed, and the host CPU's model
+   beside the card's name and power limit; 64 seeded uint8 images
+   (300-1024 px a side, half flipped) through ``prepare_image_u8`` and its
+   plain version (within 1 per byte on at most ``NATIVE_SHARE`` of the
+   bytes), ms an image inline and on the loader's 4 threads beside PIL's
+   route for the same images; 16b phase 5's train shape packed from
+   ragged graphs over both caps, native against plain (equal buffers and
+   dropped counts), ms a batch of each; 16c the card's rasterizer on phase
+   5's 6,144 pairs within 1e-4 of ``draw_union_rects_native``; 16d ``main
+   -m sgcls -loss dnorm -b 24`` (VGG16, 592 px, uint8) for 2 epochs of 4
+   steps and the evals on the GQA splits of a fixture tree of JPEGs
+   larger than the canvas (the CLI refuses ``-split gqa`` with VGG16, so
+   ``load_splits`` answers ``-split synthetic`` with the CLI's GQA
+   branch), counted: every uint8 image through the native prep, every
+   batch through the native packer, K2 and K1 launched (path
+   ``native_gqa``), train images/s by epoch beside phase 5's, and the
+   host's ms to assemble a batch of 24 JPEGs on the uint8 (native) and
+   float32 (PIL) routes.
 
 Then the launches of each path, a JSON line ``{"kernels": [...]}`` (each
 forward row's numbers at the training shapes, the eval shapes' under
@@ -259,7 +278,7 @@ forward row's numbers at the training shapes, the eval shapes' under
 pool level's under ``fpn``, the GAN step's under ``gan``; the backward
 rows' at the pretraining shape, their FPN levels' under ``fpn``,
 K1-bwd-fmap's GAN shape under ``gan``; ``launches`` summed over the paths
-of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15, the data-parallel
+of phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16, the data-parallel
 paths' launches summed over their ranks, the tools' over their processes) and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -5300,6 +5319,359 @@ def phase_tools(torch):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the native host library (``sgg_torch.native``) and the sgcls
+# main path from JPEGs through it
+
+NATIVE_DEADLINE_S = 240
+NATIVE_IMAGES = 64  # 16a: seeded uint8 images, 300-1024 px a side
+NATIVE_SHARE = 1e-4  # the plain prep: off by 1 on at most this share
+LOADER_THREADS = 4  # phase 5's num_workers
+# 16d: GQA JPEGs larger than the canvas; 4 of the train scene graphs go to
+# val (-val_size), 96 train images make 4 steps an epoch at batch 24
+GQA_TRAIN, GQA_VAL, GQA_VAL_SIZE, GQA_SIDES = 100, 16, 4, (640, 1024)
+
+
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _pil_canvas(img, ch, cw, flip):
+    """The uint8 canvas by PIL's resize: the route the port took before
+    its native prep, and the JAX package's fall-back."""
+    import numpy as np
+
+    from sgg_torch.data.pipeline import IMAGENET_MEAN, _resized
+    out = _resized(img, ch, cw)
+    if flip:
+        out = out[:, ::-1]
+    canvas = np.empty((CANVAS, CANVAS, 3), np.uint8)
+    canvas[:] = (IMAGENET_MEAN * 255).astype(np.uint8)
+    canvas[:ch, :cw] = np.round(out * 255).astype(np.uint8)
+    return canvas
+
+
+def _ms_per_item(fn, items, threads):
+    """Wall ms an item of ``fn`` over ``items``, inline or on
+    ``threads`` threads (the loader's pool)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    if threads == 1:
+        for it in items:
+            fn(it)
+    else:
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            list(pool.map(fn, items))
+    return (time.perf_counter() - t0) * 1e3 / len(items)
+
+
+def native_prep():
+    """16a: a fresh build of the library, timed; 64 seeded uint8 images
+    through ``prepare_image_u8`` and its plain version (within 1 per byte
+    on at most ``NATIVE_SHARE`` of the bytes); ms an image inline and on
+    the loader's threads beside PIL's route for the same images."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from sgg_torch import native
+    from sgg_torch.data.pipeline import IMAGENET_MEAN, content_size
+    tmp = tempfile.mkdtemp(prefix="sgg_native_")
+    try:
+        t0 = time.perf_counter()
+        native.Library(native.build(tmp))
+        build_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    lib = native.load()
+    print(f"phase 16 host CPU {native.host_cpu()!r}; card {smi_line()}",
+          flush=True)
+    print(f"phase 16 native library built with {native.CXX} "
+          f"{' '.join(native.CXX_FLAGS)} in {build_s:.2f} s (a fresh "
+          f"build); the package's {lib.path.name} loaded", flush=True)
+    rng = np.random.RandomState(16)
+    mean_u8 = (IMAGENET_MEAN * 255).astype(np.uint8)
+    items = []
+    for i in range(NATIVE_IMAGES):
+        h, w = (int(v) for v in rng.randint(300, 1025, 2))
+        ch, cw, _ = content_size(h, w, CANVAS)
+        items.append((rng.randint(0, 256, (h, w, 3), np.uint8), ch, cw,
+                      bool(i % 2)))
+    worst, off, n_bytes = 0, 0, 0
+    for img, ch, cw, flip in items:
+        got = native.prepare_image_u8(img, CANVAS, ch, cw, flip, mean_u8)
+        want = native.prepare_image_u8_plain(img, CANVAS, ch, cw, flip,
+                                             mean_u8)
+        check((got[ch:] == mean_u8).all() and (got[:, cw:] == mean_u8).all(),
+              f"{img.shape} -> {ch}x{cw}: padding is not the mean")
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        worst = max(worst, int(diff.max()))
+        off += int((diff > 0).sum())
+        n_bytes += ch * cw * 3
+    share = off / n_bytes
+    print(f"phase 16a prepare_image_u8 against its plain version on "
+          f"{NATIVE_IMAGES} seeded uint8 images (300-1024 px a side, half "
+          f"flipped, {CANVAS} px canvas): max|diff| {worst}, {off} of "
+          f"{n_bytes} content bytes off ({share:.3g})", flush=True)
+    check(worst <= 1 and share <= NATIVE_SHARE,
+          f"native prep vs plain: max {worst}, share {share}")
+
+    def nat(it):
+        return native.prepare_image_u8(it[0], CANVAS, it[1], it[2], it[3],
+                                       mean_u8)
+
+    def pil(it):
+        return _pil_canvas(*it)
+
+    nat(items[0]), pil(items[0])  # warm
+    ms = {"native_1_thread": _ms_per_item(nat, items, 1),
+          f"native_{LOADER_THREADS}_threads": _ms_per_item(
+              nat, items, LOADER_THREADS),
+          "pil_1_thread": _ms_per_item(pil, items, 1),
+          f"pil_{LOADER_THREADS}_threads": _ms_per_item(
+              pil, items, LOADER_THREADS)}
+    print(f"phase 16a host ms an image ({CANVAS} px canvas, the same "
+          f"{NATIVE_IMAGES} images; CPU {native.host_cpu()!r}, "
+          f"{os.cpu_count()} cores): {json.dumps(ms)}", flush=True)
+    return ms
+
+
+def _ragged_batch(rng, B, max_nodes, max_edges):
+    """Concatenated graphs of ``B`` images, each over both caps, with
+    relation ends that point past the cut or below 0."""
+    import numpy as np
+    counts = rng.randint(max_nodes // 2, 2 * max_nodes, B)
+    rel_counts = rng.randint(max_edges // 2, 4 * max_edges, B)
+    boxes = (rng.rand(counts.sum(), 4) * CANVAS).astype(np.float32)
+    classes = rng.randint(1, 151, counts.sum()).astype(np.int32)
+    rels = np.concatenate([
+        np.stack([rng.randint(-2, n + 2, r), rng.randint(-2, n + 2, r),
+                  rng.randint(1, 51, r)], 1)
+        for n, r in zip(counts, rel_counts)]).astype(np.int32)
+    offsets = [np.concatenate([[0], np.cumsum(c)]).astype(np.int64)
+               for c in (counts, rel_counts)]
+    return boxes, classes, offsets[0], rels, offsets[1]
+
+
+def native_pack():
+    """16b: phase 5's train shape (24 images, 40 nodes, 256 edges) packed
+    from ragged graphs that overflow both caps, native against plain:
+    equal buffers and dropped counts; ms a batch of each."""
+    import numpy as np
+
+    from sgg_torch import native
+    rng = np.random.RandomState(160)
+    batches = [_ragged_batch(rng, TRAIN_BATCH, TRAIN_NODES, TRAIN_EDGES)
+               for _ in range(8)]
+    dropped = []
+    for args in batches:
+        got = native.pack_graph_batch(*args, TRAIN_NODES, TRAIN_EDGES)
+        want = native.pack_graph_batch_plain(*args, TRAIN_NODES, TRAIN_EDGES)
+        check(all(g.dtype == w.dtype and np.array_equal(g, w)
+                  for g, w in zip(got[:5], want[:5])) and got[5] == want[5],
+              "pack_graph_batch differs from its plain version")
+        check(got[2].all(1).any() and got[4].all(1).any() and got[5] > 0,
+              "the ragged batch did not overflow both caps")
+        dropped.append(got[5])
+
+    def run(fn, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for args in batches:
+                fn(*args, TRAIN_NODES, TRAIN_EDGES)
+        return (time.perf_counter() - t0) * 1e3 / (reps * len(batches))
+
+    ms = {"native": run(native.pack_graph_batch, 20),
+          "plain": run(native.pack_graph_batch_plain, 1)}
+    print(f"phase 16b pack_graph_batch at {TRAIN_BATCH} images x "
+          f"{TRAIN_NODES} nodes x {TRAIN_EDGES} edges, {len(batches)} "
+          f"ragged batches over both caps (dropped {dropped}): equal to "
+          f"its plain version; host ms a batch {json.dumps(ms)}",
+          flush=True)
+    return ms
+
+
+def native_rects(torch):
+    """16c: the card's rasterizer (``ops/rects.py``) on phase 5's 6,144
+    pairs within 1e-4 of ``draw_union_rects_native``."""
+    import numpy as np
+
+    from sgg_torch import native
+    from sgg_torch.constants import RECT_SIZE
+    from sgg_torch.ops.rects import draw_union_rects
+    g = torch.Generator().manual_seed(161)
+    boxes = eval_boxes(g, TRAIN_BATCH, TRAIN_NODES, CANVAS)
+    # well-formed boxes: the oracle divides by the union's extent
+    xy = boxes[..., :2].clamp(0, CANVAS - 9)
+    boxes = torch.cat([xy, torch.maximum(boxes[..., 2:], xy + 8)], -1)
+    pairs = torch.randint(0, TRAIN_NODES, (TRAIN_BATCH, TRAIN_EDGES, 2),
+                          generator=g)
+    b = torch.arange(TRAIN_BATCH)[:, None]
+    pb = torch.cat([boxes[b, pairs[..., 0]], boxes[b, pairs[..., 1]]], -1)
+    pb = pb.reshape(-1, 8).contiguous()
+    want = native.draw_union_rects_native(pb.numpy(), RECT_SIZE)
+    got = draw_union_rects(pb.cuda(), RECT_SIZE).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    print(f"phase 16c the card's rasterizer on {pb.shape[0]} pairs "
+          f"({TRAIN_BATCH} x {TRAIN_EDGES}) against the native oracle: "
+          f"max|err| {err:.3g}", flush=True)
+    check(np.isfinite(want).all() and err <= 1e-4,
+          f"rasterizer vs native oracle: {err}")
+
+
+def native_gqa(torch, train_rate):
+    """16d: ``main -m sgcls -loss dnorm -b 24`` (VGG16, 592 px,
+    ``-image_format uint8``) on the GQA splits of a fixture tree of JPEGs
+    larger than the canvas, 2 epochs of 4 steps and the evals, counted:
+    every uint8 image (the training's) through the native prep and PIL
+    only for the evals' float32 canvases, every batch through the native
+    packer, K2 and K1 launched. Then the host's ms to
+    assemble a train batch of 24 on the uint8 (native) and float32 (PIL)
+    routes. The CLI refuses ``-split gqa`` with VGG16 (the reference's rule
+    against a VG-pretrained detector on GQA, whose test images VG's train
+    split may hold; the weights here are seeded), so the run passes
+    ``-split synthetic`` and its ``load_splits`` answers with the CLI's
+    own GQA branch on the tree."""
+    import shutil
+    import tempfile
+    import types
+
+    from sgg_torch import constants, native
+    from sgg_torch import main as cli
+    from sgg_torch.data import fixtures
+    from sgg_torch.data import pipeline
+    from sgg_torch.train import trainer as trainer_mod
+
+    tree = tempfile.mkdtemp(prefix="sgg_gqa_")
+    seen = {"uint8_images": 0, "other_images": 0, "pil_resizes": 0,
+            "batches": 0}
+    epochs, splits = [], {}
+    saved = (pipeline.prepare_example, pipeline._resized,
+             pipeline.pack_ragged, trainer_mod.Trainer.train_epoch,
+             cli.load_splits)
+
+    def prepare_example(image, *a, uint8=False, **k):
+        key = ("uint8_images" if uint8 and image.dtype.name == "uint8"
+               else "other_images")
+        seen[key] += 1
+        return saved[0](image, *a, uint8=uint8, **k)
+
+    def resized(*a, **k):
+        seen["pil_resizes"] += 1
+        return saved[1](*a, **k)
+
+    def pack_ragged(*a, **k):
+        seen["batches"] += 1
+        return saved[2](*a, **k)
+
+    def train_epoch(self, epoch):
+        t0 = time.perf_counter()
+        out = saved[3](self, epoch)
+        epochs.append((time.perf_counter() - t0, self.steps_per_epoch))
+        return out
+
+    def load_splits(config):
+        gqa = types.SimpleNamespace(**{**vars(config), "split": "gqa",
+                                       "data": tree})
+        splits.update(saved[4](gqa))
+        return splits
+
+    try:
+        t0 = time.perf_counter()
+        fixtures.write_gqa_fixture(tree, n_train=GQA_TRAIN, n_val=GQA_VAL,
+                                   image_sizes=GQA_SIDES)
+        print(f"phase 16d GQA fixture: {GQA_TRAIN + GQA_VAL} JPEGs of "
+              f"{GQA_SIDES[0]}-{GQA_SIDES[1] - 1} px a side in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        argv = ["-m", "sgcls", "-loss", "dnorm", "-b", str(TRAIN_BATCH),
+                "-split", "synthetic", "-nepoch", "2", "-val_size",
+                str(GQA_VAL_SIZE), "-p", "2", "-nwork", str(LOADER_THREADS)]
+        (pipeline.prepare_example, pipeline._resized, pipeline.pack_ragged,
+         trainer_mod.Trainer.train_epoch, cli.load_splits) = (
+            prepare_example, resized, pack_ragged, train_epoch, load_splits)
+        lib = native.load()
+        lib.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            res, n, routes = _counted(torch, lambda: cli.main(argv))
+        finally:
+            (pipeline.prepare_example, pipeline._resized,
+             pipeline.pack_ragged, trainer_mod.Trainer.train_epoch,
+             cli.load_splits) = saved
+        wall = time.perf_counter() - t0
+        calls = dict(lib.calls)
+        steps = sum(s for _, s in epochs)
+        rates = [s * TRAIN_BATCH / t for t, s in epochs]
+        recalls = {k: v for k, v in res.items()
+                   if k.startswith("sgcls/test_alls_R@")}
+        print(f"phase 16d main {' '.join(argv)} on the GQA tree (VGG16, "
+              f"{constants.IM_SCALE} px, uint8 canvases) in {wall:.1f} s: "
+              f"{len(splits['train'])} train images, {steps} steps over "
+              f"{len(epochs)} epochs, train images/s (host included) by "
+              f"epoch {json.dumps(rates)} (phase 5's, synthetic canvases: "
+              f"{train_rate:.2f}); recalls {json.dumps(recalls)}; images "
+              f"and batches {json.dumps(seen)}; native calls "
+              f"{json.dumps(calls)}; launches {json.dumps(n)} by route "
+              f"{json.dumps(routes)}", flush=True)
+        check(len(epochs) == 2 and all(s >= 4 for _, s in epochs),
+              f"epochs {epochs}: want 2 of at least 4 steps")
+        check(recalls and all(math.isfinite(v) for v in recalls.values()),
+              f"recalls missing or not finite: {recalls}")
+        # training decodes uint8 and takes the native prep; the evals
+        # load float32 canvases, resized by PIL (``val_epoch``'s loader,
+        # as the JAX package's)
+        check(seen["uint8_images"] >= steps * TRAIN_BATCH
+              and calls.get("prepare_image_u8") == seen["uint8_images"]
+              and seen["pil_resizes"] == seen["other_images"],
+              f"images {seen}, native calls {calls}: want every uint8 "
+              f"image through the native prep and PIL only for the rest")
+        check(seen["batches"] >= steps
+              and calls.get("pack_graph_batch") == seen["batches"],
+              f"batches {seen['batches']}, native calls {calls}: want "
+              f"every batch through the native packer")
+        check(n["vgg_conv1"] >= steps and n["roi_align"] >= 2 * steps
+              and NO_BACKWARD.items() <= n.items(),
+              f"{steps} steps and the evals launched {n}")
+
+        host_ms, host_mb = {}, {}
+        for fmt in ("uint8", "float32"):
+            loader = pipeline.BatchLoader(
+                splits["train"], batch_size=TRAIN_BATCH,
+                max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES, seed=0,
+                num_workers=LOADER_THREADS, im_scale=constants.IM_SCALE,
+                image_format=fmt)
+            t0 = time.perf_counter()
+            batches = list(loader)
+            host_ms[fmt] = (time.perf_counter() - t0) * 1e3 / len(batches)
+            host_mb[fmt] = batches[0].images.nbytes / 1e6
+        print(f"phase 16d host batch of {TRAIN_BATCH} GQA JPEGs (decode "
+              f"included, {LOADER_THREADS} threads): assembly ms "
+              f"{json.dumps(host_ms)} (uint8: the native prep; float32: "
+              f"PIL), images MB {json.dumps(host_mb)}", flush=True)
+        return n
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+
+
+def phase_native(torch, train_rate):
+    """Phase 16: the native host library, then the sgcls main path from
+    JPEGs through it. Returns the launches of path ``native_gqa``."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    native_prep()
+    native_pack()
+    native_rects(torch)
+    n = native_gqa(torch, train_rate)
+    print(f"phase 16 native host library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"native_gqa": n}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "sgg_torch")):
         fail("sgg_torch/ not found beside chip_smoke.py; run from a checkout")
@@ -5347,6 +5719,8 @@ def main() -> None:
             paths.update(phase_mesh(torch, dp_step_ms))
         with Deadline(TOOLS_DEADLINE_S, "phase 15"):
             paths.update(phase_tools(torch))
+        with Deadline(NATIVE_DEADLINE_S, "phase 16"):
+            paths.update(phase_native(torch, train_rate))
         print(f"all phases in {time.perf_counter() - t_all:.1f} s",
               flush=True)
     print("launches by path " + json.dumps(paths), flush=True)

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -292,8 +292,14 @@ def write_vg_fixture(data_dir: str, n_train: int = 90, n_test: int = 30,
 
 
 def write_gqa_fixture(data_dir: str, n_train: int = 40, n_val: int = 15,
-                      n_classes: int = 25, n_preds: int = 10, seed: int = 1):
+                      n_classes: int = 25, n_preds: int = 10, seed: int = 1,
+                      image_sizes: Optional[Tuple[int, int]] = None):
     """GQA sceneGraphs + balanced_questions + JPEGs under ``data_dir``.
+
+    ``image_sizes``: the ``[lo, hi)`` range of the JPEGs' widths and
+    heights in pixels; None keeps the default 240-520 (and the same
+    bytes). Sizes above the canvas make the pipeline's resize shrink, as
+    it does for real GQA photos.
 
     Image ids start at 300000 so a VG fixture can share ``VG/VG_100K``.
     Predicates include ``to the left of`` / ``to the right of`` so
@@ -314,7 +320,7 @@ def write_gqa_fixture(data_dir: str, n_train: int = 40, n_val: int = 15,
     plans = _plan_images(rng, n_train, n_val, pools,
                          len(class_names) + 1, len(pred_names) + 1)
 
-    sizes = _image_sizes(rng, n_train + n_val)
+    sizes = _image_sizes(rng, n_train + n_val, *(image_sizes or ()))
 
     def build_sg(i):
         w, h = sizes[i]

@@ -4,7 +4,8 @@ Counterpart of ``sgg_tpu/data/graph_batch.py``: a batch is ``(B, N, ...)``
 nodes and ``(B, E, ...)`` edges with validity masks, replacing the
 reference's ragged ``Blob`` container (``dataloaders/blob.py``). The host
 side builds numpy arrays; ``GraphBatch.to`` makes torch tensors on a device
-(pinned memory and ``non_blocking`` copies for CUDA).
+(pinned memory and ``non_blocking`` copies for CUDA). ``pack_ragged``
+packs every batch with the native packer (``sgg_torch/native``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from sgg_torch import native
 
 
 @dataclasses.dataclass
@@ -86,50 +89,14 @@ class GraphBatch:
             fmaps=place(self.fmaps))
 
 
-def pack_graph_batch(boxes, classes, node_offsets, rels, rel_offsets,
-                     n_max: int, e_max: int):
-    """Pack ragged per-image graphs into padded buffers (numpy).
-
-    The numpy path of ``sgg_tpu/native/__init__.py:pack_graph_batch``.
-    Returns (boxes (B,N,4) f32, classes (B,N) i32, node_mask (B,N) u8,
-    rels (B,E,3) i32, rel_mask (B,E) u8, dropped_rel_count).
-    """
-    B = len(node_offsets) - 1
-    boxes = np.ascontiguousarray(boxes, dtype=np.float32).reshape(-1, 4)
-    classes = np.ascontiguousarray(classes, dtype=np.int32)
-    rels = np.ascontiguousarray(rels, dtype=np.int32).reshape(-1, 3)
-    out_boxes = np.zeros((B, n_max, 4), dtype=np.float32)
-    out_classes = np.zeros((B, n_max), dtype=np.int32)
-    out_node_mask = np.zeros((B, n_max), dtype=np.uint8)
-    out_rels = np.zeros((B, e_max, 3), dtype=np.int32)
-    out_rel_mask = np.zeros((B, e_max), dtype=np.uint8)
-    dropped = 0
-    for b in range(B):
-        ns, ne = node_offsets[b], node_offsets[b + 1]
-        n = min(ne - ns, n_max)
-        out_boxes[b, :n] = boxes[ns:ns + n]
-        out_classes[b, :n] = classes[ns:ns + n]
-        out_node_mask[b, :n] = 1
-        w = 0
-        for r in range(rel_offsets[b], rel_offsets[b + 1]):
-            s, o, p = rels[r]
-            if s >= n or o >= n or s < 0 or o < 0 or w >= e_max:
-                dropped += 1
-                continue
-            out_rels[b, w] = (s, o, p)
-            out_rel_mask[b, w] = 1
-            w += 1
-    return (out_boxes, out_classes, out_node_mask, out_rels, out_rel_mask,
-            dropped)
-
-
 def pack_ragged(per_image_boxes, per_image_classes, per_image_rels,
                 max_nodes: int, max_edges: int,
                 images: Optional[np.ndarray] = None,
                 im_hw: Optional[np.ndarray] = None,
                 im_scale_org: Optional[np.ndarray] = None) -> GraphBatch:
     """Pack a list of ragged per-image graphs into a host GraphBatch
-    (``sgg_tpu/data/graph_batch.py:pack_ragged``)."""
+    (``sgg_tpu/data/graph_batch.py:pack_ragged``) with
+    ``native.pack_graph_batch``."""
     B = len(per_image_boxes)
     node_offsets = np.zeros(B + 1, dtype=np.int64)
     np.cumsum([len(b) for b in per_image_boxes], out=node_offsets[1:])
@@ -143,7 +110,7 @@ def pack_ragged(per_image_boxes, per_image_classes, per_image_rels,
     rels = (np.concatenate(per_image_rels, axis=0)
             if rel_offsets[-1] else np.zeros((0, 3), np.int32))
 
-    pb, pc, pnm, pr, prm, _ = pack_graph_batch(
+    pb, pc, pnm, pr, prm, _ = native.pack_graph_batch(
         boxes, classes, node_offsets, rels, rel_offsets, max_nodes, max_edges)
 
     if im_hw is None:

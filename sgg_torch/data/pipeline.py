@@ -12,12 +12,15 @@ the batches carry the stored trunk maps instead of canvases. Batches are
 assembled by worker threads and queued; ``device_prefetch`` keeps the next
 batches' copies to the device in flight while a step runs.
 
-PIL (and ``h5py``, for the cache) is imported where a file is decoded or
-read. File-less datasets (``-split synthetic``) need neither: their image
-is a blank canvas, whose resize is itself. The JAX package's native
-one-pass resize (``sgg_tpu/native/image_prep.cpp``) is not ported: the
-uint8 route always takes PIL's, which the JAX package also takes without
-its native library.
+On the uint8 route a uint8 image (a decoded file) goes through the native
+one-pass prep, ``sgg_torch.native.prepare_image_u8`` (triangle resize,
+flip and mean padding in C++, as the JAX package's
+``sgg_tpu/native/image_prep.cpp``, with the same bytes); there is no PIL
+fall-back. The float32 route, and a float image on the uint8 route (the
+blank canvas of a file-less dataset), resize with PIL as the JAX package
+does. PIL (and ``h5py``, for the cache) is imported where a file is
+decoded or read. File-less datasets (``-split synthetic``) need neither:
+their image is a blank canvas, whose resize is itself.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from sgg_torch import native
 from sgg_torch.constants import BOX_SCALE, IM_SCALE
 from sgg_torch.data.datasets import SGGDataset, filter_duplicate_rels
 from sgg_torch.data.graph_batch import GraphBatch, pack_ragged
@@ -117,8 +121,9 @@ def prepare_example(image: np.ndarray, boxes: np.ndarray, rels: np.ndarray,
     (content_h, content_w)). The canvas is float32, normalized, padded
     with 0.0; with ``uint8=True`` it is raw uint8, padded with the ImageNet
     mean rounded to uint8, and normalized on the device
-    (``sgg_tpu/data/pipeline.py:prepare_example``). ``force_flip`` pins the
-    horizontal flip (the feature cache renders both orientations).
+    (``sgg_tpu/data/pipeline.py:prepare_example``): a uint8 image takes
+    the native one-pass prep, any other PIL's resize. ``force_flip`` pins
+    the horizontal flip (the feature cache renders both orientations).
     """
     h, w = image.shape[:2]
     ch, cw, s = content_size(h, w, im_scale)
@@ -126,12 +131,17 @@ def prepare_example(image: np.ndarray, boxes: np.ndarray, rels: np.ndarray,
         boxes, rels, box_coordinates, is_train, rng, ch, cw, s,
         im_scale=im_scale, filter_duplicates=filter_duplicates,
         force_flip=force_flip)
+    mean_u8 = (IMAGENET_MEAN * 255).astype(np.uint8)
+    if uint8 and image.dtype == np.uint8:
+        canvas = native.prepare_image_u8(image, im_scale, ch, cw, flipped,
+                                         mean_u8)
+        return canvas, boxes, rels, (ch, cw)
     img = _resized(image, ch, cw)
     if flipped:
         img = img[:, ::-1]
     if uint8:
         canvas = np.empty((im_scale, im_scale, 3), np.uint8)
-        canvas[:] = (IMAGENET_MEAN * 255).astype(np.uint8)
+        canvas[:] = mean_u8
         canvas[:ch, :cw] = np.round(img * 255).astype(np.uint8)
     else:
         img = (img - IMAGENET_MEAN) / IMAGENET_STD

@@ -107,3 +107,27 @@ def test_tools_and_examples_import_lightly(package):
             f"assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("source", ["image_prep.cpp", "collate.cpp",
+                                    "rects.cpp"])
+def test_native_library_builds_from_its_own_sources(source, monkeypatch,
+                                                    tmp_path):
+    """``sgg_torch.native`` compiles its own copy of each C++ source: the
+    compiler's command names the file under ``sgg_torch/native/`` and no
+    path under ``sgg_tpu/``."""
+    from sgg_torch import native
+    assert (ROOT / "sgg_torch" / "native" / source).is_file()
+    commands = []
+
+    def run(cmd, **kw):
+        commands.append(cmd)
+        raise OSError("not run")
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native.subprocess, "run", run)
+    with pytest.raises(native.NativeBuildError):
+        native.build()
+    cmd, = commands
+    assert str(ROOT / "sgg_torch" / "native" / source) in cmd
+    assert not [a for a in cmd if "sgg_tpu" in a], cmd

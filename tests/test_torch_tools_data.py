@@ -99,6 +99,29 @@ def test_fixture_trees_are_byte_equal(tmp_path, monkeypatch):
         assert (port / rel).read_bytes() == (jax / rel).read_bytes(), rel
 
 
+def test_fixture_image_sizes_option(tmp_path):
+    """``--image-sizes LO:HI`` draws every GQA JPEG's sides from [LO, HI),
+    and the scene graphs carry the same sizes."""
+    import json
+
+    from PIL import Image
+    make_fixture_dataset.main([str(tmp_path), "gqa", "0.1",
+                               "--image-sizes", "600:700"])
+    sgs = {}
+    for name in ("train", "val"):
+        with open(tmp_path / "GQA" / "sceneGraphs" /
+                  f"{name}_sceneGraphs.json") as f:
+            sgs.update(json.load(f))
+    assert len(sgs) == 8
+    for imid, sg in sgs.items():
+        with Image.open(tmp_path / "VG" / "VG_100K" / f"{imid}.jpg") as im:
+            assert im.size == (sg["width"], sg["height"])
+        assert 600 <= sg["width"] < 700 and 600 <= sg["height"] < 700
+    with pytest.raises(SystemExit):
+        make_fixture_dataset.main([str(tmp_path), "gqa", "--image-sizes",
+                                   "700:600"])
+
+
 # ---------------------------------------------------------------- preflight
 
 @pytest.fixture(scope="module")
