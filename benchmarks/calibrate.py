@@ -1,0 +1,127 @@
+"""The readings that the limits of ``correct`` are set from, at a cell's
+own size, many seeds in one process:
+
+    python3 -m benchmarks.calibrate --workload <cell> --seeds 1,2,3 \
+        [--controls 1,2,3]
+
+For each seed of ``--seeds``: the program's check steps through
+``Trainer.train_epoch`` (as a run takes them, with no window), then the
+reference; the three numbers of ``check.py`` (the lower readings). For
+each seed of ``--controls`` also the reference put in the program's
+place and computed in the precision below the configuration's
+(``control``), and with half of each batch left out, the means taken
+over the rest (``fault_half``). A step that leaves the state unchanged
+reads 1 on ``update_gap`` by construction and needs no run. One JSON line
+a seed and kind on standard output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import shutil
+import sys
+import tempfile
+
+import torch
+
+from benchmarks import check, program, spec, traffic, window
+from benchmarks.run import fixed_caches, seeds
+
+
+def half_batch(nb: dict) -> dict:
+    """Half of the batch left out: its nodes and relations masked."""
+    nb = dict(nb)
+    h = nb["node_mask"].shape[0] // 2
+    for k in ("node_mask", "rel_mask"):
+        nb[k] = nb[k].copy()
+        nb[k][h:] = False
+    return nb
+
+
+def program_steps(cell, split, scratch, names, cfg_seed, weight_seed, dev):
+    """The program's check steps through ``Trainer.train_epoch``."""
+    mix = cell.traffic
+    built = program.build(cell.config, dev, weight_seed, split, scratch,
+                          names, cfg_seed)
+    stepper = window.Stepper(
+        getattr(built.trainer, built.attr), check_steps=mix["check_steps"],
+        warmup_steps=0, seconds=0.0, trace_steps=0, clock=window.Clock(dev),
+        opt_state=built.opt_state, params=built.params)
+    rec = window.run_epochs(built.trainer, built.attr, stepper)
+    del built, stepper
+    window.wait_threads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def numbers_line(kind, seed, numbers):
+    keys = [k for k in numbers if k != "quiet_leaves"]
+    return json.dumps({"kind": kind, "seed": seed,
+                       **{k: numbers[k][0] for k in keys},
+                       "at": {k: numbers[k][1] for k in keys},
+                       "quiet_leaves": len(numbers["quiet_leaves"])})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", default="")
+    ap.add_argument("--controls", default="")
+    args = ap.parse_args(argv)
+    fixed_caches()
+    cell = spec.load_cell(args.workload)
+    cfg, mix = cell.config, cell.traffic
+    program.set_canvas(cfg)
+    dev = torch.device("cuda", 0)
+    runs = [int(s) for s in args.seeds.split(",") if s]
+    controls = {int(s) for s in args.controls.split(",") if s}
+    for seed in sorted(set(runs) | controls, key=lambda s: (
+            s not in runs, runs.index(s) if s in runs else 0)):
+        cfg_seed, weight_seed = seeds(seed)
+        scratch = tempfile.mkdtemp(prefix="sgg-calib-")
+        try:
+            names, sizes = traffic.write_pool(mix, seed, scratch, device=dev)
+            split = traffic.annotations(
+                mix, seed, sizes,
+                traffic.num_entries(mix, cfg["batch_size"], 0.0),
+                cfg["num_classes"], cfg["num_predicates"])
+            paths = [os.path.join(scratch, n) for n in names]
+
+            def ref(low="bf16", hook=None):
+                return check.reference_steps(
+                    cfg, split, paths, cfg_seed, weight_seed, dev, low,
+                    mix["check_steps"], batch_hook=hook)
+
+            base = ref()
+            if seed in runs:
+                rec = program_steps(cell, split, scratch, names, cfg_seed,
+                                    weight_seed, dev)
+                print(numbers_line("program", seed, check.compare(
+                    rec.losses,
+                    check.program_first(rec.opt_state, base["init"],
+                                        cfg["l2"], dev),
+                    check.program_change(rec.params, base["init"], dev),
+                    base)), flush=True)
+            if seed in controls:
+                for kind, kw in (("control", {"low": cfg["precision"]
+                                              ["control"]}),
+                                 ("fault_half", {"hook": half_batch})):
+                    other = ref(**kw)
+                    print(numbers_line(kind, seed, check.compare(
+                        other["losses"], other["first"], other["change"],
+                        base)), flush=True)
+                    del other
+            del base
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
