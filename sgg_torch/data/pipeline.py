@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import os
 import queue
 import threading
@@ -40,6 +41,7 @@ from sgg_torch import native
 from sgg_torch.constants import BOX_SCALE, IM_SCALE
 from sgg_torch.data.datasets import SGGDataset, filter_duplicate_rels
 from sgg_torch.data.graph_batch import GraphBatch, pack_ragged
+from sgg_torch.utils import counters
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -159,8 +161,9 @@ def load_source_image(dataset, idx: int, image_format: str,
     the same pixels."""
     if with_images and dataset.filenames:
         path = os.path.join(dataset.images_dir, dataset.filenames[idx])
-        return (load_image_u8(path) if image_format == "uint8"
-                else load_image(path))
+        with counters.span("image.decode"):
+            return (load_image_u8(path) if image_format == "uint8"
+                    else load_image(path))
     ext = max(float(dataset.gt_boxes[idx].max()), 1.0)
     return np.zeros((int(ext), int(ext), 3), np.float32)
 
@@ -169,7 +172,8 @@ _COPY_STREAMS: dict = {}
 
 
 def device_prefetch(iterator: Iterable[GraphBatch], device,
-                    size: int = 2) -> Iterator[GraphBatch]:
+                    size: int = 2, epoch: Optional[int] = None
+                    ) -> Iterator[GraphBatch]:
     """Overlap the copy to the device with compute: the next ``size``
     batches are moved with ``GraphBatch.to`` (pinned, ``non_blocking``)
     before the current one is yielded (``sgg_tpu/data/pipeline.py:
@@ -182,7 +186,9 @@ def device_prefetch(iterator: Iterable[GraphBatch], device,
     that stream, so a new stream each epoch would allocate anew. Order and
     content are the iterator's. An item is a ``GraphBatch`` or another
     dataclass with a ``to(device)``; its tensors, nested dataclasses'
-    included, are marked as used."""
+    included, are marked as used. Taking each item from ``iterator`` and
+    issuing its copies is a ``batch.copy`` span, whose batch is ``(epoch,
+    the item's position)`` when ``epoch`` is given."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     if cuda and device not in _COPY_STREAMS:
@@ -199,13 +205,21 @@ def device_prefetch(iterator: Iterable[GraphBatch], device,
                 t.record_stream(consumer)
         return batch
 
-    for item in iterator:
-        if cuda:
-            with torch.cuda.stream(stream):
-                moved = item.to(device)
-                done = stream.record_event()
-        else:
-            moved, done = item.to(device), None
+    source = iter(iterator)
+    for index in itertools.count():
+        with counters.span("batch.copy", batch=None if epoch is None
+                           else (epoch, index)) as copy:
+            item = next(source, None)
+            if item is None:
+                copy.batch = None  # the end of the source: no batch
+            elif cuda:
+                with torch.cuda.stream(stream):
+                    moved = item.to(device)
+                    done = stream.record_event()
+            else:
+                moved, done = item.to(device), None
+        if item is None:
+            break
         buf.append((moved, done))
         if len(buf) > size:
             yield release()
@@ -382,26 +396,34 @@ class BatchLoader:
                 if q:
                     yield b, np.asarray(q)
 
-    def _assemble(self, indices, epoch, shape=None) -> GraphBatch:
+    def _assemble(self, indices, epoch, shape=None,
+                  index: Optional[int] = None) -> GraphBatch:
         """The padded batch of ``indices``, at ``shape`` (a bucket's
-        ``(max_nodes, max_edges)``) or the loader's."""
-        max_nodes, max_edges = shape or (self.max_nodes, self.max_edges)
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            examples = list(pool.map(
-                lambda i: self._make_example(i, self._example_rng(epoch, i)),
-                indices))
-        cached = self.feature_cache is not None
-        batch = pack_ragged(
-            [e[1] for e in examples],
-            [self.ds.gt_classes[i] for i in indices],
-            [e[2] for e in examples],
-            max_nodes=max_nodes, max_edges=max_edges,
-            images=None if cached else np.stack([e[0] for e in examples]),
-            im_hw=np.asarray([e[3] for e in examples], np.float32),
-            im_scale_org=np.asarray([e[4] for e in examples], np.float32))
-        if cached:
-            batch.fmaps = torch.stack([e[0] for e in examples])
-        return batch
+        ``(max_nodes, max_edges)``) or the loader's; a ``batch.assemble``
+        span of batch ``(epoch, index)``, ``index`` its place in the
+        epoch."""
+        with counters.span("batch.assemble", batch=None if index is None
+                           else (epoch, index)):
+            max_nodes, max_edges = shape or (self.max_nodes,
+                                             self.max_edges)
+            with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                examples = list(pool.map(
+                    lambda i: self._make_example(
+                        i, self._example_rng(epoch, i)), indices))
+            cached = self.feature_cache is not None
+            batch = pack_ragged(
+                [e[1] for e in examples],
+                [self.ds.gt_classes[i] for i in indices],
+                [e[2] for e in examples],
+                max_nodes=max_nodes, max_edges=max_edges,
+                images=None if cached else np.stack(
+                    [e[0] for e in examples]),
+                im_hw=np.asarray([e[3] for e in examples], np.float32),
+                im_scale_org=np.asarray([e[4] for e in examples],
+                                        np.float32))
+            if cached:
+                batch.fmaps = torch.stack([e[0] for e in examples])
+            return batch
 
     def __iter__(self) -> Iterator[GraphBatch]:
         order = np.arange(len(self.ds))
@@ -427,8 +449,10 @@ class BatchLoader:
             chunks = [(b, c[rank * (len(c) // world):
                             (rank + 1) * (len(c) // world)])
                       for b, c in chunks]
-        yield from background((self._assemble(chunk, epoch, bucket)
-                               for bucket, chunk in chunks), self.prefetch)
+        yield from background((self._assemble(chunk, epoch, bucket,
+                                              index=k)
+                               for k, (bucket, chunk) in enumerate(chunks)),
+                              self.prefetch)
 
 
 def background(iterable: Iterable, size: int = 2) -> Iterator:

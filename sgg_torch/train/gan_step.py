@@ -52,6 +52,7 @@ from sgg_torch.parallel import (GradReducer, all_reduce_metrics,
 from sgg_torch.train.assign import sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
 from sgg_torch.train.state import Adam, Optimizer
+from sgg_torch.utils import counters
 
 _RUNNING = ("running_mean", "running_var", "num_batches_tracked")
 
@@ -124,7 +125,9 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
     ``train/step.py``. ``mark``, if given, is called with "F", "G" and "D"
     as each phase has been issued (a caller may record CUDA events there
     to time the phases). ``model``, ``gan`` and the three optimizers are
-    updated in place.
+    updated in place. A call is a ``step`` span with the thread's CPU time
+    (``utils/counters.py``), split at the same points into ``step.F``,
+    ``step.G`` and ``step.D``.
 
     The metrics are device scalars with the JAX step's keys: ``obj_loss``,
     ``rel_loss``, ``grad_norm``; with ``G`` ``G_obj``, ``G_rel``,
@@ -153,129 +156,138 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
                  generator: Optional[torch.Generator],
                  edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  mark=None, vis_features=None) -> Dict[str, torch.Tensor]:
+        with counters.span("step", cpu=True):
+            return issue(batch, fake_classes, generator, edges,
+                         mark or (lambda phase: None), vis_features)
+
+    def issue(batch, fake_classes, generator, edges, mark, vis_features):
         refuse_edge_axis("the GAN step")
-        mark = mark or (lambda phase: None)
-        batch = batch.to(dev)
-        fake = torch.as_tensor(fake_classes).to(dev, torch.long)
-        vis = None if vis_features is None else torch.as_tensor(
-            vis_features).to(dev)
-        model.train()
-        gan.train()
-        if edges is None:
-            edges = sample_edges(
-                generator, batch.rels, batch.rel_mask, batch.node_mask,
-                max_out=min(batch.max_edges, config.rels_per_img))
-        sampled, pair_mask = edges[0].to(dev, torch.long), edges[1].to(dev)
-        pairs, rel_labels = sampled[..., :2], sampled[..., 2]
-        metrics: Dict[str, torch.Tensor] = {}
+        with counters.span("step.F"):
+            batch = batch.to(dev)
+            fake = torch.as_tensor(fake_classes).to(dev, torch.long)
+            vis = None if vis_features is None else torch.as_tensor(
+                vis_features).to(dev)
+            model.train()
+            gan.train()
+            if edges is None:
+                edges = sample_edges(
+                    generator, batch.rels, batch.rel_mask, batch.node_mask,
+                    max_out=min(batch.max_edges, config.rels_per_img))
+            sampled, pair_mask = edges[0].to(dev, torch.long), edges[1].to(dev)
+            pairs, rel_labels = sampled[..., :2], sampled[..., 2]
+            metrics: Dict[str, torch.Tensor] = {}
 
-        def relate(classes, fmap, **kw):
-            return model(None if fmap is not None else batch.images,
-                         batch.boxes, classes, pairs, pair_mask, fmap=fmap,
-                         im_hw=batch.im_hw, generator=generator, **kw)
+            def relate(classes, fmap, **kw):
+                return model(None if fmap is not None else batch.images,
+                             batch.boxes, classes, pairs, pair_mask, fmap=fmap,
+                             im_hw=batch.im_hw, generator=generator, **kw)
 
-        # ---- F: the SGG update -------------------------------------------
-        optimizer.zero_grad()
-        real = relate(batch.classes, batch.fmaps, return_feats=True)
-        losses = sgg_losses(real, batch.classes, rel_labels, batch,
-                            pair_mask)
-        sum(losses.values()).backward()
-        reduce_f()
-        metrics.update({k: v.detach() for k, v in losses.items()})
-        metrics["grad_norm"] = optimizer.apply_gradients()
-        real_nodes = real["node_pool"].detach()
-        real_edges = real["edge_pool"].detach()
-        real_fmap = real["fmap"].detach()
-        del real
+            # ---- F: the SGG update ---------------------------------------
+            optimizer.zero_grad()
+            real = relate(batch.classes, batch.fmaps, return_feats=True)
+            losses = sgg_losses(real, batch.classes, rel_labels, batch,
+                                pair_mask)
+            sum(losses.values()).backward()
+            reduce_f()
+            metrics.update({k: v.detach() for k, v in losses.items()})
+            metrics["grad_norm"] = optimizer.apply_gradients()
+            real_nodes = real["node_pool"].detach()
+            real_edges = real["edge_pool"].detach()
+            real_fmap = real["fmap"].detach()
+            del real
         mark("F")
 
-        # the layout's frame: the padded canvas (or, from cached maps,
-        # their extent times the stride), as the JAX step
-        # (gan_step.py:137-152); divided by a tensor, not a Python number
-        canvas = (max(batch.images.shape[1], batch.images.shape[2])
-                  if batch.images is not None
-                  else max(batch.fmaps.shape[1], batch.fmaps.shape[2])
-                  * STRIDE)
-        boxes01 = batch.boxes / torch.full((), float(canvas), device=dev)
-        gen = (fake, boxes01, batch.rels, batch.node_mask, batch.rel_mask,
-               vis)
+        with counters.span("step.G"):
+            # the layout's frame: the padded canvas (or, from cached maps,
+            # their extent times the stride), as the JAX step
+            # (gan_step.py:137-152); divided by a tensor, not a Python number
+            canvas = (max(batch.images.shape[1], batch.images.shape[2])
+                      if batch.images is not None
+                      else max(batch.fmaps.shape[1], batch.fmaps.shape[2])
+                      * STRIDE)
+            boxes01 = batch.boxes / torch.full((), float(canvas), device=dev)
+            gen = (fake, boxes01, batch.rels, batch.node_mask, batch.rel_mask,
+                   vis)
 
-        # ---- G: adversarial and reconstruction losses --------------------
-        if use_G or use_rec:
-            g_opt.zero_grad()
-            optimizer.zero_grad()
-            with no_grad_for(d_params):
-                fmaps_fake = gan.generate(*gen)
-                drop_state = None if generator is None \
-                    else generator.get_state()
-                out_fake = relate(fake, fmaps_fake, return_feats=True)
-                nodes_fake = out_fake["node_pool"]
-                edges_fake = out_fake["edge_pool"]
-                g_losses = {}
-                if use_G:
-                    g_losses["G_obj"] = ganw * masked_bce(
-                        gan.disc_nodes(nodes_fake, fake), 1.0,
-                        batch.node_mask)
-                    g_losses["G_rel"] = ganw * masked_bce(
-                        gan.disc_edges(edges_fake, rel_labels), 1.0,
-                        pair_mask)
-                    g_losses["G_fmap"] = ganw * masked_bce(
-                        gan.disc_global(fmaps_fake), 1.0, None)
+            # ---- G: adversarial and reconstruction losses ----------------
+            if use_G or use_rec:
+                g_opt.zero_grad()
+                optimizer.zero_grad()
+                with no_grad_for(d_params):
+                    fmaps_fake = gan.generate(*gen)
+                    drop_state = None if generator is None \
+                        else generator.get_state()
+                    out_fake = relate(fake, fmaps_fake, return_feats=True)
+                    nodes_fake = out_fake["node_pool"]
+                    edges_fake = out_fake["edge_pool"]
+                    g_losses = {}
+                    if use_G:
+                        g_losses["G_obj"] = ganw * masked_bce(
+                            gan.disc_nodes(nodes_fake, fake), 1.0,
+                            batch.node_mask)
+                        g_losses["G_rel"] = ganw * masked_bce(
+                            gan.disc_edges(edges_fake, rel_labels), 1.0,
+                            pair_mask)
+                        g_losses["G_fmap"] = ganw * masked_bce(
+                            gan.disc_global(fmaps_fake), 1.0, None)
+                    if use_rec:
+                        out_rec = out_fake
+                        if not config.attachG:
+                            if drop_state is not None:
+                                generator.set_state(drop_state)
+                            with running_stats_kept(model):
+                                out_rec = relate(fake, fmaps_fake.detach())
+                        g_losses.update(sgg_losses(out_rec, fake, rel_labels,
+                                                   batch, pair_mask, "_rec"))
+                    sum(g_losses.values()).backward()
+                reduce_g()
                 if use_rec:
-                    out_rec = out_fake
-                    if not config.attachG:
-                        if drop_state is not None:
-                            generator.set_state(drop_state)
-                        with running_stats_kept(model):
-                            out_rec = relate(fake, fmaps_fake.detach())
-                    g_losses.update(sgg_losses(out_rec, fake, rel_labels,
-                                               batch, pair_mask, "_rec"))
-                sum(g_losses.values()).backward()
-            reduce_g()
-            if use_rec:
-                reduce_f()
-            metrics["grad_norm_G"] = g_opt.apply_gradients()
-            if use_rec:
-                # reconstruction updates the SGG model too (main.py:173-176)
-                optimizer.apply_gradients()
-            metrics.update({k: v.detach() for k, v in g_losses.items()})
-            fmaps_fake = fmaps_fake.detach()
-            nodes_fake, edges_fake = nodes_fake.detach(), edges_fake.detach()
-            del out_fake, g_losses
-        else:
-            with torch.no_grad():
-                fmaps_fake = gan.generate(*gen)
-                out_fake = relate(fake, fmaps_fake, return_feats=True)
-            nodes_fake, edges_fake = out_fake["node_pool"], \
-                out_fake["edge_pool"]
-            del out_fake
+                    reduce_f()
+                metrics["grad_norm_G"] = g_opt.apply_gradients()
+                if use_rec:
+                    # reconstruction updates the SGG model too
+                    # (main.py:173-176)
+                    optimizer.apply_gradients()
+                metrics.update({k: v.detach() for k, v in g_losses.items()})
+                fmaps_fake = fmaps_fake.detach()
+                nodes_fake = nodes_fake.detach()
+                edges_fake = edges_fake.detach()
+                del out_fake, g_losses
+            else:
+                with torch.no_grad():
+                    fmaps_fake = gan.generate(*gen)
+                    out_fake = relate(fake, fmaps_fake, return_feats=True)
+                nodes_fake, edges_fake = out_fake["node_pool"], \
+                    out_fake["edge_pool"]
+                del out_fake
         mark("G")
 
-        # ---- D: real against fake ----------------------------------------
-        if use_D:
-            d_opt.zero_grad()
-            d_losses = {
-                # nodes: the real ones under their GT classes, the fake
-                # ones under the perturbed (main.py:185-187)
-                "D_obj": ganw * (
-                    masked_bce(gan.disc_nodes(real_nodes, batch.classes),
-                               1.0, batch.node_mask)
-                    + masked_bce(gan.disc_nodes(nodes_fake, fake), 0.0,
-                                 batch.node_mask)),
-                "D_rel": ganw * (
-                    masked_bce(gan.disc_edges(real_edges, rel_labels), 1.0,
-                               pair_mask)
-                    + masked_bce(gan.disc_edges(edges_fake, rel_labels),
-                                 0.0, pair_mask)),
-                "D_fmap": ganw * (
-                    masked_bce(gan.disc_global(real_fmap), 1.0, None)
-                    + masked_bce(gan.disc_global(fmaps_fake), 0.0, None))}
-            sum(d_losses.values()).backward()
-            reduce_d()
-            metrics.update({k: v.detach() for k, v in d_losses.items()})
-            metrics["grad_norm_D"] = d_opt.apply_gradients()
-            gan.update_disc_stats(real_nodes, batch.classes, real_edges,
-                                  rel_labels, real_fmap)
+        with counters.span("step.D"):
+            # ---- D: real against fake ------------------------------------
+            if use_D:
+                d_opt.zero_grad()
+                d_losses = {
+                    # nodes: the real ones under their GT classes, the fake
+                    # ones under the perturbed (main.py:185-187)
+                    "D_obj": ganw * (
+                        masked_bce(gan.disc_nodes(real_nodes, batch.classes),
+                                   1.0, batch.node_mask)
+                        + masked_bce(gan.disc_nodes(nodes_fake, fake), 0.0,
+                                     batch.node_mask)),
+                    "D_rel": ganw * (
+                        masked_bce(gan.disc_edges(real_edges, rel_labels), 1.0,
+                                   pair_mask)
+                        + masked_bce(gan.disc_edges(edges_fake, rel_labels),
+                                     0.0, pair_mask)),
+                    "D_fmap": ganw * (
+                        masked_bce(gan.disc_global(real_fmap), 1.0, None)
+                        + masked_bce(gan.disc_global(fmaps_fake), 0.0, None))}
+                sum(d_losses.values()).backward()
+                reduce_d()
+                metrics.update({k: v.detach() for k, v in d_losses.items()})
+                metrics["grad_norm_D"] = d_opt.apply_gradients()
+                gan.update_disc_stats(real_nodes, batch.classes, real_edges,
+                                      rel_labels, real_fmap)
         mark("D")
         metrics = all_reduce_metrics(metrics, [
             k for k in metrics if not k.startswith("grad_norm")])

@@ -19,6 +19,7 @@ from sgg_torch.parallel.mesh import (GradReducer, all_reduce_metrics,
 from sgg_torch.train.assign import all_pairs, compact_pairs, sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
 from sgg_torch.train.state import Optimizer
+from sgg_torch.utils import counters
 
 
 def make_train_step(model, config: Config, optimizer: Optimizer):
@@ -42,7 +43,8 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
     (``config.wandb``) they also hold ``grad/<module>``, the gradient norm
     of each top-level module (the flax top-level parameter keys; a frozen
     module's is 0), before clipping: the JAX step's counterpart of the
-    reference's ``wandb.watch(model, log='all')`` (main.py:93-97).
+    reference's ``wandb.watch(model, log='all')`` (main.py:93-97). A call
+    is a ``step`` span with the thread's CPU time (``utils/counters.py``).
 
     Under a data-parallel group (``sgg_torch.parallel``) the batch is the
     rank's rows of the global batch: the losses are the rank's shares of
@@ -65,36 +67,37 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
     def train_step(batch: GraphBatch, generator: Optional[torch.Generator],
                    edges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> Dict[str, torch.Tensor]:
-        batch = batch.to(dev)
-        model.train()
-        if edges is None:
-            edges = sample_edges(
-                generator, batch.rels, batch.rel_mask, batch.node_mask,
-                max_out=min(batch.max_edges, config.rels_per_img))
-        sampled, pair_mask = edges[0].to(dev, torch.long), edges[1].to(dev)
-        mine = edge_slots(sampled.shape[1])
-        sampled, pair_mask = sampled[:, mine], pair_mask[:, mine]
-        pairs, rel_labels = sampled[..., :2], sampled[..., 2]
-        optimizer.zero_grad()
-        out = model(batch.images, batch.boxes, batch.classes, pairs,
-                    pair_mask, fmap=batch.fmaps, im_hw=batch.im_hw,
-                    generator=generator)
-        losses = {}
-        losses.update(node_losses(out["obj_logits"], batch.classes,
-                                  batch.node_mask))
-        losses.update(edge_losses(out["rel_logits"], rel_labels, pair_mask,
-                                  config.loss, loss_weights))
-        total = sum(losses.values())
-        total.backward()
-        # under a group: the ranks' gradients summed, before any norm
-        reduce_grads()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total"] = total.detach()
-        metrics = all_reduce_metrics(metrics, list(metrics))
-        for mod, params in modules.items():  # before the clip
-            metrics[f"grad/{mod}"] = module_grad_norm(params)
-        metrics["grad_norm"] = optimizer.apply_gradients()
-        return metrics
+        with counters.span("step", cpu=True):
+            batch = batch.to(dev)
+            model.train()
+            if edges is None:
+                edges = sample_edges(
+                    generator, batch.rels, batch.rel_mask, batch.node_mask,
+                    max_out=min(batch.max_edges, config.rels_per_img))
+            sampled, pair_mask = edges[0].to(dev, torch.long), edges[1].to(dev)
+            mine = edge_slots(sampled.shape[1])
+            sampled, pair_mask = sampled[:, mine], pair_mask[:, mine]
+            pairs, rel_labels = sampled[..., :2], sampled[..., 2]
+            optimizer.zero_grad()
+            out = model(batch.images, batch.boxes, batch.classes, pairs,
+                        pair_mask, fmap=batch.fmaps, im_hw=batch.im_hw,
+                        generator=generator)
+            losses = {}
+            losses.update(node_losses(out["obj_logits"], batch.classes,
+                                      batch.node_mask))
+            losses.update(edge_losses(out["rel_logits"], rel_labels, pair_mask,
+                                      config.loss, loss_weights))
+            total = sum(losses.values())
+            total.backward()
+            # under a group: the ranks' gradients summed, before any norm
+            reduce_grads()
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["total"] = total.detach()
+            metrics = all_reduce_metrics(metrics, list(metrics))
+            for mod, params in modules.items():  # before the clip
+                metrics[f"grad/{mod}"] = module_grad_norm(params)
+            metrics["grad_norm"] = optimizer.apply_gradients()
+            return metrics
 
     return train_step
 

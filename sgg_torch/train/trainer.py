@@ -3,7 +3,9 @@ validation and the test sweep.
 
 Counterpart of ``sgg_tpu/train/trainer.py`` (reference ``main.py``): the
 epoch loop with interval loss averaging and s/batch reporting
-(``main.py:196-236``), per-epoch checkpoints with auto-resume
+(``main.py:196-236``; with the mean wait for a batch, issue of a step
+and, with a GAN, its F, G and D phases, read from the spans of
+``utils/counters.py``), per-epoch checkpoints with auto-resume
 (``main.py:249-254``), validation after the first epoch and then every
 ``VAL_EVERY`` epochs, and the final test sweep over all eval splits
 (``main.py:256-288``). One process on one device (``config.device``).
@@ -48,9 +50,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
+import threading
 import time
 import zlib
 from collections import defaultdict
@@ -80,6 +84,7 @@ from sgg_torch.train.gan_step import (create_gan_optimizers,
                                       make_gan_train_step)
 from sgg_torch.train.state import Optimizer
 from sgg_torch.train.step import make_train_step
+from sgg_torch.utils import counters
 
 
 def build_model(config: Config, train_data: SGGDataset, *,
@@ -200,6 +205,24 @@ def _host(x, dtype, pin: bool):
     if pin and x.device.type == "cpu":
         x = x.pin_memory()
     return x
+
+
+def _waited(batches, epoch: int):
+    """``enumerate(batches)``, each wait for the next item a ``batch.wait``
+    span, and the item's ``(epoch, index)`` the thread's batch
+    (``counters.set_batch``) while the caller holds it."""
+    try:
+        for index in itertools.count():
+            with counters.span("batch.wait", batch=(epoch, index)) as wait:
+                item = next(batches, None)
+                if item is None:
+                    wait.batch = None  # the epoch's end: no batch
+            if item is None:
+                return
+            counters.set_batch((epoch, index))
+            yield index, item
+    finally:
+        counters.set_batch(None)
 
 
 class Trainer:
@@ -523,21 +546,15 @@ class Trainer:
         sync_processes(f"epoch{epoch}")
         source = (to_image_dtype(b, cfg.compute_dtype) for b in loader)
         if self.gan is not None:
-            # the perturbation, the bank's samples and their pinning run on
-            # the host batch, before its copy, in a thread of their own
-            # beside this one's issue of the steps
-            pin = self.device.type == "cuda"
-            source = background(
-                self._gan_host_inputs(b, epoch).pinned() if pin
-                else self._gan_host_inputs(b, epoch) for b in source)
+            source = background(self._gan_inputs(source, epoch))
         # the next batches' copies to the device run while a step does
-        batches = device_prefetch(source, self.device)
+        batches = device_prefetch(source, self.device, epoch=epoch)
         generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed * 100003 + epoch)
         accum = defaultdict(list)
         epoch_means = defaultdict(list)
-        t0 = time.time()
-        for b_i, item in enumerate(batches):
+        t0 = time.time_ns()
+        for b_i, item in _waited(batches, epoch):
             if self.gan is not None:
                 metrics = self.gan_step(item.batch, item.fake_classes,
                                         generator, vis_features=item.vis)
@@ -557,19 +574,51 @@ class Trainer:
                         f"{means}")
                 for k, v in means.items():
                     epoch_means[k].append(v)
-                dt = (time.time() - t0) / cfg.print_interval
+                t1 = time.time_ns()
+                times = self._interval_ms(t0, t1, cfg.print_interval)
                 print(f"e{epoch} b{b_i + 1} "
                       + " ".join(f"{k}={v:.4f}" for k, v in means.items()
                                  if not k.startswith("grad/"))
-                      + f" {dt:.3f}s/batch", flush=True)
-                self.log_fn({f"loss/{k}": v for k, v in means.items()},
+                      + "".join(f" {k}={v:.1f}ms" for k, v in times.items())
+                      + f" {(t1 - t0) / 1e9 / cfg.print_interval:.3f}"
+                        "s/batch", flush=True)
+                self.log_fn({**{f"loss/{k}": v for k, v in means.items()},
+                             **{f"time/{k}_ms": v for k, v in times.items()}},
                             step=self.global_iter)
                 accum.clear()
-                t0 = time.time()
+                t0 = t1
         if accum:
             for k, v in self._means(accum).items():
                 epoch_means[k].append(v)
         return {k: sum(v) / len(v) for k, v in epoch_means.items()}
+
+    def _gan_inputs(self, source, epoch: int):
+        """Each batch of ``source`` with its GAN host inputs, pinned for a
+        card: the perturbation, the bank's samples and their pinning run on
+        the host batch, before its copy, in a thread of their own (the
+        caller's ``background``) beside the issue of the steps; a
+        ``batch.gan_inputs`` span each."""
+        pin = self.device.type == "cuda"
+        for index, batch in enumerate(source):
+            with counters.span("batch.gan_inputs", batch=(epoch, index)):
+                item = self._gan_host_inputs(batch, epoch)
+                if pin:
+                    item = item.pinned()
+            yield item
+
+    @staticmethod
+    def _interval_ms(t0_ns: int, t1_ns: int, steps: int) -> Dict[str, float]:
+        """This thread's spans in ``[t0_ns, t1_ns]`` as mean ms a step: the
+        wait for a batch, the step's issue and, with a GAN, its phases."""
+        names = {"batch.wait": "wait", "step": "issue", "step.F": "F",
+                 "step.G": "G", "step.D": "D"}
+        me = threading.get_ident()
+        total: Dict[str, float] = {}
+        for sp in counters.spans(t0_ns, t1_ns):
+            if sp.thread == me and sp.name in names:
+                total[sp.name] = total.get(sp.name, 0.0) + sp.ns
+        return {short: total[name] / 1e6 / steps
+                for name, short in names.items() if name in total}
 
     def _gan_host_inputs(self, batch: GraphBatch, epoch: int) -> GANBatch:
         """The batch, the classes G paints for it and, with a feature bank,

@@ -1,10 +1,9 @@
-"""Profiling and metric-logging utilities (``sgg_tpu/utils/profiling.py``).
+"""Profiling utilities (``sgg_tpu/utils/profiling.py``).
 
-Counterpart of the reference's wall-clock instrumentation
-(``time_per_batch`` in ``main.py:216-232``) and of the torchvision
-tutorial's ``MetricLogger``/``SmoothedValue``
-(``detector/utils.py:31-232``): a numpy smoothed-metric logger, and trace
-capture with ``torch.profiler``; and the stage profiling of the tools
+Trace capture with ``torch.profiler`` and named regions in it (the
+reference's wall-clock instrumentation, ``time_per_batch`` in
+``main.py:216-232``, is the trainer's interval line, read from
+``utils/counters.py``'s spans); and the stage profiling of the tools
 (``sgg_torch/tools/profile_*.py``): the card's published peaks, card and
 wall times of a stage, FLOP counts that include the hand-written kernels,
 and each tool's JSON line.
@@ -15,74 +14,11 @@ from __future__ import annotations
 import contextlib
 import json
 import time
-from collections import defaultdict, deque
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
-
-class SmoothedValue:
-    """Windowed median/avg tracker (detector/utils.py:31-74, without the
-    cross-process sync)."""
-
-    def __init__(self, window_size: int = 20, fmt: str = "{median:.4f} "
-                 "({global_avg:.4f})"):
-        self.deque = deque(maxlen=window_size)
-        self.total = 0.0
-        self.count = 0
-        self.fmt = fmt
-
-    def update(self, value: float, n: int = 1):
-        self.deque.append(value)
-        self.count += n
-        self.total += value * n
-
-    @property
-    def median(self) -> float:
-        return float(np.median(self.deque)) if self.deque else 0.0
-
-    @property
-    def avg(self) -> float:
-        return float(np.mean(self.deque)) if self.deque else 0.0
-
-    @property
-    def global_avg(self) -> float:
-        return self.total / max(self.count, 1)
-
-    def __str__(self):
-        return self.fmt.format(median=self.median, avg=self.avg,
-                               global_avg=self.global_avg)
-
-
-class MetricLogger:
-    """log_every-style iteration logger (detector/utils.py:146-232)."""
-
-    def __init__(self, delimiter: str = "  "):
-        self.meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
-        self.delimiter = delimiter
-
-    def update(self, **kwargs):
-        for k, v in kwargs.items():
-            self.meters[k].update(float(v))
-
-    def __str__(self):
-        return self.delimiter.join(f"{k}: {m}"
-                                   for k, m in self.meters.items())
-
-    def log_every(self, iterable, print_freq: int,
-                  header: str = "") -> Iterator:
-        iter_time = SmoothedValue(fmt="{avg:.4f}")
-        data_time = SmoothedValue(fmt="{avg:.4f}")
-        end = time.time()
-        for i, obj in enumerate(iterable):
-            data_time.update(time.time() - end)
-            yield obj
-            iter_time.update(time.time() - end)
-            end = time.time()
-            if i % print_freq == 0:
-                print(f"{header} [{i}]  {self}  time: {iter_time}  "
-                      f"data: {data_time}")
+from sgg_torch.utils import counters
 
 
 @contextlib.contextmanager
@@ -114,9 +50,14 @@ def trace(log_dir: Optional[str] = None, name: str = "sgg_step"):
 
 @contextlib.contextmanager
 def annotate(name: str):
-    """A named region in the trace."""
-    with torch.profiler.record_function(name):
-        yield
+    """A span of the program's recorder (``counters.span``) and, while a
+    torch profiler records, a named region in its trace."""
+    with counters.span(name):
+        if torch.autograd._profiler_enabled():
+            with torch.profiler.record_function(name):
+                yield
+        else:
+            yield
 
 
 # ---------------------------------------------------------------------------

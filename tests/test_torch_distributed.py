@@ -473,7 +473,9 @@ def run_gan_epoch(workdir, group=None):
     logged = []
     trainer.log_fn = lambda d, **kw: logged.append(dict(d))
     trainer.fit()
-    return {k: [d[k] for d in logged] for k in logged[0]}
+    # the loss means: the interval's times (``time/``) differ by rank
+    return {k: [d[k] for d in logged] for k in logged[0]
+            if k.startswith("loss/")}
 
 
 def worker_gan(group, workdir):
