@@ -1,5 +1,5 @@
 """Time several sources of the port's CUDA kernels against each other on
-one card, in bfloat16.
+one card, in bfloat16 (K1-bwd-fmap in float32 too).
 
     python3 bench_kernels.py \\
         --k1 new=sgg_torch/csrc/roi_align.cu --k1 old=<other>/roi_align.cu \\
@@ -21,11 +21,14 @@ the labels are timed in turns, forward then backward (a b b a), twice, so
 that a drift of the card's clocks falls on all alike. Times are CUDA events
 over 20 launches after a warm-up. K1 is timed as one forward's two launches
 (nodes R=64 + unions R=256 over a 16x37x37x512 map) and each alone; K2 on
-16x592x592x3; K1-bwd-fmap at the detector pretraining shape (g
+16x592x592x3; K1-bwd-fmap in bf16 at the detector pretraining shape (g
 3x512x7x7x512 over a 3x37x37x512 map, spatial scale 1/16), at the FPN
 stride-4 level's (3x148x148x256, scale 1/4) with the same boxes, and with
 512 ROIs an image crowded around one point (a few tiles of each image
-hold them all). Boxes: ``eval_boxes`` on a 592-pixel canvas.
+hold them all); and in f32 at the GAN cell's shape (24x37x37x512, the
+fake map's two launches a step: 64 node slots and 576 edge slots an
+image, filled as the cell fills them, ``gan_cell_boxes``). Boxes:
+``eval_boxes`` on a 592-pixel canvas.
 
 Prints the card's name and power limit, one line per label, the time
 PyTorch's fill takes for the outputs' bytes (what the card needs to write
@@ -44,6 +47,7 @@ import subprocess
 import sys
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from chip_smoke import eval_boxes, time_ms
@@ -121,9 +125,11 @@ def _fmap_bwd_call(kernel, gather: bool, g, boxes, shape, scale):
         nbytes = out[4]  # the source's own layout: its tile may differ
         work = torch.empty(-(-nbytes // 4), dtype=torch.int32,
                            device=g.device)
+        dtype = 1 if g.dtype == torch.bfloat16 else 0
         kernel.launch(g.data_ptr(), boxes.data_ptr(), work.data_ptr(),
                       work.numel() * 4, grad.data_ptr(), B, H, W, C, R,
-                      float(scale), 7, 2, 1, stream, route="bf16")
+                      float(scale), 7, 2, dtype, stream,
+                      route=str(g.dtype))
     else:
         work = torch.empty(shape, dtype=torch.float32, device=g.device)
         kernel.launch(g.data_ptr(), boxes.data_ptr(), work.data_ptr(),
@@ -132,8 +138,43 @@ def _fmap_bwd_call(kernel, gather: bool, g, boxes, shape, scale):
     return grad
 
 
+def gan_cell_boxes(seed: int, B: int = 24):
+    """The boxes of the GAN cell's (``benchmarks/``, ``gan_train_jpeg``)
+    two K1 launches on the fake map, for one batch of its traffic: the
+    nodes (B, 64) of ``vg_jpeg_b24``'s first B entries of ``seed`` on the
+    592-pixel canvas (zeros in the empty slots), and the union boxes of the
+    576 edge slots that ``sample_edges`` fills from them (every ordered
+    pair up to the budget, the annotated ones first; the empty slots
+    repeat pairs of the first nodes)."""
+    from benchmarks import traffic
+    from sgg_torch.ops.boxes import union_boxes
+    from sgg_torch.train.assign import sample_edges
+    N, E, canvas = 64, 576, 592
+    mix = traffic.load_mix("vg_jpeg_b24")
+    sizes = traffic.pool_sizes(mix, seed)
+    split = traffic.annotations(mix, seed, sizes, B, 151, 51)
+    boxes = np.zeros((B, N, 4), np.float32)
+    rels = np.zeros((B, E, 3), np.int64)
+    n_nodes, n_rels = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    for i in range(B):
+        h, w = sizes[split.entry_file[i]]
+        n = min(len(split.gt_boxes[i]), N)
+        boxes[i, :n] = split.gt_boxes[i][:n] * (canvas / max(h, w))
+        r = split.relationships[i]
+        r = r[(r[:, 0] < n) & (r[:, 1] < n)][:E]
+        rels[i, :len(r)] = r
+        n_nodes[i], n_rels[i] = n, len(r)
+    node_mask = torch.arange(N)[None] < torch.from_numpy(n_nodes)[:, None]
+    rel_mask = torch.arange(E)[None] < torch.from_numpy(n_rels)[:, None]
+    pairs, _ = sample_edges(torch.Generator().manual_seed(seed),
+                            torch.from_numpy(rels), rel_mask, node_mask,
+                            max_out=E)
+    nodes = torch.from_numpy(boxes)
+    return nodes, union_boxes(nodes, pairs[..., 0], pairs[..., 1])
+
+
 def bench_fmap_bwd(variants, gen, dev):
-    """K1-bwd-fmap's sources in turns at three cases; label -> readings."""
+    """K1-bwd-fmap's sources in turns at five cases; label -> readings."""
     gather = {label: _is_gather(k) for label, k in variants.items()}
     for label, k in variants.items():
         if not gather[label]:
@@ -143,16 +184,21 @@ def bench_fmap_bwd(variants, gen, dev):
     centre = torch.rand(B, 1, 2, generator=gen) * 400 + 96
     half = torch.rand(B, R, 2, generator=gen) * 40 + 8
     crowd = torch.cat([centre - half, centre + half], -1)
-    cases = {"pretrain": (boxes, (B, 37, 37, 512), 1 / 16),
-             "fpn_stride4": (boxes, (B, 148, 148, 256), 1 / 4),
-             "crowded": (crowd, (B, 37, 37, 512), 1 / 16)}
+    bf16 = torch.bfloat16
+    cases = {"pretrain": (boxes, (B, 37, 37, 512), 1 / 16, bf16),
+             "fpn_stride4": (boxes, (B, 148, 148, 256), 1 / 4, bf16),
+             "crowded": (crowd, (B, 37, 37, 512), 1 / 16, bf16)}
+    gan_nodes, gan_unions = gan_cell_boxes(2026)
+    for name, bx in (("gan_f32_nodes", gan_nodes),
+                     ("gan_f32_unions", gan_unions)):
+        cases[name] = (bx, (24, 37, 37, 512), 1 / 16, torch.float32)
     res = {label: {"gather": gather[label], "ms": {n: [] for n in cases},
                    "rel_err": {}} for label in variants}
     calls = {}
-    for name, (bx, shape, scale) in cases.items():
+    for name, (bx, shape, scale, dtype) in cases.items():
         bx = bx.contiguous().to(dev)
-        g = torch.randn(B, R, 7, 7, shape[-1], generator=gen).to(
-            dev, torch.bfloat16)
+        g = torch.randn(*bx.shape[:2], 7, 7, shape[-1], generator=gen).to(
+            dev, dtype)
         want = roi_align.roi_align_backward_reference(
             g, bx, shape[1:3], torch.float32, spatial_scale=scale)
         for label, k in variants.items():
@@ -210,7 +256,7 @@ def main() -> None:
                 continue
             ms = {n: f"min {min(v):.4f} mean {sum(v) / len(v):.4f}"
                   for n, v in r["ms"].items()}
-            print(f"{kernel} {label}: ms {ms}; bf16 rel err vs plain "
+            print(f"{kernel} {label}: ms {ms}; rel err vs plain "
                   f"{r['rel_err']}", flush=True)
     print(json.dumps(report), flush=True)
 

@@ -151,13 +151,13 @@ non-zero exit and without the result line:
    over f32 masters, the f32 GAN with 37 x 37 x 512 fake maps) on the
    96-image split: a warm-up epoch, then one counted and timed epoch (per
    step K2 once and K1 twice on the real bf16 map, K1 four times on the
-   f32 fake map, K1-bwd-fmap twice on ``f32-gather``, no other backward
+   f32 fake map, K1-bwd-fmap twice on ``f32-staged``, no other backward
    kernel and no plain version on a card tensor; finite losses with every
    GAN key; train images/s with the host); a step under
    ``set_sync_debug_mode("error")``; a step timed by phase (F, G, D) with
    CUDA events and its peak memory; the trunk bit-unchanged and every
    relation-head tensor and G and D parameter moved; K1 (f32) and
-   K1-bwd-fmap (``f32-gather``, and ``bf16-gather`` for a bf16 GAN) at the
+   K1-bwd-fmap (``f32-staged``, and ``bf16-mma`` for a bf16 GAN) at the
    step's shape (the batch's 40 node boxes and the unions of 256 sampled
    pairs an image over a 24 x 37 x 37 x 512 map) against their plain
    versions under phase 3's and phase 8's limits, each launched twice for
@@ -205,7 +205,7 @@ non-zero exit and without the result line:
    largest update, both ranks' states the same bits) and a ``-gan -largeD
    -perturb graphn`` step (every F, G and D loss within ``DP_GAN_LIMIT``),
    the launches counted on each rank (K1 and K2 on ``f32``; the GAN's K1
-   ``f32`` on the fake map and K1-bwd-fmap ``f32-gather``), a rank's step
+   ``f32`` on the fake map and K1-bwd-fmap ``f32-staged``), a rank's step
    ms (not a scaling figure: two ranks share one card);
 14. multi-process SGDet training and the (data x edge) mesh under its own
    deadline: 14a phase 7's SGDet training (VGG16 detector, batch 6, bf16,
@@ -1590,7 +1590,7 @@ def phase_sgdet(torch, peaks, rows):
 
 # the training paths' routes where a kernel's bf16 route is named for its
 # design
-ROUTES_BF16 = {"roi_align_bwd_fmap": "bf16-gather",
+ROUTES_BF16 = {"roi_align_bwd_fmap": "bf16-mma",
                "vgg_conv1_bwd": "bf16-mma"}
 BWD_META = {  # kernel row: (source, the TPU kernel whose gradient it is)
     "roi_align_bwd_fmap": ("sgg_torch/csrc/roi_align_bwd.cu",
@@ -1904,7 +1904,7 @@ def pretrain_kernels(torch, peaks, fmap16, props):
     """8d: K1-bwd-fmap and K1-bwd-boxes at the pretraining shape (the
     step's proposal slots over a 3 x 37 x 37 x 512 map) and K2-bwd at 3 x
     592 x 592, each against its plain version on the same inputs (f32 and
-    bf16), timed on the bf16 route (K1-bwd-fmap's "bf16-gather", K2-bwd's
+    bf16), timed on the bf16 route (K1-bwd-fmap's "bf16-mma", K2-bwd's
     "bf16-mma") beside its bound; each launched twice on the same inputs
     must give the same bits; K1-bwd-fmap's tile lists equal to the CPU
     model, its ROIs a tile beside the proposals' footprints in map cells,
@@ -2361,7 +2361,7 @@ FPN_LEVELS = (("p2", 4), ("p3", 8), ("p4", 16), ("p5", 32))
 # pools P2-P5 (4 K1 launches) and its backward takes both gradients there
 FPN_STEP = {"roi_align": 4, "roi_align_bwd_fmap": 4,
             "roi_align_bwd_boxes": 4, "vgg_conv1": 0, "vgg_conv1_bwd": 0}
-FPN_ROUTES = {"roi_align": "bf16", "roi_align_bwd_fmap": "bf16-gather",
+FPN_ROUTES = {"roi_align": "bf16", "roi_align_bwd_fmap": "bf16-mma",
               "roi_align_bwd_boxes": "bf16"}
 
 
@@ -3445,10 +3445,10 @@ GAN_ARGV = ["-m", "sgcls", "-loss", "dnorm", "-b", str(TRAIN_BATCH), "-gan",
             "-graphn_a", "2", "-split", "synthetic"]
 # per step: K2 and two K1 launches on the real bf16 map (F), four K1
 # launches on the f32 fake map (the attached fake forward, the detached rec
-# forward) and K1-bwd-fmap twice on f32-gather (the adversarial losses
+# forward) and K1-bwd-fmap twice on f32-staged (the adversarial losses
 # through the fake map's node and union pools); the boxes are constants
 GAN_ROUTES = {"roi_align": {"bf16": 2, "f32": 4},
-              "roi_align_bwd_fmap": {"f32-gather": 2},
+              "roi_align_bwd_fmap": {"f32-staged": 2},
               "roi_align_bwd_boxes": {}, "vgg_conv1": {"bf16": 1},
               "vgg_conv1_bwd": {}}
 GAN_KEYS = ("obj_loss", "rel_loss", "grad_norm", "G_obj", "G_rel", "G_fmap",
@@ -3584,7 +3584,7 @@ def gan_train(torch, splits):
 
 
 def gan_kernels(torch, peaks, host):
-    """11b: K1 (f32) and K1-bwd-fmap (f32-gather; bf16-gather for a bf16
+    """11b: K1 (f32) and K1-bwd-fmap (f32-staged; bf16-mma for a bf16
     GAN) at the GAN step's shape, against their plain versions (phase 3's
     and phase 8's limits): a 24 x 37 x 37 x 512 fake map, the batch's 40
     node boxes and the union boxes of 256 sampled pairs an image; each
@@ -3655,11 +3655,11 @@ def gan_kernels(torch, peaks, host):
         check(worst <= tol, f"roi_align_bwd_fmap {dtype} at the GAN shape: "
                             f"rel err {worst} > {tol}")
     routes = dict(K1.KERNEL_BWD_FMAP.routes)
-    check(routes == {"f32-gather": 4, "bf16-gather": 4},
+    check(routes == {"f32-staged": 4, "bf16-mma": 4},
           f"roi_align_bwd_fmap routes {routes}")
     rows = {}
-    for dtype, route in ((torch.float32, "f32-gather"),
-                         (torch.bfloat16, "bf16-gather")):
+    for dtype, route in ((torch.float32, "f32-staged"),
+                         (torch.bfloat16, "bf16-mma")):
         gs = [torch.randn(B, bx.shape[1], 7, 7, C, generator=g_).to(
             "cuda", dtype) for bx in (nodes, unions)]
         size = gs[0].element_size()
@@ -3678,15 +3678,15 @@ def gan_kernels(torch, peaks, host):
         del gs
     out["roi_align_bwd_fmap"] = dict(
         max_abs_err=errs["max_abs_err"], f32_rel_err=errs[torch.float32],
-        bf16_rel_err=errs[torch.bfloat16], route="f32-gather",
-        **rows["f32-gather"], library_ms=None, bf16_gather=rows["bf16-gather"],
+        bf16_rel_err=errs[torch.bfloat16], route="f32-staged",
+        **rows["f32-staged"], library_ms=None, bf16_mma=rows["bf16-mma"],
         shape=f"g {B}x({nodes.shape[1]} | {unions.shape[1]})x7x7x{C} into a "
               f"{B}x{H}x{H}x{C} map (the step's launch pair)")
     for name, m in out.items():
-        extra = (f"; bf16-gather {m['bf16_gather']['ms']:.4f} ms, bound "
-                 f"{m['bf16_gather']['bound_ms']:.4f} ms, plain "
-                 f"{m['bf16_gather']['plain_ms']:.4f} ms"
-                 if "bf16_gather" in m else "")
+        extra = (f"; bf16-mma {m['bf16_mma']['ms']:.4f} ms, bound "
+                 f"{m['bf16_mma']['bound_ms']:.4f} ms, plain "
+                 f"{m['bf16_mma']['plain_ms']:.4f} ms"
+                 if "bf16_mma" in m else "")
         print(f"phase 11 {name} at the GAN shape on {m['route']}: "
               f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
               f"({m['bound_by']}), plain {m['plain_ms']:.4f} ms; max|err| "
@@ -4286,7 +4286,7 @@ DP_LOSS_LIMIT, DP_UPDATE_LIMIT, DP_GAN_LIMIT = 1e-5, 1e-5, 2e-4
 # launches on the fake map and K1-bwd-fmap twice
 DP_ROUTES = {"roi_align": {"f32": 2}, "vgg_conv1": {"f32": 1}}
 DP_GAN_ROUTES = {"roi_align": {"f32": 6},
-                 "roi_align_bwd_fmap": {"f32-gather": 2},
+                 "roi_align_bwd_fmap": {"f32-staged": 2},
                  "vgg_conv1": {"f32": 1}}
 
 

@@ -47,10 +47,20 @@
 //   kHeavyBatches batches get a block each; the heavier ones a cluster of
 //   kSplit blocks, which split the batches and add their partial sums in
 //   block order through distributed shared memory, launched on a side
-//   stream beside the light ones. f32 maps, and bf16 ones whose C or
-//   alignment that route does not take, go through the CUDA cores: a warp
-//   a tile row, a lane V channels of its cells, w_y w_x g added in f32
-//   registers in (r, p, q) order. Times: chip_smoke.py phase 8,
+//   stream beside the light ones. f32 maps (C % 4 == 0, 16-byte aligned g)
+//   take the CUDA cores in f32 with the same units and batches: 128
+//   channels a unit, g's rows by cp.async kF32Stages - 1 batches ahead, a
+//   warp a tile row and a lane 4 channels x the row's 4 cells (16 f32
+//   accumulators); per batch each warp forms its row's weights Wy[y][p]
+//   Wx[x][q] (one k-row a lane) in shared memory, keeps the k-rows whose
+//   weights there are not all 0 (ballot; a k-row's taps reach ~2 of the
+//   tile's 4 rows) and adds w g by fmaf over those, in k-row order; the
+//   heavy units a cluster of kF32Split blocks, as many clusters as the card
+//   holds at once. Crowded tiles are the norm there: the GAN's empty edge
+//   slots repeat a few boxes hundreds of times an image. The maps and bf16
+//   ones that neither route takes go through the CUDA cores unstaged: a
+//   warp a tile row, a lane V channels of its cells, w_y w_x g added in f32
+//   registers in (r, p, q) order. Times: chip_smoke.py phases 8 and 11,
 //   bench_kernels.py --k1bwd (PERF.md).
 //
 // sgg_roi_align_bwd_boxes: d loss / d boxes, f32, as XLA differentiates
@@ -892,6 +902,338 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
   }
 }
 
+// The staged f32 route (4d, 4e): the units, the tile's k-rows and the
+// cluster split of the tensor-core route, the products on the CUDA cores.
+// A block of kTileH warps owns a chunk of kF32Channels channels: warp w
+// tile row w, its lane l channels 4 l .. 4 l + 3 in the row's kTileW cells
+// (16 f32 accumulators).
+constexpr int kF32Channels = 128;
+constexpr int kF32Threads = 32 * kTileH;
+constexpr int kF32KRows = 32;   // k-rows a batch: one a lane
+constexpr int kF32Stages = 4;   // batches of g in the ring, 3 in flight
+constexpr int kF32RowBytes = kF32Channels * 4;
+constexpr int kF32Stage = kF32KRows * kF32RowBytes;  // bytes, one stage
+constexpr int kF32CopyRows = kF32KRows / kTileH;     // a warp's copies
+// a unit of more than kF32HeavyBatches batches is split between the
+// kF32Split blocks of a cluster
+constexpr int kF32HeavyBatches = 32;
+constexpr int kF32Split = 4;
+// the stages; the warps' products; two batches' wy and wx
+constexpr int kF32SmemFixed =
+    kF32Stages * kF32Stage + (kTileH + 2 + 2) * kF32KRows * 16;
+static_assert(kTileW == 4 && kF32Channels == 32 * 4 && kF32KRows == 32 &&
+                  kF32KRows % kTileH == 0 && kCells % kF32Split == 0 &&
+                  kCells * kF32Channels * 4 <= kF32Stages * kF32Stage,
+              "the staged f32 gather's tile, batch and chunk do not fit");
+
+// Arguments of both staged f32 gather kernels.
+struct F32Args {
+  const float* g;
+  const int* counts;
+  const int* krows;
+  const int* lists;
+  const int* infos;
+  const int* koffs;
+  const float* lines;
+  float* grad;
+  int R, H, W, C, P, nty, ntx, chunks;
+};
+
+// Shared memory of a staged f32 gather block: kF32Stages stages of g's
+// rows; per warp its row's weights of a batch (a float4 a k-row); the bin
+// weights of two batches' k-rows at the tile's 4 rows (wy) and 4 columns
+// (wx); the unit's list (first k-rows, ROIs, bin ranges: R each).
+struct F32Smem {
+  unsigned char* g;
+  float4* w;
+  float4* wy;
+  float4* wx;
+  int* koff;
+  int* roi;
+  int* info;
+};
+
+__device__ __forceinline__ F32Smem f32_smem(uint4* base, int R) {
+  F32Smem m;
+  m.g = reinterpret_cast<unsigned char*>(base);
+  m.w = reinterpret_cast<float4*>(m.g + kF32Stages * kF32Stage);
+  m.wy = m.w + kTileH * kF32KRows;
+  m.wx = m.wy + 2 * kF32KRows;
+  m.koff = reinterpret_cast<int*>(m.wx + 2 * kF32KRows);
+  m.roi = m.koff + R;
+  m.info = m.roi + R;
+  return m;
+}
+
+// acc[lx] += w[lx] g over the tile row's 4 cells, 4 channels each.
+__device__ __forceinline__ void fma_row(float (&acc)[kTileW][4],
+                                        const float4& w, const float4& g) {
+  const float wv[kTileW] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int lx = 0; lx < kTileW; ++lx) {
+    acc[lx][0] = fmaf(wv[lx], g.x, acc[lx][0]);
+    acc[lx][1] = fmaf(wv[lx], g.y, acc[lx][1]);
+    acc[lx][2] = fmaf(wv[lx], g.z, acc[lx][2]);
+    acc[lx][3] = fmaf(wv[lx], g.w, acc[lx][3]);
+  }
+}
+
+// The staged f32 gather of one unit (image, tile, chunk of kF32Channels),
+// or of batches [b_lo, b_hi) of it, into `acc` (this thread's row and
+// channels). Per batch of kF32KRows k-rows, lane l holding k-row l's (ROI,
+// p, q): g's rows arrive by cp.async into a ring of kF32Stages stages
+// (issued kF32Stages - 1 batches ahead; warp w copies rows w kF32CopyRows
+// ..., a lane a 16-byte piece of each); warp w < kTileH loads, two batches
+// ahead, its lane's k-row's weights at the tile's row w and column w, which
+// meet in shared memory; each warp writes its row's products wy wx
+// (rounded as the CUDA-core gather rounds them) and keeps, by ballot, the
+// k-rows where one is not 0; then adds w g by fmaf over those in ascending
+// order, four rows' loads before their products: a cell's sum in k-row
+// order, as the unstaged gather adds it, the products that are 0 left out
+// as it leaves them out. One barrier a batch.
+__device__ __forceinline__ void staged_unit(const F32Args& A,
+                                            const F32Smem& S, int unit,
+                                            int b_lo, int b_hi,
+                                            float (&acc)[kTileW][4]) {
+  const int tile = unit / A.chunks;  // b nt + t
+  const int chunk = unit - tile * A.chunks;
+  const int nt = A.nty * A.ntx, R = A.R, P = A.P, C = A.C;
+  const int b = tile / nt;
+  const int y0 = (tile - b * nt) / A.ntx * kTileH;
+  const int x0 = (tile - b * nt) % A.ntx * kTileW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = chunk * kF32Channels + lane * 4;
+  const int n = A.counts[tile], ktot = A.krows[tile];
+  const size_t base = static_cast<size_t>(tile) * R;
+  const size_t HW = A.H + A.W;
+  // lanes past C copy nothing (their pieces are zero-filled)
+  const float* gb = A.g + static_cast<size_t>(b) * R * P * P * C + c;
+  const int kbeg = b_lo * kF32KRows, kend = min(b_hi * kF32KRows, ktot);
+#pragma unroll
+  for (int lx = 0; lx < kTileW; ++lx)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[lx][v] = 0.0f;
+  if (kbeg >= kend) return;  // the whole block
+  for (int e = threadIdx.x; e < n; e += kF32Threads) {
+    S.koff[e] = __ldg(A.koffs + base + e);
+    S.roi[e] = __ldg(A.lists + base + e);
+    S.info[e] = __ldg(A.infos + base + e);
+  }
+  __syncthreads();
+
+  // k-row kbeg + kF32KRows j + lane's entry: a binary search once, then a
+  // cursor
+  int cur = 0;
+  if (kbeg + lane < kend) {
+    int lo = 0, hi = n - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (S.koff[mid] <= kbeg + lane)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    cur = lo;
+  }
+  auto row_of = [&](int jb) {
+    return k_row(kbeg + jb * kF32KRows + lane, kend, n, cur, S.koff, S.roi,
+                 S.info);
+  };
+  auto issue_g = [&](int jb, int4 row) {
+    const unsigned dst =
+        smem_addr(S.g + (jb % kF32Stages) * kF32Stage) + lane * 16;
+#pragma unroll
+    for (int i = 0; i < kF32CopyRows; ++i) {
+      const int k = warp * kF32CopyRows + i;
+      const int r = __shfl_sync(0xffffffffu, row.x, k);
+      const int p = __shfl_sync(0xffffffffu, row.y, k);
+      const int q = __shfl_sync(0xffffffffu, row.z, k);
+      cp_async16(dst + k * kF32RowBytes,
+                 gb + ((static_cast<size_t>(max(r, 0)) * P + p) * P + q) * C,
+                 r >= 0 && c < C);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // warp w's share of a k-row's weights: at tile row w and column w
+  const int ly = y0 + warp, lx = x0 + warp;
+  auto load_w = [&](int4 row, float& wy, float& wx) {
+    const float* lw = A.lines + (b * R + max(row.x, 0)) * HW * P;
+    wy = row.x >= 0 && ly < A.H ? __ldg(lw + ly * P + row.y) : 0.0f;
+    wx = row.x >= 0 && lx < A.W ? __ldg(lw + (A.H + lx) * P + row.z) : 0.0f;
+  };
+  auto put_w = [&](int buf, float wy, float wx) {
+    reinterpret_cast<float*>(S.wy + buf * kF32KRows + lane)[warp] = wy;
+    reinterpret_cast<float*>(S.wx + buf * kF32KRows + lane)[warp] = wx;
+  };
+
+  const int batches = (kend - kbeg + kF32KRows - 1) / kF32KRows;
+  int4 ring[kF32Stages - 1];  // the row maps of batches j .. j + 2
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    ring[s] = row_of(s);
+    issue_g(s, ring[s]);
+  }
+  // batch 0's weights in shared memory, batch 1's in registers
+  float wy, wx;
+  load_w(ring[0], wy, wx);
+  put_w(0, wy, wx);
+  load_w(ring[1], wy, wx);
+  float4* sw = S.w + warp * kF32KRows;
+  for (int j = 0; j < batches; ++j) {
+    // this thread's copies of batch j landed, then every thread's; and
+    // every warp is done with batch j - 1's stage and weights, which
+    // batches j + kF32Stages - 1 and j + 1 take
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kF32Stages - 2));
+    __syncthreads();
+    const int4 ahead = row_of(j + kF32Stages - 1);
+    issue_g(j + kF32Stages - 1, ahead);
+    put_w((j + 1) & 1, wy, wx);  // batch j + 1's, read after the next barrier
+    const float wyj =
+        reinterpret_cast<const float*>(S.wy + (j & 1) * kF32KRows + lane)[warp];
+    const float4 wxj = S.wx[(j & 1) * kF32KRows + lane];
+    const float4 w = make_float4(wyj * wxj.x, wyj * wxj.y, wyj * wxj.z,
+                                 wyj * wxj.w);
+    sw[lane] = w;
+    unsigned live = __ballot_sync(
+        0xffffffffu, w.x != 0.0f || w.y != 0.0f || w.z != 0.0f ||
+                         w.w != 0.0f);
+#pragma unroll
+    for (int s = 0; s < kF32Stages - 2; ++s) ring[s] = ring[s + 1];
+    ring[kF32Stages - 2] = ahead;
+    load_w(ring[1], wy, wx);  // batch j + 2's
+    __syncwarp();
+    const unsigned char* gs =
+        S.g + (j % kF32Stages) * kF32Stage + lane * 16;
+    while (live) {
+      int k[4];
+      bool on[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        on[i] = live != 0;
+        k[i] = on[i] ? __ffs(live) - 1 : 0;
+        live &= live - 1;
+      }
+      float4 gv[4], wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        gv[i] = *reinterpret_cast<const float4*>(gs + k[i] * kF32RowBytes);
+        wv[i] = sw[k[i]];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (on[i]) fma_row(acc, wv[i], gv[i]);
+    }
+    __syncwarp();  // sw is rewritten next batch
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);  // zero-filled tails only
+  __syncthreads();  // and every thread's: the stages are reused after
+}
+
+// Row, first column and first channel of a unit's cell.
+struct F32Cell {
+  int b, y, x0, c;
+};
+
+__device__ __forceinline__ F32Cell f32_cell(const F32Args& A, int unit,
+                                            int cell) {
+  const int tile = unit / A.chunks, chunk = unit - tile * A.chunks;
+  const int nt = A.nty * A.ntx, b = tile / nt;
+  F32Cell o;
+  o.b = b;
+  o.y = (tile - b * nt) / A.ntx * kTileH + cell / kTileW;
+  o.x0 = (tile - b * nt) % A.ntx * kTileW + cell % kTileW;
+  o.c = chunk * kF32Channels;
+  return o;
+}
+
+// 4 channels of a cell into grad as one 16-byte store, where the cell and
+// channels lie in the map.
+__device__ __forceinline__ void store_f32x4(const F32Args& A, int b, int y,
+                                            int x, int c, const float4& v) {
+  if (y >= A.H || x >= A.W || c >= A.C) return;
+  *reinterpret_cast<float4*>(
+      A.grad + ((static_cast<size_t>(b) * A.H + y) * A.W + x) * A.C + c) = v;
+}
+
+// (4d) The staged f32 gather (f32 maps, C % 4 == 0, 16-byte aligned g, R <=
+// kMmaMaxR) for the units of at most kF32HeavyBatches batches: one block
+// per (image, tile, chunk of kF32Channels), images outermost; the others'
+// blocks leave. Each thread stores its row's 4 cells from registers.
+__global__ void __launch_bounds__(kF32Threads)
+    staged_fmap_gather_kernel(F32Args A) {
+  extern __shared__ uint4 s_dyn[];
+  const F32Smem S = f32_smem(s_dyn, A.R);
+  const int unit = blockIdx.x;
+  const int nb = (A.krows[unit / A.chunks] + kF32KRows - 1) / kF32KRows;
+  if (nb > kF32HeavyBatches) return;
+  float acc[kTileW][4];
+  staged_unit(A, S, unit, 0, nb, acc);
+  const F32Cell o = f32_cell(A, unit, (threadIdx.x >> 5) * kTileW);
+  const int c = o.c + (threadIdx.x & 31) * 4;
+#pragma unroll
+  for (int lx = 0; lx < kTileW; ++lx)
+    store_f32x4(A, o.b, o.y, o.x0 + lx, c,
+                make_float4(acc[lx][0], acc[lx][1], acc[lx][2], acc[lx][3]));
+}
+
+// (4e) The same for the units of more than kF32HeavyBatches batches: a
+// persistent grid of as many clusters of kF32Split blocks as the card
+// holds at once. Cluster c takes the heavy ones among units c, c +
+// clusters, ... (32 tested at a time, by ballot), in order; its blocks
+// split a unit's batches into kF32Split equal runs and add their partial
+// sums in block order through distributed shared memory, each block then
+// storing kCells / kF32Split cells. Launched on a side stream beside (4d).
+__global__ void __cluster_dims__(kF32Split, 1, 1)
+    __launch_bounds__(kF32Threads) staged_heavy_fmap_gather_kernel(
+        F32Args A, int units) {
+  namespace cg = cooperative_groups;
+  extern __shared__ uint4 s_dyn[];
+  const F32Smem S = f32_smem(s_dyn, A.R);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int seg = blockIdx.x % kF32Split;
+  const int clusters = gridDim.x / kF32Split, c = blockIdx.x / kF32Split;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // f32 [cell][channel] partial sums, over the stages once they are idle
+  constexpr int kQuads = kF32Channels / 4;  // float4s a cell
+  float4* s_part = reinterpret_cast<float4*>(S.g);
+  auto batches = [&](int u) {
+    return (__ldg(A.krows + u / A.chunks) + kF32KRows - 1) / kF32KRows;
+  };
+  for (int u0 = c; u0 < units; u0 += 32 * clusters) {
+    const int u = u0 + lane * clusters;
+    unsigned todo = __ballot_sync(
+        0xffffffffu, u < units && batches(u) > kF32HeavyBatches);
+    while (todo) {
+      const int unit = u0 + (__ffs(todo) - 1) * clusters;
+      todo &= todo - 1;
+      const int nb = batches(unit);
+      float acc[kTileW][4];
+      staged_unit(A, S, unit, seg * nb / kF32Split,
+                  (seg + 1) * nb / kF32Split, acc);
+#pragma unroll
+      for (int lx = 0; lx < kTileW; ++lx)
+        s_part[(warp * kTileW + lx) * kQuads + lane] =
+            make_float4(acc[lx][0], acc[lx][1], acc[lx][2], acc[lx][3]);
+      cluster.sync();
+      constexpr int kShare = kCells / kF32Split;
+      for (int item = threadIdx.x; item < kShare * kQuads;
+           item += kF32Threads) {
+        const int cell = seg * kShare + item / kQuads, s = item % kQuads;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int r = 0; r < kF32Split; ++r) {
+          const float4 p =
+              cluster.map_shared_rank(s_part, r)[cell * kQuads + s];
+          v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+        }
+        const F32Cell o = f32_cell(A, unit, cell);
+        store_f32x4(A, o.b, o.y, o.x0, o.c + s * 4, v);
+      }
+      cluster.sync();  // the partials are read before the next unit
+    }
+  }
+}
+
 constexpr int kCellGroup = 16;  // cells reduced by one butterfly
 constexpr int kMaxSlots = kMaxTapsPerBin;  // lo, hi of a bin's samples
 // Sum of the warp's 32 values of each v[j]: lane l ends with v[(l / 2) % 16]
@@ -1099,6 +1441,86 @@ int mma_setup() {
   return sms;
 }
 
+// Once a process, after mma_setup: the staged f32 kernels' shared memory
+// limit. The card's SM count (returned), or -(CUDA error).
+int f32_setup() {
+  static const int sms = [] {
+    const int n = mma_setup();
+    if (n < 0) return n;
+    cudaError_t err;
+    if ((err = cudaFuncSetAttribute(
+             staged_fmap_gather_kernel,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kF32SmemFixed + 12 * kMmaMaxR)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             staged_heavy_fmap_gather_kernel,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kF32SmemFixed + 12 * kMmaMaxR)) != cudaSuccess)
+      return -static_cast<int>(err);
+    return n;
+  }();
+  return sms;
+}
+
+// K1-bwd-fmap's routes, chosen from what the launcher sees: the map's type
+// (dtype 0 float32, 1 bfloat16), C, g's address and R (ROIs an image);
+// sgg_torch/ops/roi_align.py:fmap_route mirrors it.
+enum FmapRoute {
+  kF32Staged = 0,   // (4d, 4e)
+  kF32Gather = 1,   // (4a)
+  kBf16Mma = 2,     // (4b, 4c)
+  kBf16Gather = 3,  // (4a)
+};
+
+int fmap_route(int dtype, int C, const void* g, int R) {
+  const bool staged =
+      reinterpret_cast<uintptr_t>(g) % 16 == 0 && R <= kMmaMaxR;
+  if (dtype == 1) return C % 8 == 0 && staged ? kBf16Mma : kBf16Gather;
+  return C % 4 == 0 && staged ? kF32Staged : kF32Gather;
+}
+
+// The staged f32 gather: the heavy units on the side stream, forked from
+// and joined back into s, beside the light ones, as the tensor-core route.
+int launch_staged(const void* g, const int* ws, const Layout& L,
+                  void* grad_fmap, int B, int H, int W, int C, int R, int P,
+                  cudaStream_t s) {
+  const int chunks = (C + kF32Channels - 1) / kF32Channels;
+  const F32Args A{static_cast<const float*>(g), ws, ws + L.krows,
+                  ws + L.lists, ws + L.infos, ws + L.koffs,
+                  reinterpret_cast<const float*>(ws + L.lines),
+                  static_cast<float*>(grad_fmap), R, H, W, C, P, L.nty,
+                  L.ntx, chunks};
+  const int units = B * L.nty * L.ntx * chunks;
+  const size_t smem = kF32SmemFixed + 3 * sizeof(int) * static_cast<size_t>(R);
+  const int sms = f32_setup();
+  if (sms < 0) return -sms;
+  // as many clusters as the card holds at once at this shared memory (a
+  // persistent cluster that waits for a slot would run its units after
+  // the others')
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kF32Split * sms, 1, 1);
+  cfg.blockDim = dim3(kF32Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &clusters, staged_heavy_fmap_gather_kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  clusters = max(clusters, 1);
+  if ((err = cudaEventRecord(g_fork, s)) != cudaSuccess ||
+      (err = cudaStreamWaitEvent(g_side, g_fork, 0)) != cudaSuccess)
+    return static_cast<int>(err);
+  staged_heavy_fmap_gather_kernel<<<clusters * kF32Split, kF32Threads, smem,
+                                    g_side>>>(A, units);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = cudaEventRecord(g_join, g_side)) != cudaSuccess)
+    return static_cast<int>(err);
+  staged_fmap_gather_kernel<<<units, kF32Threads, smem, s>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = cudaStreamWaitEvent(s, g_join, 0)) != cudaSuccess)
+    return static_cast<int>(err);
+  return 0;
+}
+
 template <typename T>
 int launch_fmap(const void* g, const void* boxes, void* workspace,
                 size_t workspace_bytes, void* grad_fmap, int B, int H, int W,
@@ -1125,8 +1547,9 @@ int launch_fmap(const void* g, const void* boxes, void* workspace,
   if ((err = cudaGetLastError()) != cudaSuccess)
     return static_cast<int>(err);
   const size_t smem = kMmaSmemFixed + 3 * sizeof(int) * static_cast<size_t>(R);
-  if (std::is_same<T, __nv_bfloat16>::value && C % 8 == 0 &&
-      reinterpret_cast<uintptr_t>(g) % 16 == 0 && R <= kMmaMaxR) {
+  const int route =
+      fmap_route(std::is_same<T, float>::value ? 0 : 1, C, g, R);
+  if (route == kBf16Mma) {
     const int chunks = (C + kMmaChannels - 1) / kMmaChannels;
     const MmaArgs A{static_cast<const __nv_bfloat16*>(g), ws, ws + L.krows,
                     ws + L.lists, ws + L.infos, ws + L.koffs, lines,
@@ -1150,6 +1573,10 @@ int launch_fmap(const void* g, const void* boxes, void* workspace,
     fmap_gather_mma_kernel<<<units, kTileThreads, smem, s>>>(A);
     if ((err = cudaGetLastError()) != cudaSuccess ||
         (err = cudaStreamWaitEvent(s, g_join, 0)) != cudaSuccess)
+      return static_cast<int>(err);
+  } else if (route == kF32Staged) {
+    if ((err = static_cast<cudaError_t>(launch_staged(
+             g, ws, L, grad_fmap, B, H, W, C, R, P, s))) != cudaSuccess)
       return static_cast<int>(err);
   } else if (C % 4 == 0 &&
              reinterpret_cast<uintptr_t>(g) % (4 * sizeof(T)) == 0) {
@@ -1220,6 +1647,19 @@ int sgg_roi_align_bwd_fmap_layout(int B, int H, int W, int R, int pooled,
   out[5] = static_cast<long long>(L.lists);
   out[6] = static_cast<long long>(L.masks);
   return 0;
+}
+
+// K1-bwd-fmap's route for a map of `dtype` (0 float32, 1 bfloat16) with C
+// channels, g at `g` and R ROIs an image: 0 f32-staged, 1 f32-gather, 2
+// bf16-mma, 3 bf16-gather; *heavy the k-rows of a tile past which the
+// route splits a unit between the blocks of a cluster (0 where it never
+// does). Launches nothing.
+int sgg_roi_align_bwd_fmap_route(int dtype, int C, const void* g, int R,
+                                 long long* heavy) {
+  const int route = fmap_route(dtype, C, g, R);
+  *heavy = route == kF32Staged ? kF32HeavyBatches * kF32KRows
+           : route == kBf16Mma ? kHeavyBatches * kKRows : 0;
+  return route;
 }
 
 // grad_fmap (B, H, W, C) in the map's type (dtype 0 float32, 1 bfloat16)

@@ -19,8 +19,9 @@ autodiff of the separable ``sgg_tpu/ops/roi_align.py:roi_align`` (the JAX
 detector's train step differentiates through its proposals).
 K1-bwd-fmap is a gather that needs no atomics: per tile of map cells it
 lists the ROIs with a tap there, on the card, then sums each cell over its
-tile's list in a fixed order, on the tensor cores for a bf16 map
-(``csrc/roi_align_bwd.cu``); two launches give the same bits.
+tile's list in a fixed order, on the tensor cores for a bf16 map and in f32
+on the CUDA cores for an f32 one (``csrc/roi_align_bwd.cu``; its routes:
+``fmap_route``); two launches give the same bits.
 ``folded_axis_taps`` models the kernels' per-bin tap tables and
 ``roi_tile_lists`` K1-bwd-fmap's tile lists, for the CPU tests; nothing on
 the main path calls either.
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from sgg_torch.ops._cuda import CudaKernel
+from sgg_torch.utils import counters
 from sgg_torch.utils.profiling import (kernel_flops, roi_align_boxes_grad_flops,
                                        roi_align_flops)
 
@@ -53,10 +55,30 @@ KERNEL_BWD_BOXES = CudaKernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-FMAP_ROUTES = {torch.float32: "f32-gather", torch.bfloat16: "bf16-gather"}
+# K1-bwd-fmap's routes by the C function's route id
+# (``sgg_roi_align_bwd_fmap_route``)
+FMAP_ROUTES = ("f32-staged", "f32-gather", "bf16-mma", "bf16-gather")
+# ROIs an image past which the staged routes cannot hold a tile's list in
+# shared memory (kMmaMaxR of csrc/roi_align_bwd.cu)
+FMAP_STAGED_MAX_R = 4096
 # K1-bwd-fmap's tiles: map rows x columns (kTileH, kTileW of
 # csrc/roi_align_bwd.cu; the card tests hold the two equal)
 FMAP_TILE = (4, 4)
+
+
+def fmap_route(dtype: torch.dtype, C: int, g_ptr: int, R: int) -> str:
+    """K1-bwd-fmap's route, as ``csrc/roi_align_bwd.cu:fmap_route`` chooses
+    it from what its launcher sees (the card tests hold the two equal): a
+    16-byte aligned ``g`` (at address ``g_ptr``) with at most
+    ``FMAP_STAGED_MAX_R`` ROIs an image is staged through shared memory,
+    on the tensor cores for a bf16 map with C % 8 == 0 (``bf16-mma``), on
+    the CUDA cores in f32 for an f32 map with C % 4 == 0 (``f32-staged``);
+    any other map takes the unstaged CUDA-core gather (``f32-gather``,
+    ``bf16-gather``)."""
+    staged = g_ptr % 16 == 0 and R <= FMAP_STAGED_MAX_R
+    if dtype == torch.bfloat16:
+        return "bf16-mma" if staged and C % 8 == 0 else "bf16-gather"
+    return "f32-staged" if staged and C % 4 == 0 else "f32-gather"
 
 
 def _interp_weights(start: torch.Tensor, extent: torch.Tensor, dim: int,
@@ -371,7 +393,9 @@ def _grad_fmap_kernel(g, boxes, fmap_shape, dtype, scale, pooled, ratio,
     """K1-bwd-fmap: the tile lists built on the card into an int32
     workspace (allocated here unless given, for a test to read; nothing in
     it needs clearing), then the gather writes the gradient in ``dtype``;
-    the host waits for nothing."""
+    the host waits for nothing. Each launch is counted by its route
+    (``fmap_route``), in the kernel's ``routes`` and in the process's
+    counter ``k1_bwd_fmap.<route>``."""
     B, H, W, C = fmap_shape
     R = boxes.shape[1]
     if workspace is None:
@@ -379,11 +403,13 @@ def _grad_fmap_kernel(g, boxes, fmap_shape, dtype, scale, pooled, ratio,
             -(-fmap_workspace_layout(B, H, W, R, pooled)["bytes"] // 4),
             dtype=torch.int32, device=g.device)
     grad = torch.empty((B, H, W, C), dtype=dtype, device=g.device)
+    route = fmap_route(dtype, C, g.data_ptr(), R)
     KERNEL_BWD_FMAP.launch(
         g.data_ptr(), boxes.data_ptr(), workspace.data_ptr(),
         workspace.numel() * workspace.element_size(), grad.data_ptr(),
         B, H, W, C, R, float(scale), pooled, ratio, _DTYPES[dtype],
-        _stream(g), route=FMAP_ROUTES[dtype])
+        _stream(g), route=route)
+    counters.bump(f"k1_bwd_fmap.{route}")
     return grad
 
 

@@ -256,8 +256,9 @@ def _rel(got, want):
                  / want.float().abs().max().clamp(min=1e-30))
 
 
-# C = 200: 4 channels a thread (fmap) / a 16-byte chunk (boxes); 203:
-# single channels; 256: FPN's width
+# C = 200: the staged map gradient (f32: 4 channels a lane; bf16: the
+# tensor cores) / a 16-byte chunk (boxes); 203: the unstaged gather's and
+# the boxes' single channels; 256: FPN's width
 BWD_KINDS = ["random", "ragged", "degenerate", "outside", "wholemap",
              "on_grid", "crowded"]
 
@@ -269,13 +270,15 @@ def test_roi_align_backward_kernels_match_plain(kind, C, dev):
     same inputs, both summing in f32 in their own orders: within 1e-5 of
     the largest value for the f32 map gradient and 1e-2 for the bf16 one
     (rounded to bf16 once, after the sums); the box gradient within 1e-4
-    (its samples' differences of taps cancel); and both kernels give the
-    same bits from a second launch."""
+    (its samples' differences of taps cancel); both kernels give the
+    same bits from a second launch; the map gradient takes the route that
+    ``fmap_route`` names."""
     fmap, boxes, g = (torch.from_numpy(a).to(dev)
                       for a in _bwd_case(kind, C))
     hw = fmap.shape[1:3]
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         f, gg = fmap.to(dtype), g.to(dtype)
+        troi.KERNEL_BWD_FMAP.reset_counts()
         want_f = troi.roi_align_backward_reference(
             gg, boxes, hw, dtype, spatial_scale=1 / 16.0)
         want_b = troi.roi_align_boxes_grad_reference(
@@ -292,6 +295,8 @@ def test_roi_align_backward_kernels_match_plain(kind, C, dev):
         assert torch.equal(got_b, again_b), (dtype, "boxes repeat")
         assert _rel(got_f, want_f) <= tol, (dtype, "fmap")
         assert _rel(got_b, want_b) <= 1e-4, (dtype, "boxes")
+        assert dict(troi.KERNEL_BWD_FMAP.routes) == {troi.fmap_route(
+            dtype, C, gg.data_ptr(), boxes.shape[1]): 2}
 
 
 @pytest.mark.parametrize("kind", BWD_KINDS)
@@ -521,7 +526,7 @@ def test_detector_train_step_does_not_wait_for_the_card(dev):
     assert all(torch.isfinite(v).item() for v in metrics.values())
     # K1-bwd-fmap's gather, K2-bwd on the tensor cores
     assert [dict(k.routes) for k in ks] == [
-        {"bf16": 1}, {"bf16-gather": 1}, {"bf16": 1}, {"bf16": 1},
+        {"bf16": 1}, {"bf16-mma": 1}, {"bf16": 1}, {"bf16": 1},
         {"bf16-mma": 1}]
 
 
@@ -850,7 +855,7 @@ def test_fpn_detector_train_step_card_matches_cpu_and_does_not_wait(dev):
         torch.cuda.set_sync_debug_mode(0)
     assert all(torch.isfinite(v).item() for v in metrics.values())
     assert [dict(k.routes) for k in ks] == [
-        {"bf16": 4}, {"bf16-gather": 4}, {"bf16": 4}]
+        {"bf16": 4}, {"bf16-mma": 4}, {"bf16": 4}]
     for k, b in det.named_buffers():
         assert torch.equal(b, stats[k]), k
 
@@ -895,7 +900,7 @@ def test_imported_vgg_detector_card_matches_cpu(dev):
 
 
 def test_roi_align_backward_fmap_f32_gather_at_a_crowded_gan_shape(dev):
-    """K1-bwd-fmap on ``f32-gather`` (the GAN's f32 fake map) with 256
+    """K1-bwd-fmap on ``f32-staged`` (the GAN's f32 fake map) with 256
     heavily overlapping union boxes an image and 40 node boxes over a
     37 x 37 map, against its plain version; two launches, the same bits."""
     rng = np.random.RandomState(5)
@@ -922,7 +927,95 @@ def test_roi_align_backward_fmap_f32_gather_at_a_crowded_gan_shape(dev):
         assert torch.equal(got[0], got[1])
         torch.testing.assert_close(got[0], want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
-    assert dict(troi.KERNEL_BWD_FMAP.routes) == {"f32-gather": 4}
+    assert dict(troi.KERNEL_BWD_FMAP.routes) == {"f32-staged": 4}
+
+
+def _fmap_route_c(dtype, C, ptr, R):
+    """K1-bwd-fmap's launcher's own route and the k-rows past which it
+    splits a unit across a cluster."""
+    import ctypes
+    heavy = ctypes.c_longlong(-1)
+    route = troi.KERNEL_BWD_FMAP.helper(
+        "sgg_roi_align_bwd_fmap_route",
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_longlong)])(
+        troi._DTYPES[dtype], C, ptr, R, ctypes.byref(heavy))
+    return troi.FMAP_ROUTES[route], heavy.value
+
+
+def test_fmap_route_is_the_launchers(dev):
+    """``fmap_route`` (what the wrapper counts) names the route that the
+    launcher takes, over the map's types, widths, alignments of g and
+    ROIs an image."""
+    base = 1 << 40
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in (4, 6, 8, 200, 203, 204, 256, 512):
+            for off in (0, 2, 4, 8, 12, 16):
+                for R in (1, 576, 4096, 4097):
+                    got, heavy = _fmap_route_c(dtype, C, base + off, R)
+                    assert got == troi.fmap_route(dtype, C, base + off,
+                                                  R), (dtype, C, off, R)
+                    assert (heavy > 0) == got.endswith(("staged", "mma"))
+
+
+def _gan_shape_boxes(rng, B):
+    """The GAN step's two launches at the cell's shape: node boxes (B, 64)
+    with 2-30 real ones an image (about 12) and zero boxes in the empty
+    slots, and the union boxes of the 576 edge slots as ``sample_edges``
+    fills them (every ordered pair of real nodes, about 150 an image; the
+    empty slots repeat pairs of slot 0, so the tiles near the map's
+    corner hold thousands of k-rows)."""
+    from sgg_torch.ops.boxes import union_boxes
+    from sgg_torch.train.assign import sample_edges
+    n = rng.permutation([2, 3, 4, 5, 6, 7, 8, 8, 9, 10, 10, 11, 12, 12, 13,
+                         14, 15, 16, 17, 18, 20, 22, 25, 30])[:B]
+    boxes = np.zeros((B, 64, 4), np.float32)
+    for i, k in enumerate(n):
+        xy = rng.uniform(0, 520, (k, 2))
+        wh = rng.uniform(16, 470, (k, 2))
+        boxes[i, :k] = np.concatenate([xy, np.minimum(xy + wh, 592)], -1)
+    node_mask = torch.arange(64)[None] < torch.from_numpy(n)[:, None]
+    rels = torch.zeros(B, 1, 3, dtype=torch.long)
+    pairs, _ = sample_edges(torch.Generator().manual_seed(3), rels,
+                            torch.zeros(B, 1, dtype=torch.bool), node_mask,
+                            max_out=576)
+    nodes = torch.from_numpy(boxes)
+    return nodes, union_boxes(nodes, pairs[..., 0], pairs[..., 1])
+
+
+def test_roi_align_backward_fmap_staged_f32_at_the_gan_cell_shape(dev):
+    """K1-bwd-fmap on ``f32-staged`` at the GAN cell's shape, a 24 x 37 x
+    37 x 512 f32 fake map, for its node launch and its union launch: within
+    1e-5 of the plain version's largest value, the same bits from a second
+    launch, and tiles past the cluster split's k-rows in both (the heavy
+    units' path taken)."""
+    rng = np.random.RandomState(20)
+    B, H, C = 24, 37, 512
+    _, heavy = _fmap_route_c(torch.float32, C, 1 << 40, 576)
+    troi.KERNEL_BWD_FMAP.reset_counts()
+    for boxes in _gan_shape_boxes(rng, B):
+        b = boxes.contiguous().to(dev)
+        R = b.shape[1]
+        g = torch.randn(B, R, 7, 7, C, generator=torch.Generator(
+        ).manual_seed(R)).to(dev)
+        layout = troi.fmap_workspace_layout(B, H, H, R)
+        tiles = B * layout["nty"] * layout["ntx"]
+        ws = torch.full((-(-layout["bytes"] // 4),), -7, dtype=torch.int32,
+                        device=dev)
+        got = troi._grad_fmap_kernel(g, b, (B, H, H, C), torch.float32,
+                                     1 / 16, 7, 2, workspace=ws)
+        again = troi._grad_fmap_kernel(g, b, (B, H, H, C), torch.float32,
+                                       1 / 16, 7, 2)
+        want = troi.roi_align_backward_reference(
+            g, b, (H, H), torch.float32, spatial_scale=1 / 16)
+        torch.cuda.synchronize()
+        krows = ws[tiles:2 * tiles]
+        assert int(krows.max()) > heavy, (R, int(krows.max()), heavy)
+        assert torch.equal(got, again), R
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+        del g, got, again, want
+    assert dict(troi.KERNEL_BWD_FMAP.routes) == {"f32-staged": 4}
 
 
 def _tiny_gan_step(device, seed=0, vis_cond=False):
@@ -964,7 +1057,7 @@ def test_tiny_gan_step_card_matches_cpu_and_counts_routes(dev):
     CPU, from the same weights on the same sampled edges: the losses within
     1e-4 relative, the updated relation model within phase 6's limits;
     on the card K2 once, K1 twice on the real map and four times on the
-    f32 fake map, K1-bwd-fmap twice on ``f32-gather``, nothing else; a
+    f32 fake map, K1-bwd-fmap twice on ``f32-staged``, nothing else; a
     second step waits for nothing."""
     from sgg_torch.train.assign import sample_edges
     batch = _gan_batch()
@@ -984,7 +1077,7 @@ def test_tiny_gan_step_card_matches_cpu_and_counts_routes(dev):
     got = card_step(batch, fake, None, edges=edges)
     torch.cuda.synchronize()
     assert [dict(k.routes) for k in kernels] == [
-        {"f32": 6}, {"f32-gather": 2}, {}, {"f32": 1}, {}]
+        {"f32": 6}, {"f32-staged": 2}, {}, {"f32": 1}, {}]
     want = cpu_step(batch, fake, None, edges=edges)
     assert set(got) == set(want)
     for k in want:
@@ -1029,7 +1122,7 @@ def test_tiny_conditioned_gan_step_card_matches_cpu_and_does_not_wait(dev):
     got = card_step(batch, fake, None, edges=edges, vis_features=vis)
     torch.cuda.synchronize()
     assert [dict(k.routes) for k in kernels] == [
-        {"f32": 6}, {"f32-gather": 2}, {}, {"f32": 1}, {}]
+        {"f32": 6}, {"f32-staged": 2}, {}, {"f32": 1}, {}]
     want = cpu_step(batch, fake, None, edges=edges, vis_features=vis)
     assert set(got) == set(want)
     for k in want:
