@@ -4,20 +4,29 @@ own size, many seeds in one process:
     python3 -m benchmarks.calibrate --workload <cell> --seeds 1,2,3 \
         [--controls 1,2,3]
 
-For each seed of ``--seeds``: the program's check steps through
-``Trainer.train_epoch`` (as a run takes them, with no window), then the
-reference; the three numbers of ``check.py`` (the lower readings). For
-each seed of ``--controls`` also the reference put in the program's
-place and computed in the precision below the configuration's
-(``control``), and with half of each batch left out, the means taken
-over the rest (``fault_half``). A step that leaves the state unchanged
-reads 1 on ``update_gap`` by construction and needs no run. One JSON line
-a seed and kind on standard output.
+A cell that trains: for each seed of ``--seeds``, the program's check
+steps through ``Trainer.train_epoch`` (as a run takes them, with no
+window), then the reference; the three numbers of ``check.py`` (the
+lower readings). For each seed of ``--controls`` also the reference put
+in the program's place and computed in the precision below the
+configuration's (``control``), and with half of each batch left out, the
+means taken over the rest (``fault_half``). A step that leaves the state
+unchanged reads 1 on ``update_gap`` by construction and needs no run.
+
+A cell that evaluates: for each seed of ``--seeds``, the warm-up and a
+window over the check batches alone (``evaluation.run_window``), then
+the reference; the numbers of ``check_eval.py``. For each seed of
+``--controls`` also the reference in the lower precision in the
+program's place (``control``), and the program with each fault of
+``EVAL_FAULTS`` planted (``fault_half_pairs``, ``fault_dedup_map``).
+
+One JSON line a seed and kind on standard output.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -41,6 +50,106 @@ def half_batch(nb: dict) -> dict:
     return nb
 
 
+@contextlib.contextmanager
+def half_pairs():
+    """The eval step's candidates lose every other ordered pair slot
+    (``train/step.py``'s ``all_pairs``): half of the pairs left out."""
+    from sgg_torch.train import step
+    orig = step.all_pairs
+
+    def all_pairs(node_mask):
+        pairs, mask = orig(node_mask)
+        slot = torch.arange(mask.shape[1], device=mask.device)
+        return pairs, mask & (slot % 2 == 0)
+
+    step.all_pairs = all_pairs
+    try:
+        yield
+    finally:
+        step.all_pairs = orig
+
+
+@contextlib.contextmanager
+def dedup_map():
+    """The unions' dedup gathers each ordered pair from its neighbour's
+    row (``models/relhead.py``'s ``unordered_union_index``, its row map
+    rolled by one slot)."""
+    from sgg_torch.models import relhead
+    orig = relhead.unordered_union_index
+
+    def index(*args, **kw):
+        uni, gidx, ok, n = orig(*args, **kw)
+        return uni, torch.roll(gidx, 1, dims=1), ok, n
+
+    relhead.unordered_union_index = index
+    try:
+        yield
+    finally:
+        relhead.unordered_union_index = orig
+
+
+EVAL_FAULTS = {"fault_half_pairs": half_pairs, "fault_dedup_map": dedup_map}
+
+
+def eval_outputs(trainer, cell, test_ds, warm_ds, dev) -> dict:
+    """The host outputs that a window over ``test_ds`` keeps."""
+    from benchmarks import evaluation
+    probe = evaluation.Probe(evaluation.EvalRecord(),
+                             cell.traffic["check_batches"])
+    undo = probe.install()
+    try:
+        evaluation.run_window(trainer, cell.traffic["split"], test_ds,
+                              warm_ds, probe, window.Clock(dev))
+    finally:
+        undo()
+    return probe.rec.outputs
+
+
+def eval_readings(cell, seed: int, dev, sound: bool, controls: bool
+                  ) -> dict:
+    """The eval cell's numbers of one seed by kind (see the module's
+    text)."""
+    from benchmarks import check_eval, evaluation
+    cfg, mix = cell.config, cell.traffic
+    cfg_seed, weight_seed = seeds(seed)
+    scratch = tempfile.mkdtemp(prefix="sgg-calib-")
+    try:
+        names, sizes = traffic.write_pool(mix, seed, scratch, device=dev)
+        test, train = evaluation.splits(mix, seed, sizes, cfg, 0.0)
+        paths = [os.path.join(scratch, n) for n in names]
+        entries = check_eval.check_entries(mix, cfg)
+        built, test_ds, warm_ds = evaluation.build(
+            cell, dev, weight_seed, cfg_seed, test, train, scratch, names)
+        runs = {"program": contextlib.nullcontext} if sound else {}
+        if controls:
+            runs.update(EVAL_FAULTS)
+        kept = {}
+        for kind, fault in runs.items():
+            with fault():
+                kept[kind] = check_eval.program_outputs(
+                    eval_outputs(built.trainer, cell, test_ds, warm_ds, dev),
+                    test, cfg)
+        del built, test_ds, warm_ds
+        window.wait_threads()
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = check_eval.reference_outputs(cfg, test, paths, weight_seed,
+                                           dev, "bf16", entries)
+        if controls:
+            kept["control"] = check_eval.in_place_of_program(
+                check_eval.reference_outputs(
+                    cfg, test, paths, weight_seed, dev,
+                    cfg["precision"]["control"], entries), test)
+        readings = {kind: check_eval.compare(prog, ref, test)
+                    for kind, prog in kept.items()}
+        del ref, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return readings
+
+
 def program_steps(cell, split, scratch, names, cfg_seed, weight_seed, dev):
     """The program's check steps through ``Trainer.train_epoch``."""
     mix = cell.traffic
@@ -60,10 +169,11 @@ def program_steps(cell, split, scratch, names, cfg_seed, weight_seed, dev):
 
 def numbers_line(kind, seed, numbers):
     keys = [k for k in numbers if k != "quiet_leaves"]
-    return json.dumps({"kind": kind, "seed": seed,
-                       **{k: numbers[k][0] for k in keys},
-                       "at": {k: numbers[k][1] for k in keys},
-                       "quiet_leaves": len(numbers["quiet_leaves"])})
+    line = {"kind": kind, "seed": seed, **{k: numbers[k][0] for k in keys},
+            "at": {k: numbers[k][1] for k in keys}}
+    if "quiet_leaves" in numbers:
+        line["quiet_leaves"] = len(numbers["quiet_leaves"])
+    return json.dumps(line)
 
 
 def main(argv=None) -> int:
@@ -79,8 +189,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     runs = [int(s) for s in args.seeds.split(",") if s]
     controls = {int(s) for s in args.controls.split(",") if s}
-    for seed in sorted(set(runs) | controls, key=lambda s: (
-            s not in runs, runs.index(s) if s in runs else 0)):
+    order = sorted(set(runs) | controls, key=lambda s: (
+        s not in runs, runs.index(s) if s in runs else 0))
+    if spec.drive(mix) == "evaluate":
+        for seed in order:
+            for kind, numbers in eval_readings(cell, seed, dev, seed in runs,
+                                               seed in controls).items():
+                print(numbers_line(kind, seed, numbers), flush=True)
+        return 0
+    for seed in order:
         cfg_seed, weight_seed = seeds(seed)
         scratch = tempfile.mkdtemp(prefix="sgg-calib-")
         try:

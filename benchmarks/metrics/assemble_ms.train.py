@@ -1,7 +1,6 @@
 """The mean ``batch.assemble`` span (``BatchLoader._assemble``: decode,
 native uint8 prep and packing on the loader's threads) over the batches
-whose assembly starts in the untraced window: ``host_batch_ms.train``
-timed from inside the call."""
+whose assembly starts in the untraced window."""
 
 from benchmarks import spans
 

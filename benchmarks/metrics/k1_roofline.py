@@ -13,7 +13,7 @@ ELEM = {"bfloat16": 2, "float32": 4}
 
 def read(run):
     tr = run.trace
-    if tr is None:
+    if tr is None or run.rec.trace_steps == 0:
         return None
     ns = sum(e - s for name, s, e in tr.kernels if "roi_align_kernel" in name)
     if ns == 0:

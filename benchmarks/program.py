@@ -38,16 +38,22 @@ def program_config(cfg: dict, seed: int, device: str, data_dir: str):
                   hostname="benchmark", **kw)
 
 
-def dataset(split, image_dir: str, names, cfg: dict):
+def dataset(split, image_dir: str, names, cfg: dict, mode: str = "train",
+            entries=None):
+    """The program's ``SGGDataset`` of ``split`` (of its ``entries``, in
+    their order, where given): ``train`` shuffles and flips, ``test``
+    neither."""
     from sgg_torch.data.datasets import SGGDataset
     from benchmarks.traffic import vocabulary
     classes, predicates = vocabulary(cfg["num_classes"],
                                      cfg["num_predicates"])
-    return SGGDataset(name="stanford", mode="train",
-                      filenames=[names[i] for i in split.entry_file],
-                      images_dir=image_dir, gt_boxes=split.gt_boxes,
-                      gt_classes=split.gt_classes,
-                      relationships=split.relationships,
+    idx = range(len(split)) if entries is None else entries
+    return SGGDataset(name="stanford", mode=mode,
+                      filenames=[names[split.entry_file[i]] for i in idx],
+                      images_dir=image_dir,
+                      gt_boxes=[split.gt_boxes[i] for i in idx],
+                      gt_classes=[split.gt_classes[i] for i in idx],
+                      relationships=[split.relationships[i] for i in idx],
                       ind_to_classes=classes, ind_to_predicates=predicates,
                       box_coordinates="native")
 
@@ -135,10 +141,11 @@ class Built:
 
 
 def build(cfg: dict, device, weight_seed: int, split, image_dir: str, names,
-          cfg_seed: int, log=None) -> Built:
+          cfg_seed: int, log=None, tests=None) -> Built:
     """The trainer of a cell with the benchmark's weights: the relation
     model's from ``weight_seed``, the GAN's from the next two seeds (the
-    reference draws the same)."""
+    reference draws the same). ``tests``: more splits by name (program
+    ``SGGDataset``s) for ``Trainer.evaluate``."""
     from sgg_torch import constants
     from sgg_torch.train.trainer import Trainer
     from benchmarks.reference import gan as ref_gan
@@ -163,5 +170,6 @@ def build(cfg: dict, device, weight_seed: int, split, image_dir: str, names,
     ds = dataset(split, image_dir, names, cfg)
     if log is not None:
         log("weights made, dataset built")
-    trainer = Trainer(config, {"train": ds}, model=model, gan=gan)
+    trainer = Trainer(config, {"train": ds, **(tests or {})}, model=model,
+                      gan=gan)
     return Built(trainer, gan is not None)

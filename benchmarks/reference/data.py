@@ -1,6 +1,8 @@
 """The training loader, written out again: the epoch's order, each
 example's flip and duplicate filtering, the uint8 canvas (decode, triangle
-resize, flip, mean padding) and the padded batch.
+resize, flip, mean padding) and the padded batch; and the test loader's
+example: no flip, a float32 canvas normalised on the host and padded
+with zeros.
 
 The rules are those of the reference framework's VG loader as the port
 states them: the order is ``RandomState(seed + epoch)``'s shuffle, an
@@ -75,12 +77,8 @@ def tent_weights(n_in: int, n_out: int):
     return np.minimum(idx, n_in - 1), w32
 
 
-def canvas_u8(img: np.ndarray, canvas: int, ch: int, cw: int,
-              flip: bool) -> np.ndarray:
-    """(canvas, canvas, 3) uint8: ``img`` resized to (ch, cw), flipped if
-    asked, at the top left of a canvas of the mean colour."""
-    out = np.empty((canvas, canvas, 3), np.uint8)
-    out[:] = MEAN_U8
+def resize_u8(img: np.ndarray, ch: int, cw: int) -> np.ndarray:
+    """(ch, cw, 3) uint8: ``img`` through the separable triangle filter."""
     xi, xw = tent_weights(img.shape[1], cw)
     yi, yw = tent_weights(img.shape[0], ch)
     src = img.astype(np.float32)
@@ -90,8 +88,30 @@ def canvas_u8(img: np.ndarray, canvas: int, ch: int, cw: int,
     acc = np.zeros((ch, cw, 3), np.float32)
     for k in range(len(yi)):
         acc += yw[k][:, None, None] * tmp[yi[k]]
-    res = np.clip(np.floor(acc + np.float32(0.5)), 0, 255).astype(np.uint8)
+    return np.clip(np.floor(acc + np.float32(0.5)), 0, 255).astype(np.uint8)
+
+
+def canvas_u8(img: np.ndarray, canvas: int, ch: int, cw: int,
+              flip: bool) -> np.ndarray:
+    """(canvas, canvas, 3) uint8: ``img`` resized to (ch, cw), flipped if
+    asked, at the top left of a canvas of the mean colour."""
+    out = np.empty((canvas, canvas, 3), np.uint8)
+    out[:] = MEAN_U8
+    res = resize_u8(img, ch, cw)
     out[:ch, :cw] = res[:, ::-1] if flip else res
+    return out
+
+
+def canvas_f32(img: np.ndarray, canvas: int, ch: int, cw: int
+               ) -> np.ndarray:
+    """(canvas, canvas, 3) float32, the test loader's canvas: ``img``
+    resized to (ch, cw), scaled to [0, 1] and normalised by the ImageNet
+    mean and deviation, at the top left of a canvas of zeros (the mean)."""
+    mean = np.asarray([0.485, 0.456, 0.406], np.float32)
+    std = np.asarray([0.229, 0.224, 0.225], np.float32)
+    out = np.zeros((canvas, canvas, 3), np.float32)
+    out[:ch, :cw] = (resize_u8(img, ch, cw).astype(np.float32) / 255.0
+                     - mean) / std
     return out
 
 
@@ -151,3 +171,16 @@ def batch(paths: Sequence[str], boxes: List[np.ndarray],
             out["rels"][b, :len(keep)] = np.asarray(keep)
             out["rel_mask"][b, :len(keep)] = True
     return out
+
+
+def test_example(path: str, boxes: np.ndarray, canvas: int):
+    """(float32 canvas, boxes in canvas pixels) of a test example whose
+    boxes are in the file's pixels: no flip, no draw."""
+    img = decode(path)
+    h, w = img.shape[:2]
+    ch, cw, s = content_size(h, w, canvas)
+    b = boxes.astype(np.float32).copy()
+    b *= s
+    b[:, 0::2] = b[:, 0::2].clip(0, cw)
+    b[:, 1::2] = b[:, 1::2].clip(0, ch)
+    return canvas_f32(img, canvas, ch, cw), b

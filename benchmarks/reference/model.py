@@ -172,10 +172,14 @@ def make_weights(spec, seed: int, device, stored=None
 # -- layers -----------------------------------------------------------------
 
 def trunk(P, images: torch.Tensor, num: Numerics) -> torch.Tensor:
-    """uint8 (B, S, S, 3) -> (B, S/16, S/16, 512) in the low precision."""
-    mean = torch.tensor(MEAN, device=images.device) * 255.0
-    std = torch.tensor(STD, device=images.device) * 255.0
-    x = ((images.float() - mean) / std).permute(0, 3, 1, 2)
+    """uint8 (B, S, S, 3), or float canvases already normalised, -> (B,
+    S/16, S/16, 512) in the low precision."""
+    x = images.float()
+    if images.dtype == torch.uint8:
+        mean = torch.tensor(MEAN, device=images.device) * 255.0
+        std = torch.tensor(STD, device=images.device) * 255.0
+        x = (x - mean) / std
+    x = x.permute(0, 3, 1, 2)
     i = 0
     for v in VGG16:
         if v == "M":
@@ -280,24 +284,37 @@ def batch_norm(x: torch.Tensor, weight, bias) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def rects_branch(P, pair_boxes, num: Numerics) -> torch.Tensor:
+def start_norm(x: torch.Tensor, weight, bias) -> torch.Tensor:
+    """Eval-mode batch norm on the running statistics that a model starts
+    from (mean 0, variance 1), in float32, returned in the input's type:
+    the evaluated model has not trained."""
+    mul = torch.rsqrt(torch.ones_like(weight) + BN_EPS) * weight
+    y = x.float() * mul[:, None, None] + bias[:, None, None]
+    return y.to(x.dtype)
+
+
+def rects_branch(P, pair_boxes, num: Numerics,
+                 norm=batch_norm) -> torch.Tensor:
     """(B, E, 8) -> (B, E, h, w, C): conv 7x7 -> ReLU -> BN -> max pool 3/2
-    -> conv 3x3 -> ReLU -> BN, both convs at the map's stride."""
+    -> conv 3x3 -> ReLU -> BN, both convs at the map's stride; ``norm``:
+    ``batch_norm`` in training, ``start_norm`` in eval."""
     B, E = pair_boxes.shape[:2]
     x = (union_rects(pair_boxes) - 0.5).reshape(B * E, 2, RECT, RECT)
     x = F.relu(conv_windows(x, P["union_feats.conv1.weight"],
                             P["union_feats.conv1.bias"], STRIDE, 3, num))
-    x = batch_norm(x, P["union_feats.bn1.weight"], P["union_feats.bn1.bias"])
+    x = norm(x, P["union_feats.bn1.weight"], P["union_feats.bn1.bias"])
     x = F.max_pool2d(x, 3, 2, padding=1)
     x = F.relu(conv_windows(x, P["union_feats.conv2.weight"],
                             P["union_feats.conv2.bias"], STRIDE, 1, num))
-    x = batch_norm(x, P["union_feats.bn2.weight"], P["union_feats.bn2.bias"])
+    x = norm(x, P["union_feats.bn2.weight"], P["union_feats.bn2.bias"])
     return x.permute(0, 2, 3, 1).reshape(B, E, x.shape[2], x.shape[3], -1)
 
 
 def dropout(x: torch.Tensor, gen, p: float = 0.5) -> torch.Tensor:
     """Keep with probability 1 - p (a uniform draw from ``gen`` under it),
-    scaled by 1 / (1 - p)."""
+    scaled by 1 / (1 - p); without ``gen`` (eval) keep everything."""
+    if gen is None:
+        return x
     keep = 1.0 - p
     mask = torch.rand(tuple(x.shape), generator=gen, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
@@ -366,7 +383,8 @@ def relation_model(P, batch, pairs, pair_mask, gen, cfg: dict,
                    return_feats: bool = False):
     """The forward of the relation model on a padded batch of tensors;
     dropout draws from ``gen``: the node head's two masks, then the edge
-    head's."""
+    head's. Without ``gen`` the eval forward: no dropout, the rects'
+    norms on the starting statistics."""
     if fmap is None:
         with torch.no_grad():
             fmap = trunk(P, batch["images"], num)
@@ -376,7 +394,8 @@ def relation_model(P, batch, pairs, pair_mask, gen, cfg: dict,
     uboxes = torch.cat([torch.minimum(b_s[..., :2], b_o[..., :2]),
                         torch.maximum(b_s[..., 2:], b_o[..., 2:])], -1)
     union_pool = roi_align(fmap, uboxes)
-    rects = rects_branch(P, torch.cat([b_s, b_o], -1), num)
+    rects = rects_branch(P, torch.cat([b_s, b_o], -1), num,
+                         batch_norm if gen is not None else start_norm)
     node_feat = roi_head(P, "roi_fmap_obj", node_pool, gen, True, num)
     edge_feat = roi_head(P, "roi_fmap", union_pool + rects.to(
         union_pool.dtype), gen, False, num)

@@ -5,16 +5,20 @@
 
 From the root of a checkout, on a machine with the cards the cell asks
 for. The run generates its traffic from ``--seed`` (JPEG files under
-``TMPDIR``, deleted at the end), builds the program's ``Trainer`` with
-weights drawn on the card from the seed, drives ``Trainer.train_epoch``
-through a wrapper of its step (``window.py``): the check steps, the
-warm-up, then ``--seconds`` of measured steps, and with ``--trace 1``
-the traced steps. It then frees the program's state, runs the plain
-reference (``check.py``) and prints, as the last line of its standard
-output, one JSON object: ``correct``, ``attempted`` and ``failed`` steps,
-the cell's end-to-end metrics (``--trace 0``, the window under the
-profiler's CUDA activity) or per-layer metrics and ``breakdown``
-(``--trace 1``, the window untraced, the traced steps after it), the
+``TMPDIR``, deleted at the end) and builds the program's ``Trainer`` with
+weights drawn on the card from the seed. A cell that trains drives
+``Trainer.train_epoch`` through a wrapper of its step (``window.py``):
+the check steps, the warm-up, then ``--seconds`` of measured steps, and
+with ``--trace 1`` the traced steps. A cell that evaluates (its traffic's
+``drive``) drives ``Trainer.evaluate`` (``evaluation.py``): a warm-up
+split, then the window, one replay of a set sized to ``--seconds``. The
+run then frees the program's state, runs the plain reference
+(``check.py``, ``check_eval.py``) and prints, as the last line of its
+standard output, one JSON object: ``correct``, ``attempted`` (steps, or
+images) and ``failed``, the cell's end-to-end metrics (``--trace 0``, the
+window under the profiler's CUDA activity) or per-layer metrics and
+``breakdown`` (``--trace 1``: training's window untraced and the traced
+steps after it; evaluation's window traced as with ``--trace 0``), the
 ``device``, and last the numbers compared with their limits (also the
 last lines of standard error).
 
@@ -79,11 +83,12 @@ class Run:
     """What the metric readers read (``benchmarks/metrics``)."""
 
     def __init__(self, cell, cfg, split, cfg_seed, rec, trace, peaks,
-                 setup_s, window_busy_s=None):
+                 setup_s, window_busy_s=None, ev=None):
         self.cell, self.cfg, self.split = cell, cfg, split
         self.cfg_seed, self.rec, self.trace = cfg_seed, rec, trace
         self.peaks, self.setup_s = peaks, setup_s
         self.window_busy_s = window_busy_s
+        self.ev = ev   # an evaluating cell's window (evaluation.EvalRecord)
 
     def step_sizes(self, first: int, count: int):
         from benchmarks import work
@@ -102,6 +107,21 @@ def execute(cell, seed: int, seconds: float, trace: bool, dev,
             workers: int = 8) -> dict:
     """The run on ``dev``: the result's fields, the numbers compared and
     the threads left behind."""
+    from benchmarks import spec
+    if spec.drive(cell.traffic) == "evaluate":
+        return execute_eval(cell, seed, seconds, trace, dev, workers)
+    return execute_train(cell, seed, seconds, trace, dev, workers)
+
+
+def free_cuda(dev) -> None:
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def execute_train(cell, seed: int, seconds: float, trace: bool, dev,
+                  workers: int = 8) -> dict:
     import torch
 
     from benchmarks import check, host, program, traffic
@@ -110,8 +130,6 @@ def execute(cell, seed: int, seconds: float, trace: bool, dev,
 
     cfg, mix = cell.config, cell.traffic
     program.set_canvas(cfg)
-    from sgg_torch.data.pipeline import BatchLoader
-
     cfg_seed, weight_seed = seeds(seed)
     stage("imported")
     scratch = tempfile.mkdtemp(prefix="sgg-bench-")
@@ -145,14 +163,9 @@ def execute(cell, seed: int, seconds: float, trace: bool, dev,
         stepper.on_first_step = lambda: stage("first step taken")
         seen = {}
         stepper.on_window = lambda at: seen.update({at: host.reading()})
-        undo = (window.timed_assemble(BatchLoader, stepper.rec, stepper)
-                if trace else (lambda: None))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        try:
-            rec = window.run_epochs(built.trainer, built.attr, stepper)
-        finally:
-            undo()
+        rec = window.run_epochs(built.trainer, built.attr, stepper)
         setup_s = rec.t_start - T0
         stage("window closed")
         log(host.report(seen.get("open", {}), seen.get("close", {}),
@@ -167,9 +180,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, dev,
         rec.profile = rec.window_profile = None
         prof.clear()
         del built, stepper
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        free_cuda(dev)
         t_ref = time.perf_counter()
         ref = check.reference_steps(
             cfg, split, [os.path.join(scratch, n) for n in names], cfg_seed,
@@ -182,24 +193,118 @@ def execute(cell, seed: int, seconds: float, trace: bool, dev,
         del ref
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    busy = ("untraced" if window_busy_s is None
+            else f"{window_busy_s:.3f} s")
     return {"rec": rec, "trace": tr, "window_busy_s": window_busy_s,
             "split": split, "cfg_seed": cfg_seed,
             "setup_s": setup_s, "mem_peak": mem_peak, "numbers": numbers,
-            "left": left, "ref_s": ref_s}
+            "left": left, "attempted": rec.window_steps, "info": [
+                f"window {rec.window_s:.3f} s, {rec.window_steps} steps, "
+                f"device busy {busy}, reference {ref_s:.1f} s, "
+                f"{len(numbers['quiet_leaves'])} quiet leaves"]}
+
+
+def execute_eval(cell, seed: int, seconds: float, trace: bool, dev,
+                 workers: int = 8) -> dict:
+    """``execute`` for a cell that evaluates (``evaluation.py``)."""
+    import torch
+
+    from benchmarks import check_eval, evaluation, host, program, traffic
+    from benchmarks import trace as tracing
+    from benchmarks import window
+
+    cfg, mix = cell.config, cell.traffic
+    program.set_canvas(cfg)
+    cfg_seed, weight_seed = seeds(seed)
+    stage("imported")
+    scratch = tempfile.mkdtemp(prefix="sgg-bench-")
+    try:
+        names, sizes = traffic.write_pool(mix, seed, scratch, workers, dev)
+        stage("pool of JPEGs written")
+        test, train = evaluation.splits(mix, seed, sizes, cfg, seconds)
+        stage(f"{len(test)} test and {len(train)} training entries "
+              f"annotated")
+        built, test_ds, warm_ds = evaluation.build(
+            cell, dev, weight_seed, cfg_seed, test, train, scratch, names,
+            log=stage)
+        stage(f"trainer built; warm-up over {len(warm_ds)} entries")
+        ev = evaluation.EvalRecord(
+            images=len(test), batches=len(test) // cfg["eval_batch_size"])
+        probe = evaluation.Probe(ev, mix["check_batches"])
+        seen = {}
+
+        def on_open():
+            stage("warm-up done, window open")
+            seen["open"] = host.reading()
+
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        undo = probe.install()
+        try:
+            evaluation.run_window(built.trainer, mix["split"], test_ds,
+                                  warm_ds, probe, window.Clock(dev),
+                                  profile=tracing.start, on_open=on_open)
+        finally:
+            undo()
+        setup_s = ev.t_start - T0
+        seen["close"] = host.reading()
+        stage("window closed")
+        log(host.report(seen["open"], seen["close"], ev.images))
+        left = window.wait_threads()
+        mem_peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                    else 0)
+        tr = (tracing.reduce(ev.profile, *ev.trace_t,
+                             ev.steps + ev.evaluator) if trace else None)
+        window_busy_s = tracing.busy_s(ev.profile)
+        ev.profile = None
+        del built, test_ds, warm_ds
+        free_cuda(dev)
+        t_ref = time.perf_counter()
+        entries = check_eval.check_entries(mix, cfg)
+        ref = check_eval.reference_outputs(
+            cfg, test, [os.path.join(scratch, n) for n in names],
+            weight_seed, dev, "bf16", entries, workers)
+        prog = check_eval.program_outputs(ev.outputs, test, cfg)
+        numbers = check_eval.compare(prog, ref, test)
+        gaps = check_eval.recalls(prog, ref, test)
+        ref_s = time.perf_counter() - t_ref
+        del ref
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    rule = evaluation.rungs(test, cfg)
+    rule_slots = 2 * cfg["eval_batch_size"] * sum(rule)
+    rule_valid = 2 * sum(len(c) * (len(c) - 1) for c in test.gt_classes)
+    info = [f"window {ev.window_s:.3f} s, {ev.images} images, "
+            f"{ev.batches} batches a regime, device busy "
+            f"{window_busy_s:.3f} s, evaluators {ev.evaluator_s():.3f} s, "
+            f"reference {ref_s:.1f} s over {len(entries)} images",
+            f"rungs run (regime, pair slots an image: batches) {ev.rungs}; "
+            f"pair slots {ev.slots}, valid {ev.valid}; the ladder rule "
+            f"over the split: {rule_slots}, {rule_valid}",
+            "recall, program less reference (not judged): " + ", ".join(
+                f"{k} {v:+.4f}" for k, v in gaps.items())]
+    info += [f"{k} {v:.6g} (not judged: {cell.limits[k]['not_compared']}; "
+             f"{where})" for k, (v, where) in numbers.items()
+             if "not_compared" in cell.limits.get(k, {})]
+    return {"rec": window.Record(), "ev": ev, "trace": tr,
+            "window_busy_s": window_busy_s, "split": test,
+            "cfg_seed": cfg_seed, "setup_s": setup_s, "mem_peak": mem_peak,
+            "numbers": numbers, "left": left, "attempted": ev.images,
+            "info": info}
 
 
 def result(cell, out: dict, trace: bool, card: str, peaks) -> dict:
     from benchmarks import check, spec
     rec, tr = out["rec"], out["trace"]
     run = Run(cell, cell.config, out["split"], out["cfg_seed"], rec, tr,
-              peaks, out["setup_s"], out["window_busy_s"])
+              peaks, out["setup_s"], out["window_busy_s"], out.get("ev"))
     metrics = spec.read_metrics(cell.per_layer if trace else cell.end_to_end,
                                 run)
     numbers = out["numbers"]
     correct = check.judge(numbers, cell.limits) and not out["left"]
     device = {"platform": "gpu", "kind": card, "count": 1,
               "memory_peak_bytes": out["mem_peak"]}
-    line = {"correct": correct, "attempted": rec.window_steps, "failed": 0,
+    line = {"correct": correct, "attempted": out["attempted"], "failed": 0,
             "metrics": metrics, "device": device}
     if trace:
         device.update(busy_s=tr.busy_s, window_s=tr.window_s)
@@ -241,11 +346,8 @@ def main(argv=None) -> int:
     if bad:
         log(f"refused: the process loaded {bad}")
         return 3
-    busy = out["window_busy_s"]
-    busy = "untraced" if busy is None else f"{busy:.3f} s"
-    log(f"window {out['rec'].window_s:.3f} s, {out['rec'].window_steps} "
-        f"steps, device busy {busy}, reference {out['ref_s']:.1f} s, "
-        f"{len(out['numbers']['quiet_leaves'])} quiet leaves")
+    for s in out["info"]:
+        log(s)
     from benchmarks import check
     for s in check.lines(out["numbers"], cell.limits):
         log(s)

@@ -6,7 +6,9 @@ traffic mix, and a metric names its reader. They are found by name:
 - ``configs[*].file``: the configuration as it is run (JSON);
 - ``benchmarks/workloads/<traffic>.json``: the traffic mix's parameters;
 - ``benchmarks/limits/<config>.json``: the limits of the comparison that
-  decides ``correct``, with the readings they were set from;
+  decides ``correct``, with the readings they were set from, for the
+  cells that train; ``<config>.<drive>.json`` for those whose traffic
+  mix names another ``drive`` (``evaluate``: ``evaluation.py``);
 - ``benchmarks/metrics/<metric>.py``: a reader, ``read(run) -> float or
   None``, for every metric, end to end or per layer.
 
@@ -49,9 +51,23 @@ def load_benchmark(path: Path = BENCHMARK) -> dict:
 
 def metrics_of(bench: dict, cell: str, kind: str) -> List[dict]:
     """The ``end_to_end`` or ``per_layer`` metrics that ``cell`` reports:
-    those that list it, or that list no cells."""
-    return [m for m in bench[kind]
-            if "workloads" not in m or cell in m["workloads"]]
+    those that list it; of those that list no cells, an end-to-end metric
+    always, a per-layer one where the cell reports the end-to-end metric
+    that it ``moves``."""
+    def listed(m):
+        return "workloads" not in m or cell in m["workloads"]
+
+    if kind == "end_to_end":
+        return [m for m in bench[kind] if listed(m)]
+    ends = {m["name"] for m in metrics_of(bench, cell, "end_to_end")}
+    return [m for m in bench[kind] if cell in m.get("workloads", ())
+            or ("workloads" not in m and m["moves"] in ends)]
+
+
+def drive(traffic: dict) -> str:
+    """What a cell's traffic drives: ``train`` (``Trainer.train_epoch``,
+    the default) or ``evaluate`` (``Trainer.evaluate``)."""
+    return traffic.get("drive", "train")
 
 
 def load_cell(name: str, bench: dict = None) -> Cell:
@@ -66,7 +82,9 @@ def load_cell(name: str, bench: dict = None) -> Cell:
         config = json.load(f)
     with open(HERE / "workloads" / f"{w['traffic']}.json") as f:
         traffic = json.load(f)
-    with open(HERE / "limits" / f"{w['config']}.json") as f:
+    kind = drive(traffic)
+    stem = w["config"] if kind == "train" else f"{w['config']}.{kind}"
+    with open(HERE / "limits" / f"{stem}.json") as f:
         limits = json.load(f)
     return Cell(name=name, config_name=w["config"], config=config,
                 traffic_name=w["traffic"], traffic=traffic, limits=limits,

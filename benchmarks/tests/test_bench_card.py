@@ -2,8 +2,12 @@
 control (the reference put in the program's place, computed in the
 precision below the configuration's) reads not correct, on three seeds.
 A split of a few batches stands in for the window's: the check steps are
-the first three. Run on the card with
-``python -m pytest benchmarks/tests -m cuda`` (~5 min)."""
+the first three; in the eval cell the check batches, after the warm-up,
+and the program with each fault of ``calibrate.EVAL_FAULTS`` planted
+reads not correct as well. Run on the card with
+``python -m pytest benchmarks/tests -m "cuda and not held_out"`` (the
+cells of BENCHMARK.json, ~5 min); the held-out eval cell's test with
+``-m held_out`` (~3 min)."""
 
 import os
 import shutil
@@ -55,3 +59,17 @@ def test_control_fails_where_the_program_passes(cuda, name, seed):
         shutil.rmtree(scratch, ignore_errors=True)
     assert check.judge(prog, cell.limits), prog
     assert not check.judge(ctrl, cell.limits), ctrl
+
+
+@pytest.mark.cuda
+@pytest.mark.held_out
+@pytest.mark.parametrize("seed", SEEDS)
+def test_eval_control_and_faults_fail_where_the_program_passes(cuda, seed):
+    from benchmarks import calibrate, check, program
+    cell = load_cell("sgcls_eval_jpeg")
+    program.set_canvas(cell.config)
+    got = calibrate.eval_readings(cell, seed, cuda, sound=True,
+                                  controls=True)
+    assert check.judge(got.pop("program"), cell.limits)
+    for kind, numbers in got.items():
+        assert not check.judge(numbers, cell.limits), (kind, numbers)

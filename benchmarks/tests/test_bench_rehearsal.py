@@ -1,11 +1,15 @@
 """A tiny rehearsal of each cell on the CPU through the harness's own code
-(traffic, the program's ``Trainer.train_epoch`` under the step wrapper,
-the window, the trace, the reference, the comparison), and the same run
-with its timed path broken underneath, which must read not correct:
+(traffic, the program's ``Trainer.train_epoch`` under the step wrapper or
+its ``Trainer.evaluate`` under the eval probes, the window, the trace,
+the reference, the comparison), and the same run with its timed path
+broken underneath, which must read not correct. In training:
 
 - a step that returns its state unchanged (the optimizers apply nothing);
 - half of the batch left out, the means taken over the rest (the loader's
   batches lose the second half of their nodes and relations).
+
+In evaluation (``calibrate.EVAL_FAULTS``): half of the candidate pairs
+left out; the unions' dedup gathering each pair from its neighbour's row.
 
 The CPU stands in for the card here only: ``run.main`` refuses to measure
 without one (``test_bench_nocard.py``)."""
@@ -19,6 +23,7 @@ import torch
 from benchmarks.tests.conftest import tiny_cell
 
 CELLS = ("sgcls_train_jpeg", "gan_train_jpeg")
+EVAL_CELL = "sgcls_eval_jpeg"
 PEAKS = {"bf16": 989e12, "f32": 67e12, "hbm_bytes_per_s": 3.35e12}
 SEED = 2 ** 31 + 12345
 
@@ -48,7 +53,7 @@ def test_a_sound_run_is_correct(monkeypatch, name, trace):
     got = set(line["metrics"])
     assert got <= {m["name"] for m in wanted}
     if trace:
-        assert {"images_per_s.train", "host_batch_ms.train", "mfu.train",
+        assert {"images_per_s.train", "assemble_ms.train", "mfu.train",
                 "step_ms_p90.train"} <= got
         assert {"busy_s", "window_s"} <= set(line["device"])
         assert "breakdown" in line
@@ -108,4 +113,44 @@ def half_batch(monkeypatch):
 def test_a_broken_timed_path_is_not_correct(monkeypatch, name, fault):
     fault(monkeypatch)
     _, out, line = rehearse(monkeypatch, name)
+    assert not line["correct"], out["numbers"]
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_a_sound_eval_run_is_correct(monkeypatch, trace):
+    from benchmarks import evaluation
+    cell, out, line = rehearse(monkeypatch, EVAL_CELL, trace)
+    assert line["correct"], out["numbers"]
+    ev, split = out["ev"], out["split"]
+    assert line["attempted"] == ev.images == len(split) == 2 * 16
+    assert list(line)[-1] == "check"
+    assert set(line["check"]) == {"rel_score_gap", "obj_score_gap"}
+    assert "obj_label_disagree" in out["numbers"]
+    assert not out["left"]
+    # both regimes kept their first batch; every batch ran the rung the
+    # ladder rule gives it
+    assert set(ev.outputs) == {("predcls", 0), ("sgcls", 0)}
+    rungs = evaluation.rungs(split, cell.config)
+    assert ev.slots == 2 * 16 * sum(rungs)
+    assert ev.valid == 2 * sum(len(c) * (len(c) - 1)
+                               for c in split.gt_classes)
+    assert sum(ev.rungs.values()) == 2 * len(rungs)
+    got = set(line["metrics"])
+    if trace:
+        assert got == {"images_per_s.eval", "evaluator_ms.eval",
+                       "pair_fill_pct.eval", "mfu.eval"}
+        assert line["metrics"]["pair_fill_pct.eval"]["value"] == \
+            pytest.approx(100.0 * ev.valid / ev.slots)
+        assert {"busy_s", "window_s"} <= set(line["device"])
+        assert "breakdown" in line
+    else:
+        assert got == {"setup_s"}
+    assert out["window_busy_s"] == 0.0
+
+
+@pytest.mark.parametrize("fault", ["fault_half_pairs", "fault_dedup_map"])
+def test_a_broken_eval_path_is_not_correct(monkeypatch, fault):
+    from benchmarks import calibrate
+    with calibrate.EVAL_FAULTS[fault]():
+        _, out, line = rehearse(monkeypatch, EVAL_CELL)
     assert not line["correct"], out["numbers"]

@@ -91,3 +91,31 @@ def test_labels_are_long_tailed():
     assert abs((preds == 1).mean() - traffic.zipf(50, 1.2)[0]) < 0.02
     assert abs((classes == 1).mean() - traffic.zipf(150, 0.7)[0]) < 0.01
     assert (preds == 50).sum() < (preds == 1).sum() / 50
+
+
+def test_a_grouped_split_gives_every_seed_the_same_batches():
+    """A test split in groups of 16: every seed holds the same multiset of
+    batches (each batch's object counts), in another order, with other
+    images, boxes and labels; the same laws as the training mix."""
+    mix = traffic.load_mix("vg_jpeg_eval_b16")
+    train = traffic.load_mix("vg_jpeg_b24")
+    for key in ("objects", "relations", "block", "class_zipf",
+                "predicate_zipf", "pool_files", "long_side"):
+        assert mix[key] == train[key]
+
+    def batches(seed):
+        split = traffic.annotations(mix, seed, traffic.pool_sizes(mix, seed),
+                                    160, 151, 51, group=16)
+        counts = [len(c) for c in split.gt_classes]
+        return split, [tuple(sorted(counts[i:i + 16]))
+                       for i in range(0, 160, 16)]
+
+    one, a = batches(5)
+    two, b = batches(2 ** 35 + 1)
+    assert sorted(a) == sorted(b) and a != b
+    assert not np.array_equal(one.gt_boxes[0], two.gt_boxes[0]) or \
+        len(one.gt_boxes[0]) != len(two.gt_boxes[0])
+    again, c = batches(5)
+    assert a == c
+    assert all(np.array_equal(x, y) for x, y in zip(one.relationships,
+                                                    again.relationships))

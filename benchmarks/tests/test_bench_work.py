@@ -1,7 +1,10 @@
 """The frozen operation counts (``benchmarks/work.py``) agree with
 ``FlopCounterMode`` on the plain reference at tiny sizes where nothing is
 padded: every node and edge slot real, RoIAlign (a kernel with a count of
-its own) stood in by a copy."""
+its own) stood in by a copy. The eval count, which runs fc6 once an
+unordered pair, is held against the program's own eval forward, which
+dedups the unions so; and the ladder rule on hand-made batches (``test_bench_rehearsal.py`` holds it
+against the rungs ``val_epoch`` ran)."""
 
 import pytest
 import torch
@@ -112,3 +115,51 @@ def test_kernel_work_counts_each_byte_once():
     assert flops == 2 * 4 * 4 * 10 * 49 * 512
     flops, nbytes = work.vgg_conv1_work(2, 16, 2)
     assert flops == 2 * 2 * 256 * 64 * 27
+
+
+EVAL_CFG = dict(CFG, im_scale=32, mode="sgcls", use_bias=False,
+                backbone="vgg16", edge_model="motifs")
+
+
+def pool_stand_in(fmap, boxes, *args, **kw):
+    return fmap[:, None, :1, :1, :].expand(-1, boxes.shape[1], 7, 7,
+                                           -1).contiguous()
+
+
+def eval_inputs(B, N):
+    pairs, mask = full_graph(B, N)
+    x = torch.rand(B, N, 2) * 20
+    boxes = torch.cat([x, x + 4 + torch.rand(B, N, 2) * 8], -1)
+    images = torch.randint(0, 255, (B, 32, 32, 3), dtype=torch.uint8)
+    return pairs, mask, boxes, images
+
+
+@pytest.mark.parametrize("B,N", [(1, 3), (2, 4)])
+def test_eval_forward_with_the_unions_dedup(monkeypatch, B, N):
+    from benchmarks import program
+    from sgg_torch.models import relhead
+    cfg = dict(EVAL_CFG, compute_dtype="bfloat16")
+    model = program.relation_model(cfg, "cpu", rm.make_weights(
+        rm.param_spec(cfg), 6, "cpu", rm.stored_types(cfg)))
+    monkeypatch.setattr(relhead, "roi_align", pool_stand_in)
+    pairs, mask, boxes, images = eval_inputs(B, N)
+    with torch.no_grad():
+        n = counted(lambda: model(images, boxes, torch.ones(B, N).long(),
+                                  pairs, mask, mode="sgcls",
+                                  dedup_unions=True))
+    assert n == B * work.eval_flops(N, cfg,
+                                    dense_incidence=(N * (N - 1), N))
+
+
+def test_ladder_rule():
+    cfg = {"max_nodes": 64, "pair_ladder": [128, 512, 2048, None]}
+    nodes = work.eval_nodes([2, 62, 11], cfg)
+    assert nodes == 64
+    rungs = work.ladder(cfg, nodes)
+    assert rungs == [128, 512, 2048, 64 * 63]
+    assert work.rung([2, 12], rungs) == 512          # 132 pairs
+    assert work.rung([2, 11], rungs) == 128          # 110 pairs
+    assert work.rung([46, 3], rungs) == 64 * 63      # 2070: dense
+    assert work.rung([45, 3], rungs) == 2048         # 1980
+    assert work.eval_nodes([70], cfg) == 72
+    assert work.ladder(dict(cfg, max_nodes=8), 8) == [8 * 7]

@@ -16,9 +16,11 @@ covers the whole window, and only its device's busy time is read
   by name;
 - ``idle_gaps``: the device's idle time, summed by what the host was doing
   at each gap's middle: ``step`` where the main thread was inside the
-  trainer's step (dispatching its work), ``loop`` where it was outside
-  (waiting for the next batch, copying it, the epoch's interval sync),
-  with the CUDA runtime call running there, if any; the ten largest.
+  trainer's step (dispatching its work; an evaluating cell names its own
+  intervals, such as ``eval_step`` and ``evaluator``), ``loop`` where it
+  was outside (waiting for the next batch, copying it, the epoch's
+  interval sync), with the CUDA runtime call running there, if any; the
+  ten largest.
 """
 
 from __future__ import annotations
@@ -98,7 +100,8 @@ def reduce(prof, t0_ns: int, t1_ns: int,
            steps: List[Tuple[int, int]]) -> Trace:
     """The trace of a stopped profiler whose window ran from ``t0_ns`` to
     ``t1_ns`` (``time.time_ns``); ``steps`` are the (start, end) of the
-    trainer's step calls on the host in that window."""
+    trainer's step calls on the host in that window, or (start, end,
+    name) of what the host was doing."""
     device, runtime = _device(prof)
     kernels = [d for d in device
                if not d[0].lower().startswith(("memcpy", "memset"))]
@@ -112,7 +115,8 @@ def reduce(prof, t0_ns: int, t1_ns: int,
     edges = [t0_ns] + [x for iv in busy for x in iv] + [t1_ns]
     gaps = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
     mids = [(a + b) // 2 for a, b in gaps]
-    where = _covering([(s, e, "step") for s, e in steps], mids)
+    where = _covering([iv if len(iv) == 3 else (*iv, "step")
+                       for iv in steps], mids)
     calls = _covering(runtime, mids)
     idle = {}
     for (a, b), w, c in zip(gaps, where, calls):

@@ -198,19 +198,37 @@ def zipf(count: int, exponent: float) -> np.ndarray:
     return p / p.sum()
 
 
+def grouped_order(n_entries: int, group: int, rng) -> np.ndarray:
+    """An order of the repeated block in which every seed gets the same
+    groups of ``group`` consecutive entries (a test loader's batches):
+    one arrangement of the block into groups, the same for every seed,
+    whose groups the seed puts in another order, each group's entries in
+    another order too. So a seed changes which batch comes when, never
+    which sizes share a batch."""
+    if n_entries % group:
+        raise ValueError(f"{n_entries} entries are not groups of {group}")
+    groups = seed_stream(0, 4).permutation(n_entries).reshape(-1, group)
+    groups = groups[rng.permutation(len(groups))]
+    inside = np.argsort(rng.rand(*groups.shape), axis=1)
+    return np.take_along_axis(groups, inside, 1).reshape(-1)
+
+
 def annotations(mix: dict, seed: int, sizes: List[Tuple[int, int]],
                 n_entries: int, num_classes: int,
-                num_predicates: int) -> Split:
+                num_predicates: int, group: int = 0,
+                stream: int = 3) -> Split:
     """The split: entry ``i`` shows pool file ``entry_file[i]`` with its own
     boxes, classes and relations. The per-image counts are the block of
-    ``graph_sizes`` repeated, in the seed's order; classes and predicates
-    are drawn from Zipf laws over their indices (index 1 the most
-    frequent); the relations of an image are distinct ordered pairs of
-    distinct objects. Drawn in bulk: a split of tens of thousands of
-    entries takes a fraction of a second."""
-    rng = seed_stream(seed, 3)
+    ``graph_sizes`` repeated, in the seed's order (with ``group``, in
+    ``grouped_order``); classes and predicates are drawn from Zipf laws
+    over their indices (index 1 the most frequent); the relations of an
+    image are distinct ordered pairs of distinct objects. ``stream`` keys
+    the draws, so that two splits of one seed differ. Drawn in bulk: a
+    split of tens of thousands of entries takes a fraction of a second."""
+    rng = seed_stream(seed, stream)
     block_n, block_m = graph_sizes(mix)
-    order = rng.permutation(n_entries)
+    order = (grouped_order(n_entries, group, rng) if group
+             else rng.permutation(n_entries))
     counts = np.resize(block_n, n_entries)[order]
     n_rels = np.resize(block_m, n_entries)[order]
     entry_file = np.arange(n_entries) % len(sizes)

@@ -20,9 +20,7 @@ attribute. Its calls, in order:
    (``trace.py``), the device synchronised before and after, each step's
    call timed on the host's clock.
 
-Then the wrapper raises ``WindowClosed``, which ends the epoch. With
-``--trace 1`` the loader's ``BatchLoader._assemble`` is timed on the
-host's clock as well (the batches whose assembly starts in the window).
+Then the wrapper raises ``WindowClosed``, which ends the epoch.
 """
 
 from __future__ import annotations
@@ -75,7 +73,6 @@ class Record:
     t_start: float = 0.0
     t_end: float = 0.0
     step_ms: List[float] = dataclasses.field(default_factory=list)
-    assemble_ms: List[float] = dataclasses.field(default_factory=list)
     window_profile: object = None
     trace_first_step: int = 0
     trace_steps: int = 0
@@ -173,22 +170,6 @@ class Stepper:
                               for d in rec.losses]
         elif self.phase == "window":
             self.marks.append(self.clock.mark())
-
-
-def timed_assemble(loader_cls, rec: Record, stepper: Stepper):
-    """Time ``loader_cls._assemble`` on the host's clock, keeping the
-    batches whose assembly starts inside the window; returns the undo."""
-    orig = loader_cls._assemble
-
-    def assemble(self, *args, **kw):
-        t0 = time.perf_counter()
-        out = orig(self, *args, **kw)
-        if stepper.phase == "window" and t0 >= rec.t_start:
-            rec.assemble_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    loader_cls._assemble = assemble
-    return lambda: setattr(loader_cls, "_assemble", orig)
 
 
 def run_epochs(trainer, attr: str, stepper: Stepper) -> Record:

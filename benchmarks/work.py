@@ -254,6 +254,66 @@ def step_flops(split, cfg: dict, seed: int, k: int) -> int:
     return f
 
 
+# -- evaluation -------------------------------------------------------------
+
+def eval_flops(n: int, cfg: dict,
+               dense_incidence: Tuple[int, int] = None) -> int:
+    """The eval forward of one image of ``n`` real boxes over its ``n(n-1)``
+    ordered pairs, the trunk included: the work its valid pairs need,
+    whatever rung of the ladder runs them. fc6 runs once on each unordered
+    pair's union pool (``n(n-1)/2`` rows) and the rects, constant over the
+    pool window, reach it through its spatially summed kernel (a C x D
+    product an ordered pair), as the unions' dedup computes it.
+    ``dense_incidence`` as in ``relation_flops``."""
+    C, D, H = cfg["fmap_channels"], cfg["obj_dim"], cfg["hidden_dim"]
+    it = cfg["mp_iter"]
+    k = POOL * POOL * C
+    m = n * (n - 1)
+    pos1, pos2 = rects_shapes()
+    if pos2 != 1:
+        raise ValueError("the rects reach fc6 through its summed kernel only "
+                         "where they are 1 x 1")
+    f = trunk_flops(1, cfg["im_scale"])
+    f += 2 * n * k * D + 2 * n * D * D          # node fc6, fc7
+    f += 2 * (m // 2) * k * D + 2 * m * C * D   # union fc6, the rects
+    f += 2 * m * D * D                          # edge fc7
+    f += 2 * m * pos1 * 2 * 49 * (C // 2)       # rects conv1
+    f += 2 * m * pos2 * (C // 2) * 9 * C        # rects conv2
+    f += 2 * (n + m) * D * H                    # obj_unary, edge_unary
+    gru = 2 * H * 3 * H
+    f += (n + m) * gru * 2 * (1 + it)           # the GRUs' two products
+    f += it * 4 * 2 * m * 2 * H                 # the four gates
+    if dense_incidence is None:
+        f += it * 2 * 2 * m * H                 # edge states into nodes
+    else:
+        e_slots, n_slots = dense_incidence
+        f += it * 2 * 2 * e_slots * n_slots * H
+    f += 2 * H * (n * cfg["num_classes"] + m * cfg["num_predicates"])
+    return f
+
+
+def eval_nodes(counts, cfg: dict) -> int:
+    """The node slots of a test batch: the configuration's, or the split's
+    largest graph rounded up to 8, as ``val_epoch`` sizes them."""
+    return max(cfg["max_nodes"], -(-max(counts, default=2) // 8) * 8)
+
+
+def ladder(cfg: dict, nodes: int) -> List[int]:
+    """The rungs of the configuration's ``pair_ladder`` in pair slots an
+    image (``null``: every ordered pair of the node slots), those under
+    the dense count first, as ``val_epoch`` keeps them."""
+    full = nodes * (nodes - 1)
+    return [b for b in cfg["pair_ladder"] if b is not None and b < full] \
+        + [full]
+
+
+def rung(batch_counts, rungs: List[int]) -> int:
+    """The pair slots an image of a test batch runs: the smallest rung that
+    holds every image's valid pairs."""
+    need = max(n * (n - 1) for n in batch_counts)
+    return next(b for b in rungs if b >= need)
+
+
 # -- the kernels' bounds ----------------------------------------------------
 
 def roi_align_work(rois: int, B: int, S: int, C: int, elem: int
