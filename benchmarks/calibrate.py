@@ -9,16 +9,19 @@ steps through ``Trainer.train_epoch`` (as a run takes them, with no
 window), then the reference; the three numbers of ``check.py`` (the
 lower readings). For each seed of ``--controls`` also the reference put
 in the program's place and computed in the precision below the
-configuration's (``control``), and with half of each batch left out, the
-means taken over the rest (``fault_half``). A step that leaves the state
-unchanged reads 1 on ``update_gap`` by construction and needs no run.
+configuration's (``control``), and with each fault of the family's
+``TRAIN_FAULTS`` planted in its batches (the IMP family's
+``fault_half``: half of each batch left out, the means taken over the
+rest). A step that leaves the state unchanged reads 1 on ``update_gap``
+by construction and needs no run.
 
 A cell that evaluates: for each seed of ``--seeds``, the warm-up and a
 window over the check batches alone (``evaluation.run_window``), then
 the reference; the numbers of ``check_eval.py``. For each seed of
 ``--controls`` also the reference in the lower precision in the
-program's place (``control``), and the program with each fault of
-``EVAL_FAULTS`` planted (``fault_half_pairs``, ``fault_dedup_map``).
+program's place (``control``), and the program with each fault of the
+family's ``EVAL_FAULTS`` planted (the IMP family's ``fault_half_pairs``,
+``fault_dedup_map``).
 
 One JSON line a seed and kind on standard output.
 """
@@ -40,62 +43,11 @@ from benchmarks import check, program, spec, traffic, window
 from benchmarks.run import fixed_caches, seeds
 
 
-def half_batch(nb: dict) -> dict:
-    """Half of the batch left out: its nodes and relations masked."""
-    nb = dict(nb)
-    h = nb["node_mask"].shape[0] // 2
-    for k in ("node_mask", "rel_mask"):
-        nb[k] = nb[k].copy()
-        nb[k][h:] = False
-    return nb
-
-
-@contextlib.contextmanager
-def half_pairs():
-    """The eval step's candidates lose every other ordered pair slot
-    (``train/step.py``'s ``all_pairs``): half of the pairs left out."""
-    from sgg_torch.train import step
-    orig = step.all_pairs
-
-    def all_pairs(node_mask):
-        pairs, mask = orig(node_mask)
-        slot = torch.arange(mask.shape[1], device=mask.device)
-        return pairs, mask & (slot % 2 == 0)
-
-    step.all_pairs = all_pairs
-    try:
-        yield
-    finally:
-        step.all_pairs = orig
-
-
-@contextlib.contextmanager
-def dedup_map():
-    """The unions' dedup gathers each ordered pair from its neighbour's
-    row (``models/relhead.py``'s ``unordered_union_index``, its row map
-    rolled by one slot)."""
-    from sgg_torch.models import relhead
-    orig = relhead.unordered_union_index
-
-    def index(*args, **kw):
-        uni, gidx, ok, n = orig(*args, **kw)
-        return uni, torch.roll(gidx, 1, dims=1), ok, n
-
-    relhead.unordered_union_index = index
-    try:
-        yield
-    finally:
-        relhead.unordered_union_index = orig
-
-
-EVAL_FAULTS = {"fault_half_pairs": half_pairs, "fault_dedup_map": dedup_map}
-
-
 def eval_outputs(trainer, cell, test_ds, warm_ds, dev) -> dict:
     """The host outputs that a window over ``test_ds`` keeps."""
     from benchmarks import evaluation
     probe = evaluation.Probe(evaluation.EvalRecord(),
-                             cell.traffic["check_batches"])
+                             cell.traffic["check_batches"], cell.family)
     undo = probe.install()
     try:
         evaluation.run_window(trainer, cell.traffic["split"], test_ds,
@@ -110,7 +62,7 @@ def eval_readings(cell, seed: int, dev, sound: bool, controls: bool
     """The eval cell's numbers of one seed by kind (see the module's
     text)."""
     from benchmarks import check_eval, evaluation
-    cfg, mix = cell.config, cell.traffic
+    cfg, mix, family = cell.config, cell.traffic, cell.family
     cfg_seed, weight_seed = seeds(seed)
     scratch = tempfile.mkdtemp(prefix="sgg-calib-")
     try:
@@ -122,11 +74,11 @@ def eval_readings(cell, seed: int, dev, sound: bool, controls: bool
             cell, dev, weight_seed, cfg_seed, test, train, scratch, names)
         runs = {"program": contextlib.nullcontext} if sound else {}
         if controls:
-            runs.update(EVAL_FAULTS)
+            runs.update(family.EVAL_FAULTS)
         kept = {}
         for kind, fault in runs.items():
             with fault():
-                kept[kind] = check_eval.program_outputs(
+                kept[kind] = family.eval_program(
                     eval_outputs(built.trainer, cell, test_ds, warm_ds, dev),
                     test, cfg)
         del built, test_ds, warm_ds
@@ -136,11 +88,11 @@ def eval_readings(cell, seed: int, dev, sound: bool, controls: bool
         ref = check_eval.reference_outputs(cfg, test, paths, weight_seed,
                                            dev, "bf16", entries)
         if controls:
-            kept["control"] = check_eval.in_place_of_program(
+            kept["control"] = family.eval_as_program(
                 check_eval.reference_outputs(
                     cfg, test, paths, weight_seed, dev,
                     cfg["precision"]["control"], entries), test)
-        readings = {kind: check_eval.compare(prog, ref, test)
+        readings = {kind: family.eval_compare(prog, ref, test, cfg)
                     for kind, prog in kept.items()}
         del ref, kept
         gc.collect()
@@ -218,15 +170,14 @@ def main(argv=None) -> int:
                 rec = program_steps(cell, split, scratch, names, cfg_seed,
                                     weight_seed, dev)
                 print(numbers_line("program", seed, check.compare(
-                    rec.losses,
-                    check.program_first(rec.opt_state, base["init"],
-                                        cfg["l2"], dev),
+                    rec.losses, check.program_first(rec.opt_state, base, dev),
                     check.program_change(rec.params, base["init"], dev),
                     base)), flush=True)
             if seed in controls:
-                for kind, kw in (("control", {"low": cfg["precision"]
-                                              ["control"]}),
-                                 ("fault_half", {"hook": half_batch})):
+                faults = [("control", {"low": cfg["precision"]["control"]})]
+                faults += [(kind, {"hook": hook})
+                           for kind, hook in cell.family.TRAIN_FAULTS.items()]
+                for kind, kw in faults:
                     other = ref(**kw)
                     print(numbers_line(kind, seed, check.compare(
                         other["losses"], other["first"], other["change"],

@@ -3,8 +3,8 @@
 The program's trainer, built once in set-up, takes its first
 ``check_steps`` steps through the window's own call and loader; the
 window then runs on that same object. Once the window has closed and the
-program's state is freed, the plain reference (``benchmarks/reference``)
-starts from the same weights, decodes the same files itself, draws the
+program's state is freed, the plain reference (the configuration's
+family's, ``benchmarks/families``) starts from the same weights, decodes the same files itself, draws the
 same edges and dropout masks from the same seeds, and takes the same steps.
 The numbers that ``benchmarks/limits/<config>.json`` names are compared,
 each against its limit there:
@@ -31,11 +31,7 @@ from typing import Dict, List
 
 import torch
 
-from benchmarks.reference import data as ref_data
-from benchmarks.reference import gan as ref_gan
-from benchmarks.reference import model as ref_model
-from benchmarks.reference import perturb as ref_perturb
-from benchmarks.traffic import vocabulary
+from benchmarks import families
 
 QUIET = 1e-3   # a leaf's gradient under this share of the median leaf's
 
@@ -62,86 +58,24 @@ def reference_steps(cfg: dict, split, paths: List[str], cfg_seed: int,
                     weight_seed: int, device, low: str, n_steps: int,
                     workers: int = 8, batch_hook=None) -> dict:
     """The reference's ``n_steps`` steps from the benchmark's weights, in
-    the precision ``low`` ("bf16" as the configuration states for the
-    relation model, "fp8" for the control, which also computes the GAN in
-    bfloat16). Returns the losses of each step, the first gradient of
-    each leaf, each leaf's change and the starting weights.
-    ``batch_hook``, if given, edits each numpy batch first
-    (``benchmarks/calibrate.py`` plants faults there)."""
+    the precision ``low`` ("bf16" as the configuration states, or its
+    ``precision.control``), by the configuration's family
+    (``benchmarks/families``), with TF32 off: the losses of each step, the
+    first gradient of each leaf, each leaf's change, the starting weights
+    and each leaf's L2 term. ``batch_hook``, if given, edits each numpy
+    batch first (``benchmarks/calibrate.py`` plants faults there)."""
     with _Exact():
-        return _reference_steps(cfg, split, paths, cfg_seed, weight_seed,
-                                device, low, n_steps, workers, batch_hook)
+        return families.of(cfg).reference_steps(
+            cfg, split, paths, cfg_seed, weight_seed, device, low, n_steps,
+            workers, batch_hook)
 
 
-def _reference_steps(cfg, split, paths, cfg_seed, weight_seed, device, low,
-                     n_steps, workers, batch_hook):
-    num = ref_model.Numerics(low)
-    P = ref_model.make_weights(ref_model.param_spec(cfg), weight_seed,
-                               device, stored=ref_model.stored_types(cfg))
-    gan = cfg.get("gan", False)
-    if gan:
-        P.update(ref_gan.make(ref_gan.param_spec(cfg), weight_seed + 1,
-                              device))
-        S = ref_gan.make(ref_gan.sn_spec(cfg), weight_seed + 2, device)
-        names, _ = vocabulary(cfg["num_classes"], cfg["num_predicates"])
-        graphn = ref_perturb.GraphN(
-            ref_perturb.class_embeddings(names),
-            *ref_perturb.pair_counts(split.gt_classes, split.relationships),
-            L=cfg["L"], topk=cfg["topk"], alpha=cfg["graphn_a"])
-    for n, t in P.items():
-        t.requires_grad_(not ref_model.frozen(n))
-    rel_names = [n for n, _, _ in ref_model.param_spec(cfg)
-                 if not ref_model.frozen(n)]
-    sgd = ref_model.ClippedSGD({n: P[n] for n in
-                                [n for n, _, _ in ref_model.param_spec(cfg)]},
-                               lr=cfg["lr"] * cfg["batch_size"],
-                               l2=cfg["l2"], clip=cfg["clip"])
-    opts = [sgd]
-    if gan:
-        opts += [ref_gan.Adam(P, [n for n in P if n.startswith(prefix)], lr,
-                              cfg["beta1"], cfg["beta2"])
-                 for prefix, lr in (("G.", cfg["lrG"]), ("D_", cfg["lrD"]))]
-    init = {n: P[n].detach().clone() for n in P if not ref_model.frozen(n)}
-    gen = torch.Generator(device=device).manual_seed(cfg_seed * 100003)
-    losses, first = [], {}
-    entry_paths = [paths[i] for i in split.entry_file]
-    for k in range(n_steps):
-        idx = ref_data.batch_indices(len(split), cfg["batch_size"], cfg_seed,
-                                     0, k)
-        nb = ref_data.batch(entry_paths, split.gt_boxes, split.gt_classes,
-                            split.relationships, idx, cfg_seed, 0,
-                            cfg["im_scale"], cfg["max_nodes"],
-                            cfg["max_edges"], workers)
-        if batch_hook is not None:
-            nb = batch_hook(nb)
-        tb = batch_tensors(nb, device)
-        if gan:
-            fake = graphn.batch(nb["classes"], nb["boxes"], nb["rels"],
-                                nb["node_mask"], nb["rel_mask"], 0, cfg_seed)
-            losses.append(ref_gan.gan_step(
-                P, S, opts, tb, torch.from_numpy(fake).to(device), gen, cfg,
-                num))
-        else:
-            losses.append(ref_model.train_step(P, sgd, tb, gen, cfg, num))
-        if k == 0:
-            first = {n: sgd.momentum[n] - cfg["l2"] * init[n]
-                     for n in rel_names}
-            for opt in opts[1:]:
-                first.update({n: opt.mu[n] / (1 - opt.b1)
-                              for n in opt.names})
-    change = {n: P[n].detach() - init[n] for n in init}
-    return {"losses": losses, "first": first, "change": change,
-            "init": init}
-
-
-def program_first(opt_state: Dict[str, torch.Tensor],
-                  init: Dict[str, torch.Tensor], l2: float, device):
-    """The first gradient from the program's optimizer states: SGD's
-    momentum less the decay term (names without a prefix), Adam's first
-    moment over 1 - beta1 (already divided, see ``program.py``)."""
-    return {n: opt_state[n].to(device) - (0.0 if n.startswith(("G.", "D_"))
-                                          else l2) * init[n]
-            for n in init}
+def program_first(opt_state: Dict[str, torch.Tensor], ref: dict, device):
+    """The first gradient from the program's optimizer states (SGD's
+    momentum, Adam's first moment over 1 - beta1: see ``program.Built``)
+    less each leaf's L2 term, ``ref["decay"]`` times its starting weight."""
+    init, decay = ref["init"], ref["decay"]
+    return {n: opt_state[n].to(device) - decay[n] * init[n] for n in init}
 
 
 def program_change(params: Dict[str, torch.Tensor],

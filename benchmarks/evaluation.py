@@ -15,13 +15,14 @@ set: both regimes, with the loader, the copies, the forward and the
 evaluators, the device synchronised at both ends, under
 ``torch.profiler``'s CUDA activity (``trace.py``).
 
-Probes, installed for the run and removed after it: ``val_epoch``'s
-``make_eval_step`` and ``_to_numpy`` are wrapped, which times each
-step's issue, keeps the host outputs of the first ``check_batches``
-batches of each regime for the comparison that decides ``correct``
-(``check_eval.py``), and counts the pair slots run and the valid pairs
-among them; the evaluators' ``add_image`` and ``results`` are timed on
-the host's clock.
+Probes, installed for the run and removed after it: the configuration's
+family wraps the program's eval step and its copy to the host
+(``eval_probe``: the IMP family wraps ``val_epoch``'s ``make_eval_step``
+and ``_to_numpy``), which times each step's issue, keeps the host
+outputs of the first ``check_batches`` batches of each regime for the
+comparison that decides ``correct`` (``check_eval.py``), and counts the
+pair slots run and the valid pairs among them; the evaluators'
+``add_image`` and ``results`` are timed on the host's clock.
 """
 
 from __future__ import annotations
@@ -60,10 +61,12 @@ class EvalRecord:
 
 class Probe:
     """The wrappers of the module's text; ``window`` is set while the
-    window runs, and only then are steps, outputs and times kept."""
+    window runs, and only then are steps, outputs and times kept.
+    ``count`` and ``at`` are the family's wrappers' own: the steps of each
+    regime, and the regime and batch of the step in flight."""
 
-    def __init__(self, rec: EvalRecord, check_batches: int):
-        self.rec, self.check = rec, check_batches
+    def __init__(self, rec: EvalRecord, check_batches: int, family):
+        self.rec, self.check, self.family = rec, check_batches, family
         self.window = False
         self.count: Dict[str, int] = {}
         self.at = None
@@ -74,45 +77,13 @@ class Probe:
 
     def install(self):
         """Wrap the program's functions; returns the undo."""
-        from sgg_torch.eval import driver, sgg_eval
-        saved = [(driver, "make_eval_step", driver.make_eval_step),
-                 (driver, "_to_numpy", driver._to_numpy)]
-        for cls in (sgg_eval.SGGEvaluator, sgg_eval.MeanRecallEvaluator):
-            saved += [(cls, "add_image", cls.add_image),
-                      (cls, "results", cls.results)]
-        make, to_numpy = saved[0][2], saved[1][2]
+        from sgg_torch.eval import sgg_eval
+        evaluators = [(cls, attr, getattr(cls, attr))
+                      for cls in (sgg_eval.SGGEvaluator,
+                                  sgg_eval.MeanRecallEvaluator)
+                      for attr in ("add_image", "results")]
+        saved = self.family.eval_probe(self) + evaluators
         rec = self.rec
-
-        def make_eval_step(model, mode=None, max_pairs=None, dedup=True,
-                           device="cuda"):
-            inner = make(model, mode=mode, max_pairs=max_pairs, dedup=dedup,
-                         device=device)
-
-            def step(batch):
-                if dedup:
-                    self.count[mode] = self.count.get(mode, -1) + 1
-                self.at = (mode, self.count.get(mode, 0))
-                t0 = time.time_ns()
-                out = inner(batch)
-                if self.window:
-                    rec.steps.append((t0, time.time_ns(), "eval_step"))
-                return out
-
-            return step
-
-        def host(out):
-            got = to_numpy(out)
-            kept = "dedup_ok" not in got or bool(got["dedup_ok"].all())
-            if self.window and kept:
-                mode, k = self.at
-                mask = got["pair_mask"]
-                key = f"{mode} {mask.shape[1]}"
-                rec.rungs[key] = rec.rungs.get(key, 0) + 1
-                rec.slots += mask.size
-                rec.valid += int(mask.sum())
-                if k < self.check:
-                    rec.outputs[(mode, k)] = got
-            return got
 
         def timed(fn):
             # the mean-recall evaluator calls an SGGEvaluator a predicate:
@@ -129,9 +100,7 @@ class Probe:
                                               "evaluator"))
             return call
 
-        driver.make_eval_step = make_eval_step
-        driver._to_numpy = host
-        for owner, attr, fn in saved[2:]:
+        for owner, attr, fn in evaluators:
             setattr(owner, attr, timed(fn))
 
         def undo():

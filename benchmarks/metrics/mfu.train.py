@@ -1,4 +1,5 @@
-"""The model's operations in the window's steps (benchmarks/work.py:
+"""The model's operations in the window's steps, as the configuration's
+family counts them (``step_flops``; the IMP family: benchmarks/work.py,
 real boxes and sampled edges, the trunk over the canvas, forward and the
 backward the training needs) over the window's seconds, as a share of
 the card's dense bf16 peak (benchmarks/peaks.py), the card's power limit

@@ -91,13 +91,13 @@ class Run:
         self.ev = ev   # an evaluating cell's window (evaluation.EvalRecord)
 
     def step_sizes(self, first: int, count: int):
-        from benchmarks import work
-        return [work.step_sizes(self.split, self.cfg, self.cfg_seed, k)
+        family = self.cell.family
+        return [family.step_sizes(self.split, self.cfg, self.cfg_seed, k)
                 for k in range(first, first + count)]
 
     def window_flops(self) -> int:
-        from benchmarks import work
-        return sum(work.step_flops(self.split, self.cfg, self.cfg_seed, k)
+        family = self.cell.family
+        return sum(family.step_flops(self.split, self.cfg, self.cfg_seed, k)
                    for k in range(self.rec.window_first_step,
                                   self.rec.window_first_step
                                   + self.rec.window_steps))
@@ -186,8 +186,7 @@ def execute_train(cell, seed: int, seconds: float, trace: bool, dev,
             cfg, split, [os.path.join(scratch, n) for n in names], cfg_seed,
             weight_seed, dev, "bf16", mix["check_steps"], workers)
         numbers = check.compare(
-            rec.losses,
-            check.program_first(rec.opt_state, ref["init"], cfg["l2"], dev),
+            rec.losses, check.program_first(rec.opt_state, ref, dev),
             check.program_change(rec.params, ref["init"], dev), ref)
         ref_s = time.perf_counter() - t_ref
         del ref
@@ -213,7 +212,7 @@ def execute_eval(cell, seed: int, seconds: float, trace: bool, dev,
     from benchmarks import trace as tracing
     from benchmarks import window
 
-    cfg, mix = cell.config, cell.traffic
+    cfg, mix, family = cell.config, cell.traffic, cell.family
     program.set_canvas(cfg)
     cfg_seed, weight_seed = seeds(seed)
     stage("imported")
@@ -230,7 +229,7 @@ def execute_eval(cell, seed: int, seconds: float, trace: bool, dev,
         stage(f"trainer built; warm-up over {len(warm_ds)} entries")
         ev = evaluation.EvalRecord(
             images=len(test), batches=len(test) // cfg["eval_batch_size"])
-        probe = evaluation.Probe(ev, mix["check_batches"])
+        probe = evaluation.Probe(ev, mix["check_batches"], family)
         seen = {}
 
         def on_open():
@@ -264,9 +263,10 @@ def execute_eval(cell, seed: int, seconds: float, trace: bool, dev,
         ref = check_eval.reference_outputs(
             cfg, test, [os.path.join(scratch, n) for n in names],
             weight_seed, dev, "bf16", entries, workers)
-        prog = check_eval.program_outputs(ev.outputs, test, cfg)
-        numbers = check_eval.compare(prog, ref, test)
-        gaps = check_eval.recalls(prog, ref, test)
+        prog = family.eval_program(ev.outputs, test, cfg)
+        numbers = family.eval_compare(prog, ref, test, cfg)
+        gaps = check_eval.recalls(prog, family.eval_as_program(ref, test),
+                                  test, family.eval_regimes(cfg))
         ref_s = time.perf_counter() - t_ref
         del ref
     finally:

@@ -3,7 +3,10 @@
 The harness is driven by data: a cell names its configuration and its
 traffic mix, and a metric names its reader. They are found by name:
 
-- ``configs[*].file``: the configuration as it is run (JSON);
+- ``configs[*].file``: the configuration as it is run (JSON), which names
+  its model family: ``benchmarks/families/<family>.py`` builds the
+  program, runs the plain reference and counts the work
+  (``benchmarks/families``);
 - ``benchmarks/workloads/<traffic>.json``: the traffic mix's parameters;
 - ``benchmarks/limits/<config>.json``: the limits of the comparison that
   decides ``correct``, with the readings they were set from, for the
@@ -24,6 +27,8 @@ import re
 from pathlib import Path
 from typing import Dict, List
 
+from benchmarks import families
+
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 BENCHMARK = REPO / "BENCHMARK.json"
@@ -36,6 +41,7 @@ class Cell:
     name: str
     config_name: str
     config: dict
+    family: object      # the configuration's module of benchmarks/families
     traffic_name: str
     traffic: dict
     limits: dict
@@ -87,7 +93,7 @@ def load_cell(name: str, bench: dict = None) -> Cell:
     with open(HERE / "limits" / f"{stem}.json") as f:
         limits = json.load(f)
     return Cell(name=name, config_name=w["config"], config=config,
-                traffic_name=w["traffic"], traffic=traffic, limits=limits,
+                family=families.of(config), traffic_name=w["traffic"], traffic=traffic, limits=limits,
                 chips=w["chips"],
                 end_to_end=metrics_of(bench, name, "end_to_end"),
                 per_layer=metrics_of(bench, name, "per_layer"))

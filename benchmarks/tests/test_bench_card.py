@@ -3,7 +3,7 @@ control (the reference put in the program's place, computed in the
 precision below the configuration's) reads not correct, on three seeds.
 A split of a few batches stands in for the window's: the check steps are
 the first three; in the eval cell the check batches, after the warm-up,
-and the program with each fault of ``calibrate.EVAL_FAULTS`` planted
+and the program with each fault of the family's ``EVAL_FAULTS`` planted
 reads not correct as well. Run on the card with
 ``python -m pytest benchmarks/tests -m "cuda and not held_out"`` (the
 cells of BENCHMARK.json, ~5 min); the held-out eval cell's test with
@@ -48,9 +48,7 @@ def test_control_fails_where_the_program_passes(cuda, name, seed):
         rec = calibrate.program_steps(cell, split, scratch, names, cfg_seed,
                                       weight_seed, cuda)
         prog = check.compare(
-            rec.losses,
-            check.program_first(rec.opt_state, base["init"], cfg["l2"],
-                                cuda),
+            rec.losses, check.program_first(rec.opt_state, base, cuda),
             check.program_change(rec.params, base["init"], cuda), base)
         ctrl = reference(cfg["precision"]["control"])
         ctrl = check.compare(ctrl["losses"], ctrl["first"], ctrl["change"],

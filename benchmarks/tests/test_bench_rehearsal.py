@@ -8,8 +8,9 @@ broken underneath, which must read not correct. In training:
 - half of the batch left out, the means taken over the rest (the loader's
   batches lose the second half of their nodes and relations).
 
-In evaluation (``calibrate.EVAL_FAULTS``): half of the candidate pairs
-left out; the unions' dedup gathering each pair from its neighbour's row.
+In evaluation (the IMP family's ``EVAL_FAULTS``): half of the candidate
+pairs left out; the unions' dedup gathering each pair from its
+neighbour's row.
 
 The CPU stands in for the card here only: ``run.main`` refuses to measure
 without one (``test_bench_nocard.py``)."""
@@ -150,7 +151,7 @@ def test_a_sound_eval_run_is_correct(monkeypatch, trace):
 
 @pytest.mark.parametrize("fault", ["fault_half_pairs", "fault_dedup_map"])
 def test_a_broken_eval_path_is_not_correct(monkeypatch, fault):
-    from benchmarks import calibrate
-    with calibrate.EVAL_FAULTS[fault]():
+    from benchmarks.families import imp
+    with imp.EVAL_FAULTS[fault]():
         _, out, line = rehearse(monkeypatch, EVAL_CELL)
     assert not line["correct"], out["numbers"]

@@ -136,10 +136,10 @@ def eval_inputs(B, N):
 
 @pytest.mark.parametrize("B,N", [(1, 3), (2, 4)])
 def test_eval_forward_with_the_unions_dedup(monkeypatch, B, N):
-    from benchmarks import program
+    from benchmarks.families import imp
     from sgg_torch.models import relhead
     cfg = dict(EVAL_CFG, compute_dtype="bfloat16")
-    model = program.relation_model(cfg, "cpu", rm.make_weights(
+    model = imp.relation_model(cfg, "cpu", rm.make_weights(
         rm.param_spec(cfg), 6, "cpu", rm.stored_types(cfg)))
     monkeypatch.setattr(relhead, "roi_align", pool_stand_in)
     pairs, mask, boxes, images = eval_inputs(B, N)
