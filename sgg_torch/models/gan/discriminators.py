@@ -3,9 +3,10 @@
 Counterpart of ``sgg_tpu/models/gan/discriminators.py`` (reference
 ``augment/gan.py:69-104``): every conv is spectrally normalized;
 ``D_nodes``/``D_edges`` are class-conditional 7x7 patch discriminators
-(one-hot class planes concatenated to the features); ``D_global`` judges
-whole feature maps with LeakyReLU(0.2) convs and average pools, widened by
-extra 1x1 convs under ``largeD``.
+(the reference concatenates one-hot class planes to the features; here
+they enter the first conv as a per-class bias, the same sum); ``D_global``
+judges whole feature maps with LeakyReLU(0.2) convs and average pools,
+widened by extra 1x1 convs under ``largeD``.
 
 NHWC at the interfaces, as the JAX modules; NCHW inside. The convs compute
 in float32 whatever the input's type (flax promotes a bf16 map to the f32
@@ -19,6 +20,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from sgg_torch.utils import counters
+from sgg_torch.utils.profiling import kernel_flops
 
 
 def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -86,22 +90,64 @@ def avg_pool_ceil(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 class CondPatchDiscriminator(nn.Module):
     """Class-conditional 7x7 patch discriminator (reference gan.py:74-82):
-    (..., 7, 7, n_ch + n_classes) -> (..., 1) logits."""
+    (..., p, p, n_ch) features and (...,) labels in ``[0, n_classes)`` ->
+    (..., 1) logits.
 
-    def __init__(self, in_ch: int, n_ch: int = 512):
+    The reference concatenates ``n_classes`` one-hot planes to the features
+    before the first conv. That conv is 3x3 with padding 0, so every output
+    position reads all 9 taps of every plane, and each plane is constant
+    over the patch: the planes add ``sum over taps of W[:, n_ch + label]``,
+    one vector a class. So the first conv runs on the ``n_ch`` feature
+    channels alone and adds that vector, gathered by label, as a bias: the
+    concatenated conv's sum in another order, with its parameters, its
+    power iteration over the whole (9 (n_ch + n_classes), out) matrix and,
+    through autograd, its gradient in the class columns. Construction
+    refuses a first conv that would read past the patch or into padding,
+    where the fold would not hold."""
+
+    def __init__(self, n_classes: int, n_ch: int = 512, patch: int = 7):
         super().__init__()
+        self.n_ch, self.n_classes = n_ch, n_classes
         c = n_ch
-        for i, (cin, cout, k) in enumerate(((in_ch, c // 2, 3),
+        for i, (cin, cout, k) in enumerate(((n_ch + n_classes, c // 2, 3),
                                             (c // 2, c // 4, 3),
                                             (c // 4, c // 8, 1),
                                             (c // 8, 1, 3))):
             self.add_module(f"SNConv_{i}", SNConv(cin, cout, k))
+        first = self.SNConv_0
+        if first.padding != 0 or first.Conv_0.kernel_size[0] > patch:
+            raise ValueError(
+                f"the class planes fold into a bias only for a first conv "
+                f"with padding 0 inside the {patch}x{patch} patch (padding "
+                f"{first.padding}, kernel {first.Conv_0.kernel_size[0]})")
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False
-                ) -> torch.Tensor:
-        lead = x.shape[:-3]
-        h = _nchw(x)
-        for i in range(4):
+    def first_conv(self, feats: torch.Tensor, labels: torch.Tensor,
+                   update_stats: bool = False) -> torch.Tensor:
+        """The first conv's pre-activation (prod(...), out, p - 2, p - 2)
+        over the features and their class planes, float32."""
+        first = self.SNConv_0
+        w = first.normalized_weight(update_stats)
+        x = _nchw(feats)
+        out_hw = (x.shape[-2] - w.shape[-2] + 1) * (x.shape[-1]
+                                                    - w.shape[-1] + 1)
+        # counted as the concatenated conv, the work the reference defines
+        with kernel_flops(2 * x.shape[0] * out_hw * w[0].numel()
+                          * w.shape[0]):
+            h = F.conv2d(x, w[:, :self.n_ch], first.Conv_0.bias)
+            class_bias = w[:, self.n_ch:].sum((2, 3)).t()  # (n_classes, out)
+            # a product with the one-hot rows, not an index: the index's
+            # backward adds each class's rows one after another (18.9 ms a
+            # GAN step on an H100), the product's is one GEMM
+            onehot = F.one_hot(labels.reshape(-1).long(),
+                               self.n_classes).to(w.dtype)
+            return h.add_((onehot @ class_bias)[..., None, None])
+
+    def forward(self, feats: torch.Tensor, labels: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        counters.bump("gan.d_patch_fold")
+        lead = feats.shape[:-3]
+        h = F.relu(self.first_conv(feats, labels, update_stats))
+        for i in range(1, 4):
             h = getattr(self, f"SNConv_{i}")(h, update_stats)
             if i < 3:
                 h = F.relu(h)
@@ -167,7 +213,8 @@ class GlobalDiscriminator(nn.Module):
 def conditioned_features(feats: torch.Tensor, labels: torch.Tensor,
                          n_classes: int) -> torch.Tensor:
     """Concatenate one-hot class planes to (..., p, p, C) patch features
-    (reference gan.py:226-242)."""
+    (reference gan.py:226-242): the reference's input to a patch D, which
+    ``CondPatchDiscriminator`` takes as features and labels instead."""
     p = feats.shape[-3]
     onehot = F.one_hot(labels.long(), n_classes).to(feats.dtype)
     planes = onehot[..., None, None, :].expand(*onehot.shape[:-1], p, p,

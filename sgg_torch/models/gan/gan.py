@@ -29,8 +29,7 @@ import torch.nn.functional as F
 
 from sgg_torch.models.gan.crn import RefinementModule, RefinementNetwork
 from sgg_torch.models.gan.discriminators import (CondPatchDiscriminator,
-                                                 GlobalDiscriminator, SNConv,
-                                                 conditioned_features)
+                                                 GlobalDiscriminator, SNConv)
 from sgg_torch.models.gan.graphconv import GraphTripleConvNet, TripleMLP
 from sgg_torch.models.gan.layout import boxes_to_layout
 
@@ -151,8 +150,8 @@ class GANModel(nn.Module):
                            hidden_dim, n_ch, pool_sz, fmap_sz, n_layers_G,
                            batch_norm, vis_cond, init_embed_objs,
                            init_embed_rels)
-        self.D_nodes = CondPatchDiscriminator(n_ch + num_classes, n_ch)
-        self.D_edges = CondPatchDiscriminator(n_ch + num_predicates, n_ch)
+        self.D_nodes = CondPatchDiscriminator(num_classes, n_ch, pool_sz)
+        self.D_edges = CondPatchDiscriminator(num_predicates, n_ch, pool_sz)
         self.D_global = GlobalDiscriminator(n_ch, large=largeD,
                                             fmap_sz=fmap_sz)
 
@@ -168,14 +167,10 @@ class GANModel(nn.Module):
                       vis_features)
 
     def disc_nodes(self, feats, labels, update_stats: bool = False):
-        return self.D_nodes(conditioned_features(feats, labels,
-                                                 self.num_classes),
-                            update_stats)
+        return self.D_nodes(feats, labels, update_stats)
 
     def disc_edges(self, feats, labels, update_stats: bool = False):
-        return self.D_edges(conditioned_features(feats, labels,
-                                                 self.num_predicates),
-                            update_stats)
+        return self.D_edges(feats, labels, update_stats)
 
     def disc_global(self, fmaps, update_stats: bool = False):
         return self.D_global(fmaps, update_stats)

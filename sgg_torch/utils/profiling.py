@@ -143,9 +143,11 @@ _TALLIES: list = []  # the active ``count_flops`` calls, innermost last
 @contextlib.contextmanager
 def kernel_flops(n: int):
     """The region of one hand-written kernel's wrapper (the kernel on the
-    card, its plain version on the CPU): under ``count_flops`` it adds the
-    kernel's formula count ``n`` and leaves out what the region dispatches.
-    Costs a list check otherwise."""
+    card, its plain version on the CPU), or of a computation counted as the
+    work its reference form does (the patch discriminators' first conv,
+    whose class planes enter as a bias): under ``count_flops`` it adds the
+    formula count ``n`` and leaves out what the region dispatches. Costs a
+    list check otherwise."""
     if not _TALLIES:
         yield
         return
