@@ -207,30 +207,23 @@ non-zero exit and without the result line:
    the launches counted on each rank (K1 and K2 on ``f32``; the GAN's K1
    ``f32`` on the fake map and K1-bwd-fmap ``f32-staged``), a rank's step
    ms (not a scaling figure: two ranks share one card);
-14. multi-process SGDet training and the (data x edge) mesh under its own
-   deadline: 14a phase 7's SGDet training (VGG16 detector, batch 6, bf16,
-   dropout on, the sampler drawing) for ``SGDET_DP_STEPS`` steps under a
-   1-rank NCCL group and with no group, from the same state under
-   deterministic algorithms: the same bits in the losses and every
-   relation-model tensor and momentum buffer, 3 K1 + 1 K2 a step on the
-   bf16 routes; two ranks sharing the card over gloo (spawned as in 13b),
-   f32 with TF32 off: 14b the SGDet step, 3 images a rank against one
-   process of 6 (the ranks' detections the process's rows bit for bit,
-   losses within ``MESH_LOSS_LIMIT`` relative, the updated relation model
-   within ``DP_UPDATE_LIMIT`` of the largest update, 3 K1 + 1 K2 ``f32`` a
-   rank), and 14c one step of phase 5's sgcls training shape on the 1 x 2
-   edge mesh (``parallel.make_mesh_2d``, ``shard_batch_edges``,
-   ``make_train_step``), each rank on 128 of the 256 edge slots of all 24
-   images, against one process on the same batch and generator seed
-   (losses, the update and the union BatchNorms' running statistics under
-   14b's limits; each rank's union K1 on 24 x 128 boxes, 2 K1 + 1 K2
-   ``f32`` a rank), each rank's step ms beside 13b's and the bytes of the
-   edge group's all-reduces. In f32 a ReLU input within rounding of 0 can
-   gate one way on the ranks and the other in one process: both 14b and
-   14c record the RoI heads' and IMP's ReLU inputs, require every gate
-   that differs to be a rounding flip (its input in one process within
-   its ReLU's largest input difference), and hold the update against one
-   process run with the ranks' gates (the plain one's is printed);
+14. multi-process SGDet training under its own deadline: 14a phase 7's
+   SGDet training (VGG16 detector, batch 6, bf16, dropout on, the sampler
+   drawing) for ``SGDET_DP_STEPS`` steps under a 1-rank NCCL group and
+   with no group, from the same state under deterministic algorithms: the
+   same bits in the losses and every relation-model tensor and momentum
+   buffer, 3 K1 + 1 K2 a step on the bf16 routes; 14b the SGDet step on
+   two ranks sharing the card over gloo (spawned as in 13b), f32 with
+   TF32 off, 3 images a rank against one process of 6 (the ranks'
+   detections the process's rows bit for bit, losses within
+   ``MESH_LOSS_LIMIT`` relative, the updated relation model within
+   ``DP_UPDATE_LIMIT`` of the largest update, 3 K1 + 1 K2 ``f32`` a
+   rank). In f32 a ReLU input within rounding of 0 can gate one way on
+   the ranks and the other in one process: 14b records the RoI heads' and
+   IMP's ReLU inputs, requires every gate that differs to be a rounding
+   flip (its input in one process within its ReLU's largest input
+   difference), and holds the update against one process run with the
+   ranks' gates (the plain one's is printed);
 15. the port's tools and examples under its own deadline, each ``python -m
    sgg_torch.tools.<name>`` (or ``sgg_torch.examples.<name>``) in a process
    of its own, killed at ``TOOL_TIMEOUT_S``, its last line parsed: 15a the
@@ -4565,36 +4558,34 @@ def dp_two_ranks(torch):
             k: sum(r[kind]["n"][k] for r in res) for k in res[0][kind]["n"]}
     print(f"phase 13b two ranks in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return paths, [r["sgcls"]["s"] * 1e3 for r in res]
+    return paths
 
 
 def phase_data_parallel(torch, splits, train_rate):
     """Phase 13: data-parallel training and evaluation. Returns the paths'
-    launches and 13b's sgcls step ms a rank."""
+    launches."""
     t0 = time.perf_counter()
     paths = dp_one_rank(torch, splits, train_rate)
-    two, step_ms = dp_two_ranks(torch)
-    paths.update(two)
+    paths.update(dp_two_ranks(torch))
     print(f"phase 13 data parallel in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return paths, step_ms
+    return paths
 
 
 # ---------------------------------------------------------------------------
-# phase 14: multi-process SGDet training and the (data x edge) mesh
+# phase 14: multi-process SGDet training
 
 MESH_DEADLINE_S = 300
 # each spawned rank ends within this, or the phase fails
 MESH_JOIN_S = 240
 # 14a: SGDet steps under a 1-rank NCCL group, at phase 7's train shape
 SGDET_DP_STEPS = 2
-# 14b, 14c: two ranks against one process, f32 with TF32 off: the losses
+# 14b: two ranks against one process, f32 with TF32 off: the losses
 # relative; the updated tensors within DP_UPDATE_LIMIT (13b's) of the
 # largest update
 MESH_LOSS_LIMIT = 1e-6
 # a step a rank in f32: SGDet's K1 on the detector's RoIs, the nodes and
-# the unions, K2 once (the edge mesh's: 13b's DP_ROUTES, K1 on the nodes
-# and the rank's unions)
+# the unions, K2 once
 SGDET_ROUTES = {"roi_align": {"f32": 3}, "vgg_conv1": {"f32": 1}}
 
 
@@ -4727,26 +4718,13 @@ class _ReluGates:
         return False
 
 
-def _gates_over_ranks(torch, rec, edge_slots=None):
+def _gates_over_ranks(torch, rec):
     """The ReLU inputs ``rec`` of every rank, assembled into the one
-    process's shapes (host float32 arrays): the ranks' rows concatenated,
-    or with ``edge_slots`` (a data-parallel mesh of one data coordinate)
-    the ranks' slots of the edge inputs (``edge_slots`` on axis 1), the
-    node inputs being every rank's alike. A collective."""
-    import numpy as np
-
+    process's shapes (host float32 arrays): the ranks' rows concatenated.
+    A collective."""
     from sgg_torch import parallel
-    out = []
-    for x in rec:
-        a = x.float().cpu().numpy()
-        if edge_slots is None:
-            out.append(parallel.gather_rows({"x": a})["x"])
-        elif a.shape[1] == edge_slots:
-            out.append(np.moveaxis(parallel.gather_rows(
-                {"x": np.moveaxis(a, 1, 0)})["x"], 0, 1))
-        else:
-            out.append(a)
-    return out
+    return [parallel.gather_rows({"x": x.float().cpu().numpy()})["x"]
+            for x in rec]
 
 
 def _gate_flips(mesh, ref):
@@ -4826,120 +4804,13 @@ def sgdet_rank(torch, group):
     return out
 
 
-def edge_rank(torch, group):
-    """14c on one rank of the 1 x 2 mesh: phase 5's sgcls training shape
-    (VGG16, batch 24, 40 nodes, 256 edges, dnorm, dropout on, the sampler
-    drawing) in f32 through ``make_train_step`` on the rank's 128 edge
-    slots of every image (a warm-up step, then the counted and timed one
-    from the same state and generator seed) and, on rank 0, the same step
-    as one process on all 256."""
-    import copy
-
-    from sgg_torch import parallel
-    from sgg_torch.config import Config
-    from sgg_torch.data.pipeline import BatchLoader
-    from sgg_torch.data.synthetic import synthetic_splits
-    from sgg_torch.models import relhead
-    from sgg_torch.train.state import Optimizer
-    from sgg_torch.train.step import make_train_step
-    from sgg_torch.train.trainer import build_model
-
-    mesh = parallel.make_mesh_2d(1, 2, group)
-    splits = synthetic_splits(num_train=TRAIN_BATCH, num_eval=4)
-    cfg = Config(mode="sgcls", loss="dnorm", batch_size=TRAIN_BATCH,
-                 max_nodes=TRAIN_NODES, max_edges=TRAIN_EDGES,
-                 compute_dtype="float32", device="cuda:0", num_workers=4)
-    batch = next(iter(BatchLoader(splits["train"], batch_size=TRAIN_BATCH,
-                                  max_nodes=TRAIN_NODES,
-                                  max_edges=TRAIN_EDGES, seed=cfg.seed,
-                                  num_workers=4)))
-    model = build_model(cfg, splits["train"], device="cuda:0",
-                        seed=cfg.seed)
-    opt = Optimizer(cfg, model, steps_per_epoch=1)
-    step = make_train_step(model, cfg, opt)
-
-    def state():
-        return {n: t.detach().clone() for n, t in
-                list(model.named_parameters()) + list(model.named_buffers())
-                if not n.startswith("trunk.")}
-
-    def run(b, g):
-        """The step on ``b`` under ``g`` from the state before: the
-        metrics, the launches, the boxes each RoIAlign pooled, its ms."""
-        model.load_state_dict(snap)
-        opt.load_state_dict(opt_snap)
-        opt.count = count
-        pooled = []
-        roi_align = relhead.roi_align
-
-        def recorded(fmap, boxes, **kw):
-            pooled.append(tuple(boxes.shape))
-            return roi_align(fmap, boxes, **kw)
-
-        relhead.roi_align = recorded
-        try:
-            with parallel.using(g):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                metrics, n, routes = _counted(torch, lambda: {
-                    k: float(v) for k, v in step(
-                        b, torch.Generator(device="cuda:0").manual_seed(
-                            cfg.seed)).items()})
-                ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            relhead.roi_align = roi_align
-        return {"metrics": metrics, "n": n, "routes": routes,
-                "pooled": pooled, "ms": ms, "after": state()}
-
-    snap = copy.deepcopy(model.state_dict())
-    opt_snap, count = copy.deepcopy(opt.state_dict()), opt.count
-    before = state()
-    mine = parallel.shard_batch_edges(batch, mesh)
-    rec = []
-    # warm-up (the kernels, cuBLAS, the groups), its ReLU inputs recorded
-    with _ReluGates(torch, record=rec):
-        run(mine, mesh)
-    got = run(mine, mesh)
-    gates = _gates_over_ranks(torch, rec, TRAIN_EDGES // 2)
-    out = {k: got[k] for k in ("metrics", "n", "routes", "pooled", "ms")}
-    out["differ_from_rank0"] = sum(
-        not parallel.bits_equal_to_rank0(t, group)
-        for t in got["after"].values())
-    out["edge_bytes"] = (model.imp.mp_iter * TRAIN_BATCH * TRAIN_NODES
-                         * model.imp.node_gru.hidden_size * 4)
-    if group.rank == 0:
-        run(batch, None)  # warm-up at the one-process shapes
-        ref_rec = []
-        with _ReluGates(torch, record=ref_rec):
-            run(batch, None)
-        ref = run(batch, None)
-        forced = _forced_ref(torch, gates, lambda: run(batch, None))
-        bn = [k for k in ref["after"] if k.startswith("union_feats.bn")
-              and "running" in k]
-        relation = lambda k: "num_batches" not in k  # noqa: E731
-        out.update(
-            ref_metrics=ref["metrics"], ref_ms=ref["ms"],
-            ref_pooled=ref["pooled"], flips=_gate_flips(gates, ref_rec),
-            update_err=_update_err(before, got["after"], ref["after"],
-                                   relation),
-            forced_err=_update_err(before, got["after"], forced["after"],
-                                   relation),
-            bn_err=_update_err(before, got["after"], forced["after"],
-                               bn.__contains__))
-    del model, opt, step
-    torch.cuda.empty_cache()
-    parallel.sync_processes("mesh_edge")
-    return out
-
-
 def mesh_rank(group):
-    """14b, then 14c, on one rank of two sharing the card over gloo, f32
-    with TF32 off."""
+    """14b on one rank of two sharing the card over gloo, f32 with TF32
+    off."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"sgdet": sgdet_rank(torch, group),
-            "edge": edge_rank(torch, group)}
+    return {"sgdet": sgdet_rank(torch, group)}
 
 
 def _flips_text(r):
@@ -4959,9 +4830,9 @@ def _check_flips(what, r):
     check(not bad, f"{what}: ReLU gates differ beyond rounding: {bad}")
 
 
-def mesh_two_ranks(torch, dp_step_ms):
-    """14b and 14c: two ranks sharing the card over gloo (spawned; a file
-    store in a temporary directory) against one process."""
+def mesh_two_ranks(torch):
+    """14b: two ranks sharing the card over gloo (spawned; a file store in
+    a temporary directory) against one process."""
     import numpy as np
 
     from sgg_torch import parallel
@@ -5006,69 +4877,24 @@ def mesh_two_ranks(torch, dp_step_ms):
     check(s0["forced_err"][0] <= DP_UPDATE_LIMIT,
           f"sgdet: update differs from one process with the ranks' gates: "
           f"{s0['forced_err']}")
-    e0 = res[0]["edge"]
-    errs = _loss_errs(e0["metrics"], e0["ref_metrics"])
-    half = TRAIN_EDGES // 2
-    print(f"phase 14c edge mesh 1 x 2, each rank {half} of {TRAIN_EDGES} "
-          f"edge slots of {TRAIN_BATCH} images (sgcls dnorm, VGG16, f32, "
-          f"TF32 off, dropout on, the sampler drawing) against 1 process on "
-          f"all: losses rel err {json.dumps(errs)} (limit {MESH_LOSS_LIMIT});"
-          f" {_flips_text(e0)}; the updated relation model against one "
-          f"process: the largest difference over the largest update "
-          f"{e0['update_err'][0]:.3g} (at {e0['update_err'][1]}), against "
-          f"one process with the ranks' gates {e0['forced_err'][0]:.3g} (at "
-          f"{e0['forced_err'][1]}; limit {DP_UPDATE_LIMIT}), the union "
-          f"BatchNorms' running statistics' {e0['bn_err'][0]:.3g}; RoIAlign "
-          f"boxes a rank {json.dumps([r['edge']['pooled'] for r in res])}, "
-          f"one process {json.dumps(e0['ref_pooled'])}; launches a rank "
-          f"{json.dumps([r['edge']['n'] for r in res])} by route "
-          f"{json.dumps([r['edge']['routes'] for r in res])}; step on a "
-          f"host batch {json.dumps([round(r['edge']['ms'], 1) for r in res])}"
-          f" ms a rank, 1 process {e0['ref_ms']:.1f} ms; 13b's sgcls "
-          f"data-parallel step (a one-step epoch, host included) "
-          f"{json.dumps([round(x, 1) for x in dp_step_ms])} ms a rank (2 "
-          f"ranks on one card over gloo: not a scaling figure); the edge "
-          f"group's all-reduces of vert_ctx move {e0['edge_bytes']} bytes "
-          f"a rank forward and as many backward a step", flush=True)
-    check(all(r["edge"]["differ_from_rank0"] == 0 for r in res),
-          "edge mesh: the ranks' states differ after the step")
-    check(res[0]["edge"]["metrics"] == res[1]["edge"]["metrics"],
-          "edge mesh: the ranks log different losses")
-    check(all(e <= MESH_LOSS_LIMIT for e in errs.values()),
-          f"edge mesh: losses {e0['metrics']} vs one process "
-          f"{e0['ref_metrics']}")
-    _check_flips("edge mesh", e0)
-    check(e0["forced_err"][0] <= DP_UPDATE_LIMIT
-          and e0["bn_err"][0] <= DP_UPDATE_LIMIT,
-          f"edge mesh: update differs from one process with the ranks' "
-          f"gates: {e0['forced_err']}, BatchNorm statistics "
-          f"{e0['bn_err']}")
-    check(all(r["edge"]["pooled"] == [(TRAIN_BATCH, TRAIN_NODES, 4),
-                                      (TRAIN_BATCH, half, 4)]
-              for r in res),
-          "edge mesh: a rank pooled other than its edge slots")
-    paths = {}
-    for kind, routes_a_step, name in (
-            ("sgdet", SGDET_ROUTES, "sgdet_2ranks"),
-            ("edge", DP_ROUTES, "edge_mesh_1x2")):
-        for rk, r in enumerate(res):
-            want = {k: routes_a_step.get(k, {}) for k in r[kind]["routes"]}
-            check(r[kind]["routes"] == want,
-                  f"{kind} rank {rk} launched by route {r[kind]['routes']}, "
-                  f"want {want}")
-        paths[name] = {k: sum(r[kind]["n"][k] for r in res)
-                       for k in res[0][kind]["n"]}
-    print(f"phase 14b, 14c two ranks in {time.perf_counter() - t0:.1f} s",
+    for rk, r in enumerate(res):
+        want = {k: SGDET_ROUTES.get(k, {}) for k in r["sgdet"]["routes"]}
+        check(r["sgdet"]["routes"] == want,
+              f"sgdet rank {rk} launched by route {r['sgdet']['routes']}, "
+              f"want {want}")
+    paths = {"sgdet_2ranks": {k: sum(r["sgdet"]["n"][k] for r in res)
+                              for k in res[0]["sgdet"]["n"]}}
+    print(f"phase 14b two ranks in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return paths
 
 
-def phase_mesh(torch, dp_step_ms):
-    """Phase 14: multi-process SGDet training and the edge mesh."""
+def phase_mesh(torch):
+    """Phase 14: multi-process SGDet training."""
     t0 = time.perf_counter()
     paths = sgdet_one_rank(torch)
-    paths.update(mesh_two_ranks(torch, dp_step_ms))
-    print(f"phase 14 sgdet data parallel and edge mesh in "
+    paths.update(mesh_two_ranks(torch))
+    print(f"phase 14 sgdet data parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
@@ -5712,11 +5538,9 @@ def main() -> None:
             paths.update(phase_vis_cond(torch, splits, gan_rate,
                                         eval_batch))
         with Deadline(DP_DEADLINE_S, "phase 13"):
-            dp_paths, dp_step_ms = phase_data_parallel(torch, splits,
-                                                       train_rate)
-            paths.update(dp_paths)
+            paths.update(phase_data_parallel(torch, splits, train_rate))
         with Deadline(MESH_DEADLINE_S, "phase 14"):
-            paths.update(phase_mesh(torch, dp_step_ms))
+            paths.update(phase_mesh(torch))
         with Deadline(TOOLS_DEADLINE_S, "phase 15"):
             paths.update(phase_tools(torch))
         with Deadline(NATIVE_DEADLINE_S, "phase 16"):

@@ -113,8 +113,6 @@ class Config:
     # Image transfer format: 'uint8' ships raw bytes and normalizes on
     # device (4x less H2D traffic); 'float32' normalizes on the host.
     image_format: str = "uint8"
-    # Data-parallel mesh axis name.
-    dp_axis: str = "data"
     # Frozen-trunk feature cache directory (data/feature_cache.py): extract
     # trunk fmaps once (both flip orientations for train splits), then
     # train/eval from the cache — the trunk (~46% of the sgcls step) never

@@ -34,8 +34,7 @@ from sgg_torch.eval.sgg_eval import MeanRecallEvaluator, SGGEvaluator
 from sgg_torch.eval.surgery import filter_dets
 from sgg_torch.models.frequency_bias import count_matrices
 from sgg_torch.models.sgdet import sgdet_eval_with_retry
-from sgg_torch.parallel import (Group, all_agree, gather_rows,
-                                refuse_edge_axis, shard_rows)
+from sgg_torch.parallel import Group, all_agree, gather_rows, shard_rows
 from sgg_torch.train.step import make_eval_step
 from sgg_torch.utils import counters
 
@@ -111,11 +110,8 @@ def val_epoch(model, dataset: SGGDataset, config: Config, name: str, *,
     the whole batch and the dedup fall-back is decided on the gathered
     outputs (or agreed over the ranks), so every rank takes the same
     branch, runs the same collectives and computes the same metrics. SGDet
-    batches are not split, as in the JAX package. A mesh with an edge axis
-    raises a ``ValueError``: the JAX package's ``val_epoch`` takes a 1-D
-    mesh too.
+    batches are not split, as in the JAX package.
     """
-    refuse_edge_axis("val_epoch", group)
     dev = resolve_device(device)
     sgdet = config.mode == "sgdet"
     if sgdet and detector is None:

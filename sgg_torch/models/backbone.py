@@ -51,24 +51,19 @@ class Dropout(nn.Module):
     not element by element, and parity tests set ``p = 0``. Under a
     data-parallel group the mask is the rank's part of one drawn at the
     global batch's shape (``parallel.global_rand``; the leading axis is the
-    batch's). ``edge_axis`` names the axis of the rank's edge slots in a
-    dropout over edges: on a (data x edge) mesh its draw also has every
-    edge rank's slots, of which the rank keeps its own; a dropout over
-    nodes (None) keeps the same mask on every edge rank.
+    batch's).
     """
 
-    def __init__(self, p: float = 0.5, edge_axis: Optional[int] = None):
+    def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
-        self.edge_axis = edge_axis
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = global_rand(x.shape, generator, x.device,
-                           self.edge_axis) < keep
+        mask = global_rand(x.shape, generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -146,17 +141,16 @@ class RoiHead(nn.Module):
     K_sum`` (``sgg_tpu/models/backbone.py:RoiHead``).
 
     Dropout (rate 0.5, train mode only) draws its masks from ``generator``
-    (see ``Dropout``; ``edge_axis`` 1 for the head over (B, E) edges).
+    (see ``Dropout``).
     """
 
     def __init__(self, in_dim: int, out_dim: int = 4096,
-                 with_final_relu: bool = False,
-                 edge_axis: Optional[int] = None):
+                 with_final_relu: bool = False):
         super().__init__()
         self.compute_dtype = torch.float32
         self.fc6 = nn.Linear(in_dim, out_dim)
         self.fc7 = nn.Linear(out_dim, out_dim)
-        self.drop = Dropout(0.5, edge_axis)
+        self.drop = Dropout(0.5)
         self.with_final_relu = with_final_relu
 
     def forward(self, x: torch.Tensor, *,

@@ -41,7 +41,6 @@ from sgg_torch.models.resnet import (FPN_CHANNELS, STRIDES, ResNet50FPN,
 from sgg_torch.models.union_features import UnionBoxFeats
 from sgg_torch.ops.boxes import gather_boxes, union_boxes
 from sgg_torch.ops.roi_align import roi_align
-from sgg_torch.parallel.mesh import edge_all_reduce, refuse_edge_axis
 from sgg_torch.train.assign import unordered_union_index
 
 FMAP_CHANNELS = 512  # the VGG16 trunk's
@@ -113,10 +112,7 @@ class IMPHead(nn.Module):
     def forward(self, node_feat, edge_feat, pairs, pair_mask):
         """node_feat (B,N,obj_dim), edge_feat (B,E,obj_dim), pairs (B,E,2).
 
-        Returns (obj_logits (B,N,C) f32, rel_logits (B,E,R) f32). On a
-        (data x edge) mesh the edges are the rank's slots: the node update
-        sums over the edge group, the obj_logits are those of every edge
-        rank of the images and the rel_logits cover the rank's edges.
+        Returns (obj_logits (B,N,C) f32, rel_logits (B,E,R) f32).
         """
         dt = self.compute_dtype
         N = node_feat.shape[1]
@@ -149,11 +145,7 @@ class IMPHead(nn.Module):
             vert_ctx = (
                 torch.einsum("ben,beh->bnh", subj_inc.float(), pre_out.float())
                 + torch.einsum("ben,beh->bnh", obj_inc.float(),
-                               pre_in.float()))
-            # on an edge axis, a sum over this rank's edges: the edge
-            # group's sum is every edge's, and the node states stay the
-            # same on the edge ranks of an image
-            vert_ctx = edge_all_reduce(vert_ctx).to(dt)
+                               pre_in.float())).to(dt)
             new_vert = self.node_gru(vert, vert_ctx)
             vert, edge = new_vert, new_edge
 
@@ -204,8 +196,7 @@ class RelModelIMP(nn.Module):
         # torchvision TwoMLPHeads, final ReLU and no dropout (:78-80)
         resnet = backbone == "resnet50"
         self.roi_fmap_obj = RoiHead(in_dim, obj_dim, with_final_relu=True)
-        self.roi_fmap = RoiHead(in_dim, obj_dim, with_final_relu=resnet,
-                                edge_axis=1)
+        self.roi_fmap = RoiHead(in_dim, obj_dim, with_final_relu=resnet)
         if resnet:
             self.roi_fmap_obj.drop.p = self.roi_fmap.drop.p = 0.0
         self.imp = IMPHead(obj_dim, num_classes, num_predicates,
@@ -249,12 +240,6 @@ class RelModelIMP(nn.Module):
         ``edge_pool`` (B,E,P,P,C): the map and its raw RoIAlign pools,
         before the rects are added, in the map's type (the features the
         GAN's discriminators judge, ``sgg_tpu/models/relhead.py:337-346``).
-
-        On a (data x edge) mesh (``parallel.make_mesh_2d``) ``pairs`` are
-        the rank's edge slots: the trunk, the node pooling and
-        ``roi_fmap_obj`` run in full on every edge rank (as GSPMD repeats
-        work on replicated operands), the union pooling, ``union_feats``
-        and ``roi_fmap`` on the rank's edges only.
         """
         mode = mode or self.mode
         if fmap is None:
@@ -273,7 +258,6 @@ class RelModelIMP(nn.Module):
         dedup_ok = None
         gidx = None
         if dedup_unions:
-            refuse_edge_axis("the unordered-union dedup (eval only)")
             n_uni = max(pairs.shape[1] // 2, 1)
             uni_slots, gidx, dedup_ok, _ = unordered_union_index(
                 pairs, pair_mask, n_uni, num_nodes=boxes.shape[1])

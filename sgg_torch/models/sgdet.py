@@ -30,8 +30,7 @@ from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.device import resolve_device
 from sgg_torch.ops.boxes import box_iou
 from sgg_torch.parallel import (GradReducer, all_reduce_metrics,
-                                all_reduce_scalars, refuse_edge_axis,
-                                world_size)
+                                all_reduce_scalars, world_size)
 from sgg_torch.train.assign import (all_pairs, compact_pairs,
                                     unordered_union_index)
 from sgg_torch.train.losses import edge_losses, node_losses
@@ -343,7 +342,7 @@ def make_sgdet_train_step(detector, relmodel, config: Config,
     sampler's draws are the global batch's rows, the losses are the rank's
     shares, the gradients are summed over the ranks after the backward and
     the metrics (``nms_converged_frac`` over the global batch) are the
-    global values on every rank. A mesh with an edge axis raises.
+    global values on every rank.
     """
     dev = resolve_device(config.device)
     loss_weights = (config.alpha, config.beta, config.gamma)
@@ -351,7 +350,6 @@ def make_sgdet_train_step(detector, relmodel, config: Config,
 
     def train_step(batch: GraphBatch, generator: Optional[torch.Generator],
                    rels=None) -> Dict[str, torch.Tensor]:
-        refuse_edge_axis("the SGDet train step")
         batch = batch.to(dev)
         detector.eval()
         with torch.no_grad():

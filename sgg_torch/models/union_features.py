@@ -92,9 +92,7 @@ class BatchNorm(nn.BatchNorm2d):
             group = current()
             if group is not None:
                 # every rank holds as many rows: the global moments are
-                # the means of the ranks' over the world (on a data x edge
-                # mesh each rank's rows are its B / data images' E / edge
-                # edge slots, every edge of the batch on one rank)
+                # the means of the ranks' over the world
                 mean, sq = (all_reduce(torch.stack([mean, sq]))
                             / group.world).unbind()
             var = torch.clamp(sq - mean * mean, min=0.0)

@@ -1,6 +1,6 @@
 """Multi-process data parallelism (``torch.distributed``): the group, its
-host traffic and launcher (``distributed.py``), and the collectives, row
-placement and (data x edge) mesh of a data-parallel step (``mesh.py``)."""
+host traffic and launcher (``distributed.py``), and the collectives and
+row placement of a data-parallel step (``mesh.py``)."""
 
 from sgg_torch.parallel.distributed import (  # noqa: F401
     Group, all_agree, current, gather_rows, host_all_reduce, host_mean,
@@ -9,6 +9,5 @@ from sgg_torch.parallel.distributed import (  # noqa: F401
 )
 from sgg_torch.parallel.mesh import (  # noqa: F401
     GradReducer, all_reduce, all_reduce_metrics, all_reduce_scalars,
-    bits_equal_to_rank0, edge_all_reduce, edge_slots, global_rand,
-    make_mesh_2d, refuse_edge_axis, replicate, shard_batch_edges, shard_rows,
+    bits_equal_to_rank0, global_rand, replicate, shard_rows,
 )

@@ -43,15 +43,7 @@ DEFAULT_TIMEOUT_S = 600
 class Group:
     """One rank's view of the data-parallel job. ``group`` and ``host`` are
     ``torch.distributed`` process groups; both None in a stand-in that only
-    places rows (the global-shape draws need no collective).
-
-    The ranks form a ``(world / edge, edge)`` mesh, rank r at ``(r // edge,
-    r % edge)``: a data axis over the images and an edge axis over each
-    image's sampled edges (``parallel.make_mesh_2d``). A group of
-    ``init_group`` is the mesh ``(world, 1)``, without sub-groups;
-    ``edge_group`` (the ranks that hold this rank's images) and
-    ``data_group`` (the ranks that hold its edge slots) exist on a mesh of
-    ``make_mesh_2d``."""
+    places rows (the global-shape draws need no collective)."""
 
     rank: int
     world: int
@@ -60,24 +52,6 @@ class Group:
     host: Any = None
     backend: str = "gloo"
     timeout_s: float = DEFAULT_TIMEOUT_S
-    edge: int = 1
-    edge_group: Any = None
-    data_group: Any = None
-
-    @property
-    def data(self) -> int:
-        """The data axis's size."""
-        return self.world // self.edge
-
-    @property
-    def data_rank(self) -> int:
-        """This rank's coordinate on the data axis."""
-        return self.rank // self.edge
-
-    @property
-    def edge_rank(self) -> int:
-        """This rank's coordinate on the edge axis."""
-        return self.rank % self.edge
 
 
 _ACTIVE: List[Optional[Group]] = [None]

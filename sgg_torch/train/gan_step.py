@@ -47,8 +47,7 @@ from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.device import resolve_device
 from sgg_torch.models.gan import GANModel
 from sgg_torch.parallel import (GradReducer, all_reduce_metrics,
-                                all_reduce_scalars, current,
-                                refuse_edge_axis)
+                                all_reduce_scalars, current)
 from sgg_torch.train.assign import sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
 from sgg_torch.train.state import Adam, Optimizer
@@ -161,7 +160,6 @@ def make_gan_train_step(model, gan: GANModel, config: Config,
                          mark or (lambda phase: None), vis_features)
 
     def issue(batch, fake_classes, generator, edges, mark, vis_features):
-        refuse_edge_axis("the GAN step")
         with counters.span("step.F"):
             batch = batch.to(dev)
             fake = torch.as_tensor(fake_classes).to(dev, torch.long)

@@ -56,8 +56,7 @@ def edge_losses(rel_logits: torch.Tensor, rel_labels: torch.Tensor,
     ce = _masked_ce(rel_logits, rel_labels, rel_mask)
     is_fg = rel_mask & (rel_labels > 0)
     is_bg = rel_mask & (rel_labels == 0)
-    # over the world: on a (data x edge) mesh each rank holds its own edge
-    # slots, so the world sums count every edge of the batch once
+    # over the world: the global counts normalize every rank's share
     m_fg, m_bg, m = all_reduce_scalars(is_fg.sum().float(),
                                       is_bg.sum().float(),
                                       rel_mask.sum().float())
@@ -90,10 +89,6 @@ def node_losses(obj_logits: torch.Tensor, obj_labels: torch.Tensor,
     """Mean CE over valid objects (reference losses.py:73-74), as
     ``{"obj_loss" + sfx: scalar}``."""
     ce = _masked_ce(obj_logits, obj_labels, node_mask)
-    # over the world: on a (data x edge) mesh the ``edge`` ranks of an
-    # image hold its nodes alike, so the world sum is ``edge`` times the
-    # nodes' count and each such rank's share is 1/edge of the images'
-    # loss; their shares add up to the one-process loss (a sum over the
-    # edge group alone would count each image's nodes ``edge`` times)
+    # over the world: the global count normalizes every rank's share
     n = torch.clamp(all_reduce_scalars(node_mask.sum().float())[0], min=1.0)
     return {"obj_loss" + sfx: ce.sum() / n}

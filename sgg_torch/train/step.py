@@ -14,8 +14,7 @@ import torch
 from sgg_torch.config import Config
 from sgg_torch.data.graph_batch import GraphBatch
 from sgg_torch.device import resolve_device
-from sgg_torch.parallel.mesh import (GradReducer, all_reduce_metrics,
-                                     edge_slots)
+from sgg_torch.parallel.mesh import GradReducer, all_reduce_metrics
 from sgg_torch.train.assign import all_pairs, compact_pairs, sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
 from sgg_torch.train.state import Optimizer
@@ -51,10 +50,7 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
     the global ones, the gradients are summed over the ranks right after
     the backward (before the norms and the clip, which read global
     gradients, as the JAX step's), and the metrics are the global values
-    on every rank. On a (data x edge) mesh (``parallel.make_mesh_2d``,
-    the batch from ``shard_batch_edges``) the step samples (or takes, as
-    ``edges``) all ``E`` edges of its images, then keeps its edge
-    coordinate's ``E / edge`` slots of them and runs the model on those.
+    on every rank.
     """
     dev = resolve_device(config.device)
     loss_weights = (config.alpha, config.beta, config.gamma)
@@ -75,8 +71,6 @@ def make_train_step(model, config: Config, optimizer: Optimizer):
                     generator, batch.rels, batch.rel_mask, batch.node_mask,
                     max_out=min(batch.max_edges, config.rels_per_img))
             sampled, pair_mask = edges[0].to(dev, torch.long), edges[1].to(dev)
-            mine = edge_slots(sampled.shape[1])
-            sampled, pair_mask = sampled[:, mine], pair_mask[:, mine]
             pairs, rel_labels = sampled[..., :2], sampled[..., 2]
             optimizer.zero_grad()
             out = model(batch.images, batch.boxes, batch.classes, pairs,

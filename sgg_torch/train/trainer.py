@@ -39,11 +39,7 @@ evaluates through the data-parallel ``val_epoch``
 (``sgg_tpu/train/trainer.py``'s multi-host paths), in every mode: in mode
 sgdet each rank runs the frozen detector on its rows
 (``models/sgdet.py``), rank 0 extracts the detector trunk's cache and the
-SGDet evaluation keeps its batches whole on every rank. The (data x edge)
-mesh of ``parallel.make_mesh_2d`` trains through
-``train/step.py::make_train_step`` from the API (the JAX package has no
-flag for it either); the trainer, whose evaluation has no edge axis,
-refuses it.
+SGDet evaluation keeps its batches whole on every rank.
 """
 
 from __future__ import annotations
@@ -77,8 +73,7 @@ from sgg_torch.models.frequency_bias import (count_matrices,
 from sgg_torch.models.gan import GANModel, init_gan_weights
 from sgg_torch.models.relhead import RelModelIMP, init_weights
 from sgg_torch.models.sgdet import make_sgdet_train_step
-from sgg_torch.parallel import (Group, refuse_edge_axis, replicate,
-                                sync_processes, using)
+from sgg_torch.parallel import Group, replicate, sync_processes, using
 from sgg_torch.train import checkpoint as ckpt
 from sgg_torch.train.gan_step import (create_gan_optimizers,
                                       make_gan_train_step)
@@ -248,10 +243,7 @@ class Trainer:
 
     ``group``: the data-parallel group (``sgg_torch.parallel``; None for
     one process), in any mode; the trainer's loops run with it active.
-    ``config.num_devices`` N > 1 needs a group of N ranks. A mesh with an
-    edge axis (``parallel.make_mesh_2d(data, edge)``, edge > 1) raises a
-    ``ValueError``: it trains through ``train/step.py::make_train_step``,
-    and ``val_epoch`` has no edge axis.
+    ``config.num_devices`` N > 1 needs a group of N ranks.
     """
 
     def __init__(self, config: Config, splits: Dict[str, SGGDataset],
@@ -273,7 +265,6 @@ class Trainer:
         if group is not None and config.num_devices not in (0, group.world):
             raise ValueError(f"-ndev {config.num_devices} but the process "
                              f"group has {group.world} ranks")
-        refuse_edge_axis("Trainer", group)
         self.group = group
         self.config = config
         self.splits = splits

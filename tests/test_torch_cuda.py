@@ -1253,54 +1253,3 @@ def test_one_rank_nccl_step_is_the_no_group_step_bit_for_bit(dev, tmp_path):
         assert torch.equal(v.reshape(-1).view(torch.uint8),
                            sb[k].reshape(-1).view(torch.uint8)), k
     assert ka == kb == {"bf16": 4} and va == vb == {"bf16": 2}
-
-
-def test_one_rank_edge_mesh_step_is_the_no_group_step_bit_for_bit(dev,
-                                                                  tmp_path):
-    """A bf16 train step (dropout on, the sampler drawing) on the 1 x 1
-    mesh of ``make_mesh_2d`` over a 1-rank NCCL group (its edge group's
-    all-reduce of ``vert_ctx`` runs) and with no group, from the same
-    weights, under deterministic algorithms: the same bits, and the same
-    launches (2 K1 + 1 K2, bf16 routes)."""
-    import os
-
-    from sgg_torch import parallel
-    from sgg_torch.models.backbone import Dropout
-
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    runs = {}
-    group = parallel.init_group(f"file://{tmp_path}/store", 1, 0,
-                                torch.device("cuda", 0), "nccl",
-                                timeout_s=60)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        mesh = parallel.make_mesh_2d(1, 1)
-        assert mesh.edge_group is not None and mesh.backend == "nccl"
-        for name, g in (("mesh", mesh), ("none", None)):
-            model, step = _tiny_train(dev, torch.bfloat16)
-            for mod in model.modules():
-                if isinstance(mod, Dropout):
-                    mod.p = 0.5
-            gen = torch.Generator(device=dev).manual_seed(0)
-            troi.KERNEL.reset_counts()
-            vgg_stem.KERNEL.reset_counts()
-            with parallel.using(g):
-                batch = _train_batch()
-                if g is not None:
-                    batch = parallel.shard_batch_edges(batch, g)
-                metrics = step(batch, gen)
-            torch.cuda.synchronize()
-            runs[name] = (metrics, model.state_dict(),
-                          dict(troi.KERNEL.routes),
-                          dict(vgg_stem.KERNEL.routes))
-    finally:
-        torch.use_deterministic_algorithms(False)
-        parallel.shutdown()
-    (ma, sa, ka, va), (mb, sb, kb, vb) = runs["mesh"], runs["none"]
-    assert set(ma) == set(mb)
-    for k in ma:
-        assert torch.equal(ma[k], mb[k]), k
-    for k, v in sa.items():
-        assert torch.equal(v.reshape(-1).view(torch.uint8),
-                           sb[k].reshape(-1).view(torch.uint8)), k
-    assert ka == kb == {"bf16": 2} and va == vb == {"bf16": 1}

@@ -1,15 +1,24 @@
 """Data-parallel training and evaluation of the port (``sgg_torch.parallel``)
-on the CPU: 2 gloo ranks, spawned processes joined through a file store
-(``parallel.spawn``: each group is joined within ``JOIN_S`` and runs its
-collectives under a timeout), against the same work in this process with
-no group.
+on the CPU: 2 gloo ranks (and 4 for the train step), spawned processes
+joined through a file store (``parallel.spawn``: each group is joined
+within ``JOIN_S`` and runs its collectives under a timeout), against the
+same work in this process with no group.
 
 * the loader's shards, concatenated, are the unsharded batch;
-* the global-shape draws (``sample_edges``, ``Dropout``): a rank's rows are
-  the one-process rows;
+* the global-shape draws (``sample_edges``, ``Dropout``) over 2 and 4
+  ranks: a rank's rows are the one-process rows;
 * the losses' global normalizers on halves of unequal density, the synced
   BatchNorm and MaskedBatchNorm (output, input gradient, parameter
   gradients, running statistics) and the flat gradient all-reduce;
+* one sgcls dnorm train step (``make_train_step``: dropout on, the sampler
+  drawing, the frequency bias on) on 2 and on 4 ranks against one process
+  on the same batch, whose halves differ in density, and generator seed:
+  the losses within 1e-6 relative, the gradients before the clip within
+  1e-5 of the largest gradient, the updated state within 1e-5 of the
+  largest update; and on 2 ranks, four broken copies of the step (no
+  gradient sum, draws at the rank's own shape, per-rank loss counts,
+  the union BatchNorms' moments of the rank's rows) each miss one process by at least 10
+  times those limits;
 * ``Trainer.fit`` (sgcls, dnorm, dropout and the edge sampler on, the
   rank-0 feature cache, checkpoints and a resume) and a ``-gan -perturb
   graphn`` epoch on 2 ranks against 1, as ``tests/test_distributed.py``
@@ -40,7 +49,7 @@ import sgg_torch.constants
 from sgg_torch import parallel
 from sgg_torch.config import Config
 from sgg_torch.data.pipeline import BatchLoader
-from sgg_torch.data.synthetic import synthetic_splits
+from sgg_torch.data.synthetic import SyntheticSGGDataset, synthetic_splits
 from sgg_torch.models.backbone import Dropout
 from sgg_torch.models.gan import GANModel, init_gan_weights
 from sgg_torch.models.gan.graphconv import MaskedBatchNorm
@@ -48,6 +57,8 @@ from sgg_torch.models.relhead import RelModelIMP, init_weights
 from sgg_torch.models.union_features import BatchNorm
 from sgg_torch.train.assign import sample_edges
 from sgg_torch.train.losses import edge_losses, node_losses
+from sgg_torch.train.state import Optimizer
+from sgg_torch.train.step import make_train_step
 from sgg_torch.train.trainer import Trainer
 
 C, R = 9, 5
@@ -151,29 +162,32 @@ def _graph(seed=0, b=B):
     return next(iter(loader)).to("cpu")
 
 
-@pytest.mark.parametrize("rank", range(WORLD))
-def test_sample_edges_rank_rows_equal_one_process_rows(rank):
+RANKS = [(world, rank) for world in (2, 4) for rank in range(world)]
+
+
+@pytest.mark.parametrize("world,rank", RANKS)
+def test_sample_edges_rank_rows_equal_one_process_rows(world, rank):
     g = _graph()
     want = sample_edges(torch.Generator().manual_seed(4), g.rels,
                         g.rel_mask, g.node_mask, max_out=E)
-    mine = parallel.shard_rows(g, rank, WORLD)
-    with parallel.using(parallel.Group(rank, WORLD, torch.device("cpu"))):
+    mine = parallel.shard_rows(g, rank, world)
+    with parallel.using(parallel.Group(rank, world, torch.device("cpu"))):
         got = sample_edges(torch.Generator().manual_seed(4), mine.rels,
                            mine.rel_mask, mine.node_mask, max_out=E)
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, parallel.shard_rows(b, rank, WORLD),
+        torch.testing.assert_close(a, parallel.shard_rows(b, rank, world),
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("rank", range(WORLD))
-def test_dropout_rank_rows_equal_one_process_rows(rank):
+@pytest.mark.parametrize("world,rank", RANKS)
+def test_dropout_rank_rows_equal_one_process_rows(world, rank):
     x = torch.randn(B, 5, 32, generator=torch.Generator().manual_seed(1))
     drop = Dropout(0.5).train()
     want = drop(x, torch.Generator().manual_seed(2))
-    with parallel.using(parallel.Group(rank, WORLD, torch.device("cpu"))):
-        got = drop(parallel.shard_rows(x, rank, WORLD),
+    with parallel.using(parallel.Group(rank, world, torch.device("cpu"))):
+        got = drop(parallel.shard_rows(x, rank, world),
                    torch.Generator().manual_seed(2))
-    torch.testing.assert_close(got, parallel.shard_rows(want, rank, WORLD),
+    torch.testing.assert_close(got, parallel.shard_rows(want, rank, world),
                                rtol=0, atol=0)
 
 
@@ -356,6 +370,179 @@ def test_group_draws_replicate_and_host_mean(collectives):
         np.testing.assert_array_equal(res["replicated"],
                                       collectives[0]["replicated"])
         assert res["host_mean"] == 0.5
+
+
+# ---------------------------------------------------------------------------
+# the train step on 2 and 4 ranks, each world spawned once
+
+STEP_IMG = 64
+STEP_WORLDS = (2, 4)
+STEP_FAULTS = ("no_grad_sum", "local_draws", "local_counts", "local_bn")
+STEP_CFG_KW = dict(mode="sgcls", loss="dnorm", batch_size=B, max_nodes=N,
+                   max_edges=E, compute_dtype="float32", lr=5e-3, clip=0.05,
+                   steps=(0,), l2=1e-3)
+STEP_SEED = 7
+# the correct step's limits, as ratios: (loss rel err, gradient err over
+# the largest gradient, update err over the largest update)
+STEP_LIMITS = {"losses": 1e-6, "grads": 1e-5, "update": 1e-5}
+FAULT_GAP = 10  # a broken step misses one process by this many limits
+
+
+def _step_batch():
+    """A host batch whose first half is dense (6 to 8 objects, up to 30
+    relations an image) and second half sparse (2 objects, 1 relation):
+    the ranks' counts and BatchNorm moments differ from the batch's."""
+    def half(seed, **kw):
+        return SyntheticSGGDataset(
+            num_images=B // 2, num_classes=C, num_predicates=R,
+            image_size=STEP_IMG, with_images=True, seed=seed, **kw).batch(
+                list(range(B // 2)), max_nodes=N, max_edges=E)
+    dense = half(5, min_objects=6, max_objects=N)
+    sparse = half(6, min_objects=2, max_objects=2, max_rels=1)
+    return dataclasses.replace(dense, **{
+        f.name: np.concatenate([getattr(dense, f.name),
+                                getattr(sparse, f.name)])
+        for f in dataclasses.fields(dense)
+        if getattr(dense, f.name) is not None})
+
+
+def _broken(fault):
+    """The (owner, name, stand-in) bindings a broken copy of the step puts
+    in place of the collective named by ``fault``."""
+    from sgg_torch.models import backbone, union_features
+    from sgg_torch.train import assign, losses
+
+    def local_rand(shape, generator, device):
+        return torch.rand(tuple(shape), generator=generator, device=device)
+
+    return {
+        "no_grad_sum": [(parallel.GradReducer, "__call__",
+                         lambda self: None)],
+        "local_draws": [(backbone, "global_rand", local_rand),
+                        (assign, "global_rand", local_rand)],
+        "local_counts": [(losses, "all_reduce_scalars",
+                          lambda *counts, group=None: counts)],
+        # the sum of one rank's moments, which the BatchNorm's division
+        # by the world turns into that rank's own
+        "local_bn": [(union_features, "all_reduce",
+                      lambda x, group=None: x * parallel.world_size())],
+    }[fault]
+
+
+def run_train_step(group=None, fault=None):
+    """One ``make_train_step`` step of the tiny model on the group's rows
+    of ``_step_batch()`` (the whole batch with none): the metrics, the
+    gradients before the clip and the state before and after (the trunk
+    left out). ``fault`` names a broken copy of the step (``_broken``)."""
+    model = _model()
+    state = lambda: {k: v.numpy().copy()  # noqa: E731
+                     for k, v in model.state_dict().items()
+                     if not k.startswith("trunk.")}
+    before = state()
+    cfg = Config(device="cpu", **STEP_CFG_KW)
+    opt = Optimizer(cfg, model, steps_per_epoch=2)
+    step = make_train_step(model, cfg, opt)
+    grads = {}
+    apply = opt.apply_gradients
+
+    def apply_recorded():
+        grads.update({n: p.grad.numpy().copy()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+        return apply()
+
+    opt.apply_gradients = apply_recorded
+    batch = _step_batch()
+    if group is not None:
+        batch = parallel.shard_rows(batch, group.rank, group.world)
+    with pytest.MonkeyPatch.context() as mp, parallel.using(group):
+        for owner, name, stand_in in _broken(fault) if fault else ():
+            mp.setattr(owner, name, stand_in)
+        metrics = step(batch, torch.Generator().manual_seed(STEP_SEED))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads, "before": before, "after": state()}
+
+
+def worker_train_step(group, faults):
+    out = {"step": run_train_step(group)}
+    for fault in faults:
+        out[fault] = run_train_step(group, fault)
+    return out
+
+
+@pytest.fixture(scope="module")
+def step_ranks():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return {world: parallel.spawn(
+            worker_train_step, world, (STEP_FAULTS if world == 2 else (),),
+            device="cpu", timeout_s=JOIN_S) for world in STEP_WORLDS}
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def one_step():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return run_train_step()
+    finally:
+        torch.set_num_threads(n)
+
+
+def _step_gaps(got, want):
+    """How far a step ``got`` is from one process's ``want``, in multiples
+    of ``STEP_LIMITS``."""
+    before = want["before"]
+    keys = [k for k in want["after"] if "num_batches" not in k]
+    assert set(got["metrics"]) == set(want["metrics"])
+    assert set(got["grads"]) == set(want["grads"])
+    loss = max(abs(got["metrics"][k] - w) / max(abs(w), 1e-30)
+               for k, w in want["metrics"].items())
+    grad = (max(float(np.abs(got["grads"][k] - w).max())
+                for k, w in want["grads"].items())
+            / max(float(np.abs(w).max()) for w in want["grads"].values()))
+    update = (max(float(np.abs(got["after"][k] - want["after"][k]).max())
+                  for k in keys)
+              / max(float(np.abs(want["after"][k] - before[k]).max())
+                    for k in keys))
+    return {"losses": loss / STEP_LIMITS["losses"],
+            "grads": grad / STEP_LIMITS["grads"],
+            "update": update / STEP_LIMITS["update"]}
+
+
+@pytest.mark.parametrize("world", STEP_WORLDS)
+def test_train_step_on_ranks_matches_one_process(step_ranks, one_step,
+                                                 world):
+    for res in step_ranks[world]:
+        gaps = _step_gaps(res["step"], one_step)
+        assert max(gaps.values()) <= 1, gaps
+    assert one_step["metrics"]["grad_norm"] > STEP_CFG_KW["clip"]
+    # the union BatchNorms' running statistics moved, as one process's
+    for k in ("union_feats.bn1.running_mean", "union_feats.bn2.running_var"):
+        want = one_step["after"][k]
+        assert not np.allclose(want, one_step["before"][k])
+        for res in step_ranks[world]:
+            np.testing.assert_allclose(res["step"]["after"][k], want,
+                                       rtol=1e-5, atol=1e-7, err_msg=k)
+    # every rank holds the same state after the step
+    first = step_ranks[world][0]["step"]["after"]
+    for res in step_ranks[world][1:]:
+        for k, v in first.items():
+            np.testing.assert_array_equal(res["step"]["after"][k], v,
+                                          err_msg=k)
+
+
+@pytest.mark.parametrize("fault", STEP_FAULTS)
+def test_a_broken_data_parallel_step_differs_from_one_process(
+        step_ranks, one_step, fault):
+    for res in step_ranks[2]:
+        sound = _step_gaps(res["step"], one_step)
+        broken = _step_gaps(res[fault], one_step)
+        assert max(sound.values()) <= 1, sound
+        assert max(broken.values()) >= FAULT_GAP, broken
 
 
 # ---------------------------------------------------------------------------

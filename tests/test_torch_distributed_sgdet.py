@@ -4,8 +4,8 @@ collectives under a timeout) against the same work in this process with
 no group.
 
 * ``rel_assignments``' draws (the Gumbel noise, the FG-cap and the BG
-  uniforms), with a stand-in group: a rank's rows are the one-process
-  rows;
+  uniforms), with a stand-in group of 2 and of 4: a rank's rows are the
+  one-process rows;
 * one SGDet train step (dnorm, dropout on, the sampler drawing) behind a
   frozen ``FasterRCNNVGG`` and behind a frozen ``FasterRCNNFPN``, 2 images
   a rank against one process of 4: the losses within 1e-6 relative,
@@ -224,8 +224,9 @@ def update_err(got, want, before):
 
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("rank", range(WORLD))
-def test_rel_assignments_rank_rows_equal_one_process_rows(rank):
+@pytest.mark.parametrize("world,rank", [(world, rank) for world in (2, 4)
+                                        for rank in range(world)])
+def test_rel_assignments_rank_rows_equal_one_process_rows(world, rank):
     g = torch.Generator().manual_seed(0)
     det_boxes = torch.rand(B, N, 4, generator=g) * 60
     det_boxes[..., 2:] += det_boxes[..., :2] + 20
@@ -239,12 +240,12 @@ def test_rel_assignments_rank_rows_equal_one_process_rows(rank):
     det_labels[:, :gt[1].shape[1]] = gt[1].long()
     inputs = (det_boxes, det_labels, det_mask, *gt)
     want = rel_assignments(torch.Generator().manual_seed(4), *inputs)
-    mine = [parallel.shard_rows(x, rank, WORLD) for x in inputs]
-    with parallel.using(parallel.Group(rank, WORLD, torch.device("cpu"))):
+    mine = [parallel.shard_rows(x, rank, world) for x in inputs]
+    with parallel.using(parallel.Group(rank, world, torch.device("cpu"))):
         got = rel_assignments(torch.Generator().manual_seed(4), *mine)
     assert (want[0][..., 2][want[1]] > 0).any()  # FG pairs were drawn
     for a, b in zip(got, want):
-        torch.testing.assert_close(a, parallel.shard_rows(b, rank, WORLD),
+        torch.testing.assert_close(a, parallel.shard_rows(b, rank, world),
                                    rtol=0, atol=0)
 
 
