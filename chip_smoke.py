@@ -8,7 +8,7 @@ JAX. Phases, one or more lines each; any failure ends the run with a
 non-zero exit and without the result line:
 
 1. card facts: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the five CUDA kernels from the four sources in
+2. build the six CUDA kernels from the five sources in
    ``sgg_torch/csrc`` (one ``nvcc`` a source, in parallel);
 3. each kernel against its plain PyTorch version at the training path's
    shapes (batch 24: nodes R=40, unions R=256) and at the eval path's
@@ -19,7 +19,12 @@ non-zero exit and without the result line:
    at small shapes, same tolerances (K1 at channel counts and alignments
    that take its narrower vector widths and with a whole-map ROI; K2 in
    both types at a ragged size), and K1's plain version on the card
-   against the same call on the CPU (f32, 1e-6 abs);
+   against the same call on the CPU (f32, 1e-6 abs); then the frozen
+   trunk's conv epilogue at the outputs of the twelve cuDNN convs at the
+   training shape (batch 24, 592 px), bf16 and f32, the same bits as its
+   plain version, with ms a conv of the kernel, the plain version and
+   PyTorch's ``add_`` + ``relu`` + ``max_pool2d`` chain and the byte bound,
+   each timed over copies of the map that outgrow the L2;
 4. the eval slice at full width: ``val_epoch`` in mode sgcls (predcls +
    sgcls regimes) over a 64-image synthetic split with the VG-Stanford
    vocabulary, VGG16 on 592x592 canvases in bf16, seeded random weights;
@@ -569,6 +574,63 @@ def measure_kernels(torch, K1, K2, peaks, g, dev, B, n_nodes, n_unions):
     return rows
 
 
+def measure_epilogue(torch, peaks, dev, B: int = TRAIN_BATCH):
+    """The trunk's conv epilogue on the outputs of its twelve cuDNN convs
+    at batch ``B``, 592 px: in f32 and bf16 the plain version's bits (in
+    place without a pool, into the pooled map with one), then the bf16
+    route (the training path's) timed as the kernel, the plain version and
+    PyTorch's chain that the trunk ran before it (the bias ``add_``,
+    ``relu``, ``max_pool2d``), each over copies of the map that outgrow
+    the L2 (``past_l2``), beside the byte bound. Returns the row's numbers:
+    sums over the twelve and each conv's under ``by_conv``."""
+    from sgg_torch.models.backbone import POOL_AFTER, VGG16_CFG
+    from sgg_torch.ops import conv_epilogue as EP
+    from sgg_torch.tools.profile_trunk import layer_names
+    from sgg_torch.utils.profiling import past_l2
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(3)
+    side, shapes = CANVAS, []
+    for c, pool in zip([v for v in VGG16_CFG if v != "M"], POOL_AFTER):
+        shapes.append((side, c, pool))
+        side //= 2 if pool else 1
+    by_conv = {}
+    for name, (H, C, pool) in zip(layer_names()[1:], shapes[1:]):
+        for dtype in (torch.float32, torch.bfloat16):
+            y = torch.randn(B, H, H, C, generator=g, device=dev).to(dtype)
+            b = (torch.randn(C, generator=g, device=dev) * 0.5).to(dtype)
+            want = EP.conv_epilogue_reference(y, b, pool)
+            got = EP.conv_epilogue(y if pool else y.clone(), b, pool)
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"conv_epilogue {name} {dtype}: not the plain version's "
+                  f"bits")
+            del want, got
+        maps = past_l2(y)
+
+        def library():
+            x = maps().permute(0, 3, 1, 2)
+            x.add_(b.reshape(1, -1, 1, 1))
+            x = torch.relu(x)
+            return F.max_pool2d(x, 2, 2) if pool else x
+
+        n_out = B * (H // 2) ** 2 * C if pool else y.numel()
+        n_bytes = (y.numel() + n_out + C) * y.element_size()
+        by_conv[name] = dict(
+            ms=time_ms(lambda: EP.conv_epilogue(maps(), b, pool)),
+            plain_ms=time_ms(
+                lambda: EP.conv_epilogue_reference(maps(), b, pool)),
+            library_ms=time_ms(library),
+            bound_ms=bound_ms(n_bytes, 0, peaks, bf16=True)[0],
+            bytes=n_bytes, shape=f"bf16 {B}x{H}x{H}x{C}")
+        del y, maps, library
+        torch.cuda.empty_cache()
+    sums = {k: sum(m[k] for m in by_conv.values())
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")}
+    return dict(bits_equal=["float32", "bfloat16"], **sums,
+                bound_by="bytes", flops=0, by_conv=by_conv,
+                shape=f"bf16 B={B}, {CANVAS} px: the twelve cuDNN convs' "
+                      f"outputs (4 pooled), summed")
+
+
 def phase_kernels(torch, peaks):
     """Each kernel against its plain version at the training path's shapes
     (the rows of the ``kernels`` line) and at the eval path's (nested as
@@ -600,6 +662,17 @@ def phase_kernels(torch, peaks):
                   f"({m['bound_by']}), plain {m['plain_ms']:.4f} ms, library "
                   f"{m['library_ms']} ms [{m['shape']}]", flush=True)
     torch.cuda.empty_cache()
+    rows["conv_epilogue"] = dict(
+        name="conv_epilogue", route="cuda",
+        source="sgg_torch/csrc/conv_epilogue.cu", replaces=None,
+        **measure_epilogue(torch, peaks, dev))
+    for name, m in [*rows["conv_epilogue"]["by_conv"].items(),
+                    ("all twelve", rows["conv_epilogue"])]:
+        print(f"phase 3 conv_epilogue {name}: f32 and bf16 the plain "
+              f"version's bits; {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} "
+              f"ms (bytes, {100 * m['bound_ms'] / m['ms']:.1f}% of it), "
+              f"plain {m['plain_ms']:.4f} ms, library {m['library_ms']:.4f} "
+              f"ms [{m['shape']}]", flush=True)
     return rows
 
 
@@ -609,6 +682,7 @@ def phase_slice(torch, splits):
     12's on-device recall)."""
     from sgg_torch.config import Config
     from sgg_torch.eval.driver import val_epoch
+    from sgg_torch.ops import conv_epilogue as EP
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
     from sgg_torch.train.trainer import build_model
@@ -625,15 +699,17 @@ def phase_slice(torch, splits):
               device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.KERNEL.reset_counts()
-    K2.KERNEL.reset_counts()
+    for k in (K1.KERNEL, K2.KERNEL, EP.KERNEL):
+        k.reset_counts()
     res = val_epoch(model, test, config, "test_alls", verbose=False,
                     device="cuda")
     torch.cuda.synchronize()
     launches = {"roi_align": K1.KERNEL.launches,
-                "vgg_conv1": K2.KERNEL.launches}
+                "vgg_conv1": K2.KERNEL.launches,
+                "conv_epilogue": EP.KERNEL.launches}
     routes = {"roi_align": dict(K1.KERNEL.routes),
-              "vgg_conv1": dict(K2.KERNEL.routes)}
+              "vgg_conv1": dict(K2.KERNEL.routes),
+              "conv_epilogue": dict(EP.KERNEL.routes)}
     counters = res.get("_counters", {})
     n_batches = counters.get("eval_ladder_batches", 0)
     forwards = n_batches + counters.get("eval_dedup_fallback", 0)
@@ -641,8 +717,10 @@ def phase_slice(torch, splits):
     print(f"phase 4 counters {json.dumps(counters)}; launches "
           f"{json.dumps(launches)} by route {json.dumps(routes)}; forwards "
           f"{forwards}", flush=True)
-    check(all(set(r) == {"bf16"} for r in routes.values()),
-          f"eval launched a route other than bf16: {routes}")
+    check(set(routes["roi_align"]) == set(routes["vgg_conv1"]) == {"bf16"}
+          and routes["conv_epilogue"] == trunk_routes(forwards),
+          f"eval launched a route other than bf16, or not 12 epilogues a "
+          f"forward: {routes}")
     check(n_batches == expect_batches,
           f"{n_batches} eval batches, expected {expect_batches}")
     check(launches["vgg_conv1"] > 0 and launches["vgg_conv1"] == forwards,
@@ -709,6 +787,7 @@ def phase_train(torch, splits):
     from sgg_torch import constants
     from sgg_torch.config import Config
     from sgg_torch.data.pipeline import BatchLoader, device_prefetch
+    from sgg_torch.ops import conv_epilogue as EP
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
     from sgg_torch.train.state import Optimizer
@@ -737,13 +816,15 @@ def phase_train(torch, splits):
                        and "num_batches" not in n)
 
     def counted(fn):
-        K1.KERNEL.reset_counts()
-        K2.KERNEL.reset_counts()
+        for k in (K1.KERNEL, K2.KERNEL, EP.KERNEL):
+            k.reset_counts()
         out = fn()
         torch.cuda.synchronize()
-        n = {"roi_align": K1.KERNEL.launches, "vgg_conv1": K2.KERNEL.launches}
+        n = {"roi_align": K1.KERNEL.launches, "vgg_conv1": K2.KERNEL.launches,
+             "conv_epilogue": EP.KERNEL.launches}
         routes = {"roi_align": dict(K1.KERNEL.routes),
-                  "vgg_conv1": dict(K2.KERNEL.routes)}
+                  "vgg_conv1": dict(K2.KERNEL.routes),
+                  "conv_epilogue": dict(EP.KERNEL.routes)}
         return out, n, routes
 
     trainer.train_epoch(0)  # warm-up: first launches, cuDNN/cuBLAS set-up
@@ -758,10 +839,13 @@ def phase_train(torch, splits):
           f"{json.dumps(n_epoch)} by route {json.dumps(routes)}", flush=True)
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite epoch losses {losses}")
-    check(n_epoch == {"roi_align": 2 * steps, "vgg_conv1": steps},
-          f"{steps} train steps launched {n_epoch} (want 2 K1 + 1 K2 a step)")
+    check(n_epoch == {"roi_align": 2 * steps, "vgg_conv1": steps,
+                      "conv_epilogue": 12 * steps},
+          f"{steps} train steps launched {n_epoch} (want 2 K1 + 1 K2 + 12 "
+          f"epilogues a step)")
     check(routes == {"roi_align": {"bf16": 2 * steps},
-                     "vgg_conv1": {"bf16": steps}},
+                     "vgg_conv1": {"bf16": steps},
+                     "conv_epilogue": trunk_routes(steps)},
           f"train steps took routes {routes}, want bf16 only")
 
     # the host's share: batch assembly alone, then one batch's copy, for
@@ -833,9 +917,10 @@ def phase_train(torch, splits):
           flush=True)
     check(all(map(math.isfinite, totals)), f"non-finite losses {totals}")
     check(totals[-1] < totals[0], f"loss did not fall: {totals}")
-    check(n_fit == {"roi_align": 20, "vgg_conv1": 10}
+    check(n_fit == {"roi_align": 20, "vgg_conv1": 10, "conv_epilogue": 120}
           and routes_fit == {"roi_align": {"bf16": 20},
-                             "vgg_conv1": {"bf16": 10}},
+                             "vgg_conv1": {"bf16": 10},
+                             "conv_epilogue": trunk_routes(10)},
           f"overfit launches {n_fit} by route {routes_fit}")
     print(f"phase 5 peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -1064,6 +1149,13 @@ def _on_card(torch, det, dtype):
         dtype).cuda().eval()
 
 
+def trunk_routes(forwards: int, dtype: str = "bf16"):
+    """The conv epilogue's launches by route in ``forwards`` frozen trunk
+    forwards: 4 with a pool and 8 without, each."""
+    return ({f"{dtype}-pool": 4 * forwards, f"{dtype}-nopool": 8 * forwards}
+            if forwards else {})
+
+
 NO_BACKWARD = {"roi_align_bwd_fmap": 0, "roi_align_bwd_boxes": 0,
                "vgg_conv1_bwd": 0}
 
@@ -1071,14 +1163,20 @@ NO_BACKWARD = {"roi_align_bwd_fmap": 0, "roi_align_bwd_boxes": 0,
 def _counted(torch, fn):
     """``fn()`` with every kernel's count zeroed before and read after; a
     plain version (forward or backward) called on a card tensor meanwhile
-    fails the run. Returns (out, launches, launches by route), by kernel."""
+    fails the run. Returns (out, launches, launches by route), by kernel.
+
+    Every trunk forward launches K2 once, and a frozen one the conv
+    epilogue 4 times with a pool and 8 without (``trunk_routes``); the
+    epilogue's launches must be that for at most K2's launches."""
+    from sgg_torch.ops import conv_epilogue as EP
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
     plain = [(K1, "roi_align_reference"),
              (K1, "roi_align_backward_reference"),
              (K1, "roi_align_boxes_grad_reference"),
              (K2, "vgg_conv1_reference"),
-             (K2, "vgg_conv1_backward_reference")]
+             (K2, "vgg_conv1_backward_reference"),
+             (EP, "conv_epilogue_reference")]
     saved = [getattr(mod, name) for mod, name in plain]
     on_card = []
 
@@ -1101,6 +1199,13 @@ def _counted(torch, fn):
         for (mod, name), f in zip(plain, saved):
             setattr(mod, name, f)
     check(not on_card, f"plain versions ran on the card: {on_card[:3]}")
+    epi = dict(ks["conv_epilogue"].routes)
+    fused = {d: epi.get(f"{d}-pool", 0) // 4 for d in ("bf16", "f32")}
+    check(epi == {**trunk_routes(fused["bf16"]),
+                  **trunk_routes(fused["f32"], "f32")}
+          and sum(fused.values()) <= ks["vgg_conv1"].launches,
+          f"the conv epilogue launched {epi} by route for "
+          f"{ks['vgg_conv1'].launches} trunk forwards (K2's launches)")
     return out, {n: k.launches for n, k in ks.items()}, {
         n: dict(k.routes) for n, k in ks.items()}
 
@@ -1170,10 +1275,13 @@ def sgdet_eval_cli(torch, det, ckdir):
     check(len(recalls) == 6 and all(math.isfinite(v)
                                     for v in recalls.values()),
           f"recalls missing or not finite: {recalls}")
-    check(all(set(r) <= {"bf16"} for r in routes.values()),
+    check(all(set(r) <= {"bf16"} for k, r in routes.items()
+              if k != "conv_epilogue")
+          and routes["conv_epilogue"] == trunk_routes(batches + redetect),
           f"sgdet eval launched a route other than bf16: {routes}")
     want = {"vgg_conv1": batches + redetect,
-            "roi_align": batches + redetect + 2 * batches, **NO_BACKWARD}
+            "roi_align": batches + redetect + 2 * batches, **NO_BACKWARD,
+            "conv_epilogue": 12 * (batches + redetect)}
     check(n == want, f"sgdet eval launched {n}; {batches} batches with "
                      f"{redetect} re-detections want {want}")
     return n
@@ -1466,10 +1574,11 @@ def sgdet_train(torch, det_cpu):
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite losses {losses}")
     check(n_epoch == {"roi_align": 3 * steps, "vgg_conv1": steps,
-                      **NO_BACKWARD}
+                      **NO_BACKWARD, "conv_epilogue": 12 * steps}
           and routes == {"roi_align": {"bf16": 3 * steps},
                          "vgg_conv1": {"bf16": steps},
-                         **{k: {} for k in NO_BACKWARD}},
+                         **{k: {} for k in NO_BACKWARD},
+                         "conv_epilogue": trunk_routes(steps)},
           f"sgdet train launched {n_epoch} by route {routes} (want 3 K1 + "
           f"1 K2 a step, bf16)")
     batch = next(iter(BatchLoader(splits["train"],
@@ -1643,10 +1752,13 @@ def pretrain_run(torch, splits, ckdir):
           "master weights are not float32")
     check(moved == sizes, f"parameters that did not move: {moved} of "
                           f"{sizes}")
-    want = {k: {ROUTES_BF16.get(k, "bf16"): steps} for k in n}
-    check(n == {k: steps for k in n} and routes == want,
+    # the trunk trains: autograd's chain, no conv epilogue
+    once = {k: steps for k in n if k != "conv_epilogue"}
+    want = {k: {ROUTES_BF16.get(k, "bf16"): steps} for k in once}
+    check(n == {**once, "conv_epilogue": 0}
+          and routes == {**want, "conv_epilogue": {}},
           f"pretraining launched {n} by route {routes}; want every kernel "
-          f"once a step, on the routes {want}")
+          f"but the conv epilogue once a step, on the routes {want}")
     return det, n
 
 
@@ -2353,7 +2465,8 @@ FPN_LEVELS = (("p2", 4), ("p3", 8), ("p4", 16), ("p5", 32))
 # a step's launches of each kernel on the FPN paths: multiscale_roi_align
 # pools P2-P5 (4 K1 launches) and its backward takes both gradients there
 FPN_STEP = {"roi_align": 4, "roi_align_bwd_fmap": 4,
-            "roi_align_bwd_boxes": 4, "vgg_conv1": 0, "vgg_conv1_bwd": 0}
+            "roi_align_bwd_boxes": 4, "vgg_conv1": 0, "vgg_conv1_bwd": 0,
+            "conv_epilogue": 0}
 FPN_ROUTES = {"roi_align": "bf16", "roi_align_bwd_fmap": "bf16-mma",
               "roi_align_bwd_boxes": "bf16"}
 
@@ -2833,7 +2946,8 @@ def fpn_relation(torch, splits):
     check(all(math.isfinite(v) for v in losses.values()),
           f"non-finite resnet50 losses {losses}")
     check(not changed, f"the resnet50 trunk changed: {changed[:5]}")
-    want = {"roi_align": 2 * steps, "vgg_conv1": 0, **NO_BACKWARD}
+    want = {"roi_align": 2 * steps, "vgg_conv1": 0, **NO_BACKWARD,
+            "conv_epilogue": 0}
     check(n_epoch == want and routes["roi_align"] == {"bf16": 2 * steps},
           f"resnet50 train launched {n_epoch} by route {routes}; want "
           f"{want}, bf16")
@@ -2852,7 +2966,7 @@ def fpn_relation(torch, splits):
     check(recalls and all(math.isfinite(v) for v in recalls.values()),
           "resnet50 recalls missing or not finite")
     check(n_eval == {"roi_align": 2 * forwards, "vgg_conv1": 0,
-                     **NO_BACKWARD} and forwards > 0,
+                     **NO_BACKWARD, "conv_epilogue": 0} and forwards > 0,
           f"resnet50 eval launched {n_eval} for {forwards} forwards")
     del trainer, model, batch
     torch.cuda.empty_cache()
@@ -2934,7 +3048,8 @@ def fpn_sgdet(torch, ckdir):
           f"{json.dumps(n_step)} by route {json.dumps(routes)}", flush=True)
     check(all(math.isfinite(v) for v in metrics.values()),
           f"non-finite FPN sgdet metrics {metrics}")
-    check(n_step == {"roi_align": 6, "vgg_conv1": 0, **NO_BACKWARD}
+    check(n_step == {"roi_align": 6, "vgg_conv1": 0, **NO_BACKWARD,
+                     "conv_epilogue": 0}
           and routes["roi_align"] == {"bf16": 6},
           f"FPN sgdet train step launched {n_step} by route {routes}")
     del trainer, batch
@@ -2996,7 +3111,7 @@ def fpn_sgdet_scaled(torch, argv):
     check(recalls and all(math.isfinite(v) for v in recalls.values()),
           f"recalls missing or not finite: {recalls}")
     want = {"roi_align": 4 * (batches + redetect) + 2 * batches,
-            "vgg_conv1": 0, **NO_BACKWARD}
+            "vgg_conv1": 0, **NO_BACKWARD, "conv_epilogue": 0}
     check(n == want and set(routes["roi_align"]) == {"bf16"},
           f"FPN sgdet eval launched {n} by route {routes}; {batches} "
           f"batches with {redetect} re-detections want {want}")
@@ -3042,7 +3157,8 @@ def raw_boxes_paths(torch, splits):
           f"{json.dumps(n_train)} by route {json.dumps(r_train)}; eval "
           f"forward of 16 images finite: {finite}, launches "
           f"{json.dumps(n_eval)} by route {json.dumps(r_eval)}", flush=True)
-    want = {"roi_align": 2, "vgg_conv1": 1, **NO_BACKWARD}
+    want = {"roi_align": 2, "vgg_conv1": 1, **NO_BACKWARD,
+            "conv_epilogue": 12}
     check(all(math.isfinite(v) for v in metrics.values()) and finite,
           f"raw_boxes: non-finite outputs {metrics}")
     check(n_train == want and n_eval == want,
@@ -3194,7 +3310,8 @@ def imported_sgdet_cli(torch, ckdir, tmp):
     check(recalls and all(math.isfinite(v) for v in recalls.values()),
           f"recalls missing or not finite: {recalls}")
     want = {"vgg_conv1": batches + redetect,
-            "roi_align": batches + redetect + 2 * batches, **NO_BACKWARD}
+            "roi_align": batches + redetect + 2 * batches, **NO_BACKWARD,
+            "conv_epilogue": 12 * (batches + redetect)}
     check(n == want and n["roi_align"] > 0 and n["vgg_conv1"] > 0,
           f"imported sgdet eval launched {n}; {batches} batches with "
           f"{redetect} re-detections want {want}")
@@ -3443,7 +3560,7 @@ GAN_ARGV = ["-m", "sgcls", "-loss", "dnorm", "-b", str(TRAIN_BATCH), "-gan",
 GAN_ROUTES = {"roi_align": {"bf16": 2, "f32": 4},
               "roi_align_bwd_fmap": {"f32-staged": 2},
               "roi_align_bwd_boxes": {}, "vgg_conv1": {"bf16": 1},
-              "vgg_conv1_bwd": {}}
+              "vgg_conv1_bwd": {}, "conv_epilogue": trunk_routes(1)}
 GAN_KEYS = ("obj_loss", "rel_loss", "grad_norm", "G_obj", "G_rel", "G_fmap",
             "obj_loss_rec", "rel_loss_rec", "D_obj", "D_rel", "D_fmap",
             "grad_norm_G", "grad_norm_D", "total")
@@ -3872,7 +3989,7 @@ VIS_ROUTES = GAN_ROUTES
 # an extraction batch: K2 once and K1 twice (nodes and unions), bf16
 EXTRACT_ROUTES = {"roi_align": {"bf16": 2}, "roi_align_bwd_fmap": {},
                   "roi_align_bwd_boxes": {}, "vgg_conv1": {"bf16": 1},
-                  "vgg_conv1_bwd": {}}
+                  "vgg_conv1_bwd": {}, "conv_epilogue": trunk_routes(1)}
 
 
 def vis_extract(torch, splits):
@@ -4277,10 +4394,12 @@ DP_JOIN_S = 240
 DP_LOSS_LIMIT, DP_UPDATE_LIMIT, DP_GAN_LIMIT = 1e-5, 1e-5, 2e-4
 # an sgcls step in f32: K2 once, K1 twice; a GAN step in f32 adds four K1
 # launches on the fake map and K1-bwd-fmap twice
-DP_ROUTES = {"roi_align": {"f32": 2}, "vgg_conv1": {"f32": 1}}
+DP_ROUTES = {"roi_align": {"f32": 2}, "vgg_conv1": {"f32": 1},
+             "conv_epilogue": trunk_routes(1, "f32")}
 DP_GAN_ROUTES = {"roi_align": {"f32": 6},
                  "roi_align_bwd_fmap": {"f32-staged": 2},
-                 "vgg_conv1": {"f32": 1}}
+                 "vgg_conv1": {"f32": 1},
+                 "conv_epilogue": trunk_routes(1, "f32")}
 
 
 def _state(trainer):
@@ -4374,7 +4493,8 @@ def dp_one_rank(torch, splits, train_rate):
               "val_epoch metrics differ under the group")
         check(a["n"] == b["n"] == {**{k: 0 for k in a["n"]},
                                    "roi_align": 2 * steps,
-                                   "vgg_conv1": steps}
+                                   "vgg_conv1": steps,
+                                   "conv_epilogue": 12 * steps}
               and a["routes"]["roi_align"] == {"bf16": 2 * steps}
               and a["routes"]["vgg_conv1"] == {"bf16": steps},
               f"{steps} steps launched {a['n']} by route {a['routes']}")
@@ -4586,7 +4706,8 @@ SGDET_DP_STEPS = 2
 MESH_LOSS_LIMIT = 1e-6
 # a step a rank in f32: SGDet's K1 on the detector's RoIs, the nodes and
 # the unions, K2 once
-SGDET_ROUTES = {"roi_align": {"f32": 3}, "vgg_conv1": {"f32": 1}}
+SGDET_ROUTES = {"roi_align": {"f32": 3}, "vgg_conv1": {"f32": 1},
+                "conv_epilogue": trunk_routes(1, "f32")}
 
 
 def _sgdet_config(**kw):
@@ -4646,7 +4767,8 @@ def sgdet_one_rank(torch):
               f"losses differ: {a['losses']} vs {b['losses']}")
         check(not differ, f"state differs in bits: {differ[:5]}")
         check(a["n"] == b["n"] == {"roi_align": 3 * steps,
-                                   "vgg_conv1": steps, **NO_BACKWARD}
+                                   "vgg_conv1": steps, **NO_BACKWARD,
+                                   "conv_epilogue": 12 * steps}
               and a["routes"]["roi_align"] == {"bf16": 3 * steps}
               and a["routes"]["vgg_conv1"] == {"bf16": steps},
               f"{steps} steps launched {a['n']} by route {a['routes']}")

@@ -8,7 +8,9 @@ classifier (``rel_model_base.py:110-111``, ``load_vgg`` ``:310-321``).
 
 The trunk's first conv is the CUDA kernel K2 (``ops/vgg_stem.py``); it
 returns channels-last activations, which the other twelve convs (cuDNN)
-keep, so the trunk's NHWC output needs no copy.
+keep, so the trunk's NHWC output needs no copy. A frozen trunk follows
+each of those convs with one hand-written pass for its bias, ReLU and
+pool (``ops/conv_epilogue.py``).
 
 Mixed precision follows flax's ``dtype=`` layers: the modules keep
 float32 weights and compute in their ``compute_dtype``, casting input,
@@ -19,12 +21,13 @@ stored in the compute type itself, which is the same as casting at use.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sgg_torch.ops.conv_epilogue import conv_epilogue
 from sgg_torch.ops.vgg_stem import vgg_conv1
 from sgg_torch.parallel.mesh import global_rand
 
@@ -89,13 +92,26 @@ def normalize_images(x: torch.Tensor) -> torch.Tensor:
 # (the final 'M' of VGG16 is removed, rel_model_base.py:312).
 VGG16_CFG: Sequence[Any] = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
                             512, 512, 512, "M", 512, 512, 512)
+# for each conv of the plan, whether a 2x2 max-pool follows it
+POOL_AFTER: Tuple[bool, ...] = tuple(
+    nxt == "M" for v, nxt in zip(VGG16_CFG, (*VGG16_CFG[1:], None))
+    if v != "M")
 
 
 class VGG16Trunk(nn.Module):
     """VGG16 conv trunk: (B, H, W, 3) -> (B, H/16, W/16, 512), NHWC,
     computed in ``compute_dtype`` (weights and biases cast at use, so a
     trunk that trains keeps float32 master weights; the stem, K2, rounds
-    its weights itself)."""
+    its weights itself).
+
+    Where autograd records nothing (grad mode off, or no gradient asked of
+    the images or any weight or bias: the frozen trunk), each of the twelve
+    cuDNN convs runs without its bias and one pass follows it
+    (``ops/conv_epilogue.py``): bias and ReLU in place, or bias, ReLU and
+    the 2x2 max-pool before a pool; the bias is added in float32 and the
+    sum narrowed once to the map's type. A trunk that trains keeps
+    ``relu(conv2d(x, w, b))`` and ``max_pool2d``.
+    """
 
     def __init__(self):
         super().__init__()
@@ -109,20 +125,23 @@ class VGG16Trunk(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype
+        autograd = torch.is_grad_enabled() and (
+            images.requires_grad
+            or any(p.requires_grad for p in self.parameters()))
         x = normalize_images(images).to(dtype).contiguous()
         stem = self.conv[0]
         # K2: NHWC in, NHWC out; viewed as NCHW it is channels-last memory
         x = vgg_conv1(x, stem.weight.permute(2, 3, 1, 0), stem.bias)
         x = x.permute(0, 3, 1, 2)
-        i = 1
-        for v in VGG16_CFG[1:]:
-            if v == "M":
-                x = F.max_pool2d(x, 2, 2)
+        for conv, pool in zip(list(self.conv)[1:], POOL_AFTER[1:]):
+            w = conv.weight.to(dtype)
+            if autograd:
+                x = F.relu(F.conv2d(x, w, conv.bias.to(dtype), padding=1))
+                if pool:
+                    x = F.max_pool2d(x, 2, 2)
             else:
-                conv = self.conv[i]
-                x = F.relu(F.conv2d(x, conv.weight.to(dtype),
-                                    conv.bias.to(dtype), padding=1))
-                i += 1
+                y = F.conv2d(x, w, None, padding=1).permute(0, 2, 3, 1)
+                x = conv_epilogue(y, conv.bias, pool).permute(0, 3, 1, 2)
         return x.permute(0, 2, 3, 1).contiguous()
 
 

@@ -6,10 +6,17 @@ whether another conv1_1 moves it.
 
 Counterpart of ``tools/profile_trunk.py``, on the card in bf16:
 
-1. ms, TF/s and MFU of each layer of the port's trunk (normalize, the
-   thirteen convs with their ReLUs, the four max-pools), each timed
-   directly on its own input (eager PyTorch runs layer by layer, so XLA's
-   cumulative-prefix differences are not needed); ``--quick`` skips it;
+1. ms, TF/s and MFU of each layer of the port's trunk as a frozen trunk
+   runs it (normalize, conv1_1 = K2, then the twelve bias-less cuDNN
+   convs, each with its epilogue pass: bias and ReLU, and the max-pool
+   where one follows), each timed directly on its own input (eager
+   PyTorch runs layer by layer, so XLA's cumulative-prefix differences
+   are not needed); then, on each of those twelve convs' outputs, the
+   epilogue alone three ways: the kernel (``epilogue <conv>``), its plain
+   version (``plain <conv>``) and PyTorch's chain that the trunk ran
+   before it, ``add_`` of the bias, ``relu`` and ``max_pool2d``
+   (``library <conv>``), with each one's byte bound; ``--quick`` skips
+   it;
 2. the whole trunk at a third, one and two times ``--batch`` (8, 24
    and 48);
 3. conv1_1 variants as whole-trunk replacements, each against the
@@ -28,8 +35,11 @@ Counterpart of ``tools/profile_trunk.py``, on the card in bf16:
 is accepted for the CPU tests' sake and changes nothing (the trunk has
 no narrow form). The last line is the JSON object of
 ``StageProfiler.line`` (stages: ``baseline``, ``layer <name>``, ``batch
-B=<n>``, ``variant <name>``, ``layout <conv> <layout>``), with each
-variant's error against the baseline.
+B=<n>``, ``variant <name>``, ``layout <conv> <layout>``, ``epilogue
+<conv>``, ``plain <conv>``, ``library <conv>``), with each variant's
+error against the baseline and each epilogue's bytes
+(``epilogue_bytes``: the conv's output read once, the epilogue's output
+written once) and its bound on the card (``epilogue_bound_ms``).
 """
 
 from __future__ import annotations
@@ -42,13 +52,15 @@ import torch.nn.functional as F
 
 from sgg_torch.device import resolve_device
 from sgg_torch.models.backbone import (IMAGENET_MEAN, IMAGENET_STD,
-                                       VGG16_CFG, VGG16Trunk,
+                                       POOL_AFTER, VGG16_CFG, VGG16Trunk,
                                        normalize_images)
 from sgg_torch.models.relhead import init_weights
 from sgg_torch.models.resnet import set_compute_dtype
+from sgg_torch.ops.conv_epilogue import (conv_epilogue,
+                                         conv_epilogue_reference)
 from sgg_torch.ops.vgg_stem import vgg_conv1
 from sgg_torch.tools import _common
-from sgg_torch.utils.profiling import StageProfiler
+from sgg_torch.utils.profiling import StageProfiler, past_l2
 
 BF16 = torch.bfloat16
 VARIANTS = ("channel_pad8", "im2col", "im2col_manual", "fold_norm", "cudnn")
@@ -62,10 +74,12 @@ def batch_sweep(batch: int) -> Tuple[int, int, int]:
 
 
 def layer_names() -> List[str]:
+    """conv1_1, then each cuDNN conv, named with the pool its epilogue
+    takes: ``conv1_2 (64) + pool1``."""
     names, block, k = [], 1, 1
     for v in VGG16_CFG:
         if v == "M":
-            names.append(f"pool{block}")
+            names[-1] += f" + pool{block}"
             block, k = block + 1, 1
         else:
             names.append(f"conv{block}_{k} ({v})")
@@ -78,24 +92,40 @@ def _stem_args(trunk: VGG16Trunk):
     return stem.weight.permute(2, 3, 1, 0), stem.bias
 
 
+def _convs(trunk: VGG16Trunk) -> List[Tuple[torch.nn.Conv2d, bool]]:
+    """The twelve cuDNN convs, each with whether a pool follows it."""
+    return list(zip(list(trunk.conv)[1:], POOL_AFTER[1:]))
+
+
+def _bare_conv(conv: torch.nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` without its bias on an NCHW view of channels-last memory:
+    its NHWC output."""
+    return F.conv2d(x, conv.weight, None, padding=1).permute(0, 2, 3, 1)
+
+
+def _library(y: torch.Tensor, b: torch.Tensor, pool: bool) -> torch.Tensor:
+    """PyTorch's chain after cuDNN's conv on the NHWC output ``y``, as the
+    trunk ran it before the epilogue: the bias ``add_`` that
+    ``F.conv2d`` issues after cuDNN's kernel, ``relu``, ``max_pool2d``."""
+    x = y.permute(0, 3, 1, 2)
+    x.add_(b.to(x.dtype).reshape(1, -1, 1, 1))
+    x = F.relu(x)
+    return F.max_pool2d(x, 2, 2) if pool else x
+
+
 def layers(trunk: VGG16Trunk) -> List[Tuple[str, Callable]]:
-    """The trunk as its layers, in order: ``normalize`` then one callable
-    a ``VGG16_CFG`` entry, each mapping the previous one's output (NCHW
+    """The trunk as its layers, in order, as ``VGG16Trunk.forward`` runs a
+    frozen trunk: ``normalize``, conv1_1 (K2), then each bias-less cuDNN
+    conv with its epilogue; each maps the previous one's output (NCHW
     views of channels-last memory after conv1_1) to its own."""
     w, b = _stem_args(trunk)
     out = [("normalize",
             lambda x: normalize_images(x).to(BF16).contiguous())]
     names = layer_names()
     out.append((names[0], lambda x: vgg_conv1(x, w, b).permute(0, 3, 1, 2)))
-    i = 1
-    for name, v in zip(names[1:], VGG16_CFG[1:]):
-        if v == "M":
-            out.append((name, lambda x: F.max_pool2d(x, 2, 2)))
-        else:
-            conv = trunk.conv[i]
-            out.append((name, lambda x, c=conv: F.relu(F.conv2d(
-                x, c.weight, c.bias, padding=1))))
-            i += 1
+    for name, (conv, pool) in zip(names[1:], _convs(trunk)):
+        out.append((name, lambda x, c=conv, p=pool: conv_epilogue(
+            _bare_conv(c, x), c.bias, p).permute(0, 3, 1, 2)))
     return out
 
 
@@ -203,12 +233,45 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       f"{errors[name]:.4g}", flush=True)
                 del got
             layout_sweep(prof, trunk, x, args)
+        bytes_, bound = {}, {}
         if not args.quick:
             h = x
             for name, fn in layers(trunk):
                 h = prof.stage(f"layer {name}", lambda: fn(h))
+            bytes_, bound = epilogues(prof, trunk, x)
     return prof.line(sizes=vars(args), dtype="bfloat16",
-                     variant_rel_err=errors)
+                     variant_rel_err=errors, epilogue_bytes=bytes_,
+                     epilogue_bound_ms=bound)
+
+
+def epilogues(prof, trunk, x) -> Tuple[Dict, Dict]:
+    """On each cuDNN conv's bias-less output, the epilogue as the kernel,
+    its plain version and PyTorch's chain (all three update or read that
+    output in place, so each call sees the last one's map: the bytes are
+    the same), each call on the next of copies that together outgrow the
+    card's L2 (``past_l2``: a small map is read from HBM, as in the trunk);
+    returns each conv's bytes and its bound in ms on the card (None on the
+    CPU)."""
+    bytes_, bound = {}, {}
+    (_, norm), (_, stem) = layers(trunk)[:2]
+    h = stem(norm(x))
+    for name, (conv, pool) in zip(layer_names()[1:], _convs(trunk)):
+        y = _bare_conv(conv, h)
+        B, H, W, C = y.shape
+        written = B * (H // 2) * (W // 2) * C if pool else y.numel()
+        bytes_[name] = (y.numel() + written) * y.element_size()
+        bound[name] = (bytes_[name] / prof.peaks[0] * 1e3
+                       if prof.peaks else None)
+        maps = past_l2(y)
+        for kind, fn in (("epilogue", conv_epilogue),
+                         ("plain", conv_epilogue_reference),
+                         ("library", _library)):
+            prof.stage(f"{kind} {name}",
+                       lambda f=fn: f(maps(), conv.bias, pool), flops=False)
+        h = conv_epilogue(_bare_conv(conv, h), conv.bias,
+                          pool).permute(0, 3, 1, 2)
+        del y, maps
+    return bytes_, bound
 
 
 def layout_sweep(prof, trunk, x, args) -> None:

@@ -12,9 +12,11 @@ and each tool's JSON line.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import json
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -177,6 +179,20 @@ def count_flops(fn) -> Tuple[object, int]:
     return out, mode.get_total_flops() - tally.excluded + tally.kernels
 
 
+def past_l2(t: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """A callable that returns ``t`` and copies of it in turn, enough that
+    four times the card's L2 cache is read between two returns of one
+    copy: a pass timed over them reads its input from HBM, where a pass
+    repeated on one map that fits in L2 would read it from L2. Returns
+    ``t`` alone off the card."""
+    copies = [t]
+    if t.device.type == "cuda":
+        l2 = torch.cuda.get_device_properties(t.device).L2_cache_size
+        n = -(-4 * l2 // (t.numel() * t.element_size()))
+        copies += [t.clone() for _ in range(n - 1)]
+    return functools.partial(next, itertools.cycle(copies))
+
+
 def stage_ms(fn, device: torch.device, iters: int = 10,
              warmup: int = 2) -> Dict[str, Optional[float]]:
     """Mean milliseconds of ``fn`` over ``iters`` calls after ``warmup``:
@@ -207,11 +223,13 @@ def stage_ms(fn, device: torch.device, iters: int = 10,
 def hand_written_kernels() -> Dict:
     """Every CUDA kernel of the port by its row name in ``chip_smoke.py``'s
     ``kernels`` line."""
+    from sgg_torch.ops import conv_epilogue as EP
     from sgg_torch.ops import roi_align as K1
     from sgg_torch.ops import vgg_stem as K2
     return {"roi_align": K1.KERNEL, "roi_align_bwd_fmap": K1.KERNEL_BWD_FMAP,
             "roi_align_bwd_boxes": K1.KERNEL_BWD_BOXES,
-            "vgg_conv1": K2.KERNEL, "vgg_conv1_bwd": K2.KERNEL_BWD}
+            "vgg_conv1": K2.KERNEL, "vgg_conv1_bwd": K2.KERNEL_BWD,
+            "conv_epilogue": EP.KERNEL}
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:

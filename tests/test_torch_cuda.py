@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from sgg_torch.ops import conv_epilogue as tep
 from sgg_torch.ops import roi_align as troi
 from sgg_torch.ops import vgg_stem
 
@@ -1253,3 +1254,162 @@ def test_one_rank_nccl_step_is_the_no_group_step_bit_for_bit(dev, tmp_path):
         assert torch.equal(v.reshape(-1).view(torch.uint8),
                            sb[k].reshape(-1).view(torch.uint8)), k
     assert ka == kb == {"bf16": 4} and va == vb == {"bf16": 2}
+
+
+# ------------------------------------------------- the trunk's conv epilogue
+
+def _trunk_convs(side=592):
+    """The twelve cuDNN convs of the trunk at ``side`` px: (name, H, C,
+    pool after)."""
+    from sgg_torch.models.backbone import POOL_AFTER, VGG16_CFG
+    out, block, k, h = [], 1, 1, side
+    for c, pool in zip([v for v in VGG16_CFG if v != "M"], POOL_AFTER):
+        out.append((f"conv{block}_{k}", h, c, pool))
+        k += 1
+        if pool:
+            block, k, h = block + 1, 1, h // 2
+    return out[1:]
+
+
+def _epilogue_case(B, H, W, C, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(B, H, W, C, generator=g, device=dev).to(dtype)
+    b = torch.randn(C, generator=g, device=dev) * 0.5
+    return y, b
+
+
+def _epilogue_matches_plain(y, b, pool):
+    want = tep.conv_epilogue_reference(y, b, pool)
+    before = tep.KERNEL.launches
+    got = tep.conv_epilogue(y.clone() if not pool else y, b, pool)
+    torch.cuda.synchronize()
+    assert tep.KERNEL.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("conv", _trunk_convs(), ids=lambda c: c[0])
+def test_conv_epilogue_kernel_matches_plain_at_the_trunk_shapes(conv, dtype,
+                                                                dev):
+    """Bit for bit at each of the twelve convs' outputs at B = 24, 592 px
+    (in place without a pool, into a new map with one)."""
+    _, H, C, pool = conv
+    y, b = _epilogue_case(24, H, H, C, dtype, dev)
+    _epilogue_matches_plain(y, b, pool)
+
+
+# odd sides (the pool floors them), a bf16 bias, the smallest and the
+# largest channel counts a vector route takes
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bhwc,bias16", [((2, 75, 37, 256), False),
+                                         ((3, 37, 37, 512), True),
+                                         ((1, 5, 9, 8), False),
+                                         ((2, 33, 3, 1024), True)])
+@pytest.mark.parametrize("pool", [True, False])
+def test_conv_epilogue_kernel_matches_plain_at_odd_sizes(bhwc, bias16, pool,
+                                                         dtype, dev):
+    if dtype == torch.float32 and bhwc[-1] == 8:
+        bhwc = (*bhwc[:3], 4)
+    y, b = _epilogue_case(*bhwc, dtype, dev, seed=1)
+    _epilogue_matches_plain(y, b.bfloat16() if bias16 else b, pool)
+
+
+def test_conv_epilogue_refuses_what_the_kernel_cannot_take(dev):
+    b = torch.zeros(64, device=dev)
+    with pytest.raises(ValueError):  # C / 8 does not divide 256
+        tep.conv_epilogue(torch.zeros(1, 4, 4, 24, device=dev).bfloat16(),
+                          torch.zeros(24, device=dev), False)
+    with pytest.raises(ValueError):  # not contiguous NHWC
+        tep.conv_epilogue(torch.zeros(1, 64, 4, 4, device=dev).permute(
+            0, 2, 3, 1), b, False)
+    with pytest.raises(ValueError):  # mixed devices
+        tep.conv_epilogue(torch.zeros(1, 4, 4, 64, device=dev),
+                          torch.zeros(64), False)
+    with pytest.raises(TypeError):
+        tep.conv_epilogue(torch.zeros(1, 4, 4, 64, device=dev).half(), b,
+                          True)
+
+
+def _frozen_trunk(dev, dtype):
+    from sgg_torch.models.backbone import VGG16Trunk
+    from sgg_torch.models.relhead import init_weights
+    from sgg_torch.models.resnet import set_compute_dtype
+    trunk = init_weights(VGG16Trunk(), 0).requires_grad_(False)
+    set_compute_dtype(trunk, dtype, store=True)
+    return trunk.to(dev)
+
+
+def _old_chain(trunk, images):
+    """The trunk as it ran before the epilogue: cuDNN's conv2d with its
+    bias, then ReLU, then max_pool2d."""
+    import torch.nn.functional as F
+
+    from sgg_torch.models.backbone import VGG16_CFG, normalize_images
+    dtype = trunk.compute_dtype
+    stem = trunk.conv[0]
+    x = normalize_images(images).to(dtype).contiguous()
+    x = vgg_stem.vgg_conv1(x, stem.weight.permute(2, 3, 1, 0),
+                           stem.bias).permute(0, 3, 1, 2)
+    i = 1
+    for v in VGG16_CFG[1:]:
+        if v == "M":
+            x = F.max_pool2d(x, 2, 2)
+        else:
+            c = trunk.conv[i]
+            x = F.relu(F.conv2d(x, c.weight.to(dtype), c.bias.to(dtype),
+                                padding=1))
+            i += 1
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_frozen_trunk_launches_the_epilogue_never_plain(dtype, dev,
+                                                        monkeypatch):
+    """A frozen trunk's forward: K2 once, then 4 pooled and 8 in-place
+    epilogue launches; a trunk that asks for gradients launches K2 and no
+    epilogue."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    trunk = _frozen_trunk(dev, dtype)
+    images = torch.randint(0, 256, (2, 96, 80, 3), dtype=torch.uint8,
+                           device=dev)
+    monkeypatch.setattr(tep, "conv_epilogue_reference", refuse)
+    tep.KERNEL.reset_counts()
+    vgg_stem.KERNEL.reset_counts()
+    with torch.no_grad():
+        trunk(images)
+    torch.cuda.synchronize()
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert dict(tep.KERNEL.routes) == {f"{name}-pool": 4,
+                                       f"{name}-nopool": 8}
+    assert vgg_stem.KERNEL.launches == 1
+    tep.KERNEL.reset_counts()
+    vgg_stem.KERNEL.reset_counts()
+    trunk.conv[5].weight.requires_grad_(True)
+    trunk(images).float().sum().backward()
+    torch.cuda.synchronize()
+    assert tep.KERNEL.launches == 0 and vgg_stem.KERNEL.launches == 1
+    assert torch.isfinite(trunk.conv[5].weight.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_frozen_trunk_matches_the_old_chain(dtype, dev):
+    """The whole frozen trunk (B = 2, 592 px) against conv2d with its bias,
+    ReLU and max_pool2d: within one rounding of the map's type at its
+    largest magnitude (the bias is added in f32 and the sum narrowed once
+    to the map's type)."""
+    trunk = _frozen_trunk(dev, dtype)
+    g = torch.Generator(device=dev).manual_seed(2)
+    images = torch.randint(0, 256, (2, 592, 592, 3), dtype=torch.uint8,
+                           device=dev, generator=g)
+    with torch.no_grad():
+        got = trunk(images)
+        want = _old_chain(trunk, images)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, 37, 37, 512)
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top))
+                  - (7 if dtype == torch.bfloat16 else 23))
+    assert float((got.float() - want.float()).abs().max()) <= ulp

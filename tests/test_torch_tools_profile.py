@@ -121,7 +121,9 @@ def test_profile_trunk():
                   + [f"variant {v}" for v in profile_trunk.VARIANTS]
                   + [f"layout {c} {lay}" for c in ("conv1_1", "conv1_2")
                      for lay in profile_trunk.LAYOUTS]
-                  + ["layer normalize"] + [f"layer {n}" for n in layers])
+                  + ["layer normalize"] + [f"layer {n}" for n in layers]
+                  + [f"{k} {n}" for n in layers[1:]
+                     for k in ("epilogue", "plain", "library")])
     assert list(st) == want_names
     full = trunk_flops(B, img)
     assert close(st["baseline"]["flops"], full)
@@ -141,6 +143,18 @@ def test_profile_trunk():
                      2 * B * img * img * 64 * 64 * 9)
     assert close(sum(st[f"layer {n}"]["flops"] for n in layers), full)
     assert st["layer normalize"]["flops"] == 0
+    # the twelve cuDNN convs' epilogues: 4 take a pool, the map read once
+    # and the (pooled) map written once, in bf16
+    assert len(layers) == 13 and [n for n in layers if "pool" in n] == [
+        "conv1_2 (64) + pool1", "conv2_2 (128) + pool2",
+        "conv3_3 (256) + pool3", "conv4_3 (512) + pool4"]
+    sides = [img, img // 2, img // 2, img // 4, img // 4, img // 4,
+             img // 8, img // 8, img // 8] + [img // 16] * 3
+    want = [2 * B * h * h * c * (1.25 if "pool" in n else 2)
+            for n, h, c in zip(layers[1:], sides,
+                               [64, 128, 128] + [256] * 3 + [512] * 6)]
+    assert list(line["epilogue_bytes"].values()) == want
+    assert set(line["epilogue_bound_ms"].values()) == {None}
 
 
 def test_profile_sgdet():
